@@ -1,0 +1,65 @@
+"""Entry point: ``python -m tdfo_tpu_torch.launch {synth,preprocess-ctr,train}
+--config config.toml [--device cuda|cpu]``.
+
+Port of ``tdfo_tpu/launch.py`` for this slice's three subcommands:
+
+  * ``synth``          — write a synthetic raw-goodreads fixture;
+  * ``preprocess-ctr`` — TwoTower ETL -> parquet shards + size_map.json;
+  * ``train``          — build the Trainer from config and fit.
+
+``train`` runs on the card unless ``--device cpu`` is given, and refuses to
+start when CUDA is asked for and absent.  The other subcommands of the
+reference (serve, online, plan, ...) arrive with their slices
+(``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="tdfo_tpu_torch.launch", description=__doc__)
+    p.add_argument("command", nargs="?", default="train",
+                   choices=["train", "preprocess-ctr", "synth"])
+    p.add_argument("--config", default="config.toml", help="path to config.toml")
+    p.add_argument("--data-dir", default=None, help="override config data_dir")
+    p.add_argument("--log-dir", default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="device for train (default: the card)")
+    args = p.parse_args(argv)
+
+    from tdfo_tpu_torch.core.config import read_configs
+
+    overrides = {}
+    if args.data_dir:
+        overrides["data_dir"] = args.data_dir
+    cfg = read_configs(args.config, **overrides)
+
+    if args.command == "synth":
+        from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+
+        write_synthetic_goodreads(cfg.data_dir)
+        print(f"synthetic goodreads raw files written to {cfg.data_dir}")
+        return 0
+    if args.command == "preprocess-ctr":
+        from tdfo_tpu_torch.data.ctr_preprocessing import run_ctr_preprocessing
+
+        size_map = run_ctr_preprocessing(
+            cfg.data_dir, seed=cfg.seed, write_format=cfg.write_format,
+            hot_vocab=cfg.embeddings.hot_vocab,
+            hot_fraction=cfg.embeddings.hot_fraction,
+        )
+        print(f"size_map: {size_map}")
+        return 0
+
+    from tdfo_tpu_torch.train.trainer import Trainer
+
+    metrics = Trainer(cfg, log_dir=args.log_dir, device=args.device).fit()
+    print({k: round(v, 5) for k, v in metrics.items()})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

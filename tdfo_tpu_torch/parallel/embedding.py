@@ -1,0 +1,228 @@
+"""ShardedEmbeddingCollection — single-device port of
+``tdfo_tpu/parallel/embedding.py``.
+
+Tables are plain tensors in a dict (name -> tensor), exactly the reference's
+``init()`` pytree: plain tables are ``[V, d]``; fused tables (vocab above
+``fused_threshold``) live as packed fat lines ``[L, T, 128]``
+(``ops/fat_lines.py``) and all fused tables sharing ``(d, sharding)`` are
+STACKED into one ``__fatstack_{d}_{sharding}`` array, so the whole group
+costs one dedupe and one ``fat_line_update`` launch per step (fbgemm's
+table-batched embedding design).  Array names and row offsets equal the
+reference's, so tables move between the packages as arrays.
+
+Ported: ``make_embedding_specs``, ``EmbeddingSpec`` and, on the
+collection, ``init``, ``features``, ``resolve``, ``resolve_table``,
+``fat_layout``, ``fat_layout_for``, ``array_embedding_dim``,
+``lookup(mode="gspmd")`` and ``sparse_update``.  Not ported yet: meshes,
+column/table sharding, the psum/alltoall lookups and the grouped exchange
+(``ROADMAP.md`` Queue A item 12), plain-table stacking (item 10), hot/cold
+tables, the update cache and non-f32 storage (item 13).  Refused, not
+ignored.
+
+``init`` draws from a ``torch.Generator`` (the reference uses
+``jax.random``, so same-seed tables differ between the packages; the
+parity tests inject the reference's tables through ``interop``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from tdfo_tpu_torch.core.device import resolve_device
+from tdfo_tpu_torch.ops.fat_lines import fat_gather_rows, fat_pack, line_layout
+
+__all__ = ["EmbeddingSpec", "ShardedEmbeddingCollection", "make_embedding_specs"]
+
+
+def make_embedding_specs(size_map, entries, embed_dim: int,
+                         sharding: str = "row",
+                         fused_threshold: int | None = 16384):
+    """One table per ``(size_map key, table name, input column)`` entry:
+    glorot-bound uniform init ``sqrt(6 / (V + D))``, fat-line fused storage
+    above ``fused_threshold`` rows (``None`` disables)."""
+    specs = []
+    for key, name, column in entries:
+        vocab = int(size_map[key])
+        specs.append(EmbeddingSpec(
+            name=name,
+            num_embeddings=vocab,
+            embedding_dim=embed_dim,
+            features=(column,),
+            sharding=sharding,
+            init_scale=math.sqrt(6.0 / (vocab + embed_dim)),
+            fused=(fused_threshold is not None
+                   and sharding in ("row", "replicated")
+                   and vocab > fused_threshold),
+        ))
+    return specs
+
+
+@dataclass(frozen=True)
+class EmbeddingSpec:
+    """torchrec ``EmbeddingConfig`` parity (reference ``EmbeddingSpec``)."""
+
+    name: str
+    num_embeddings: int
+    embedding_dim: int
+    features: tuple[str, ...] = ()
+    sharding: str = "row"
+    init_scale: float = 1.0
+    dtype: torch.dtype = torch.float32
+    fused: bool = False
+
+    def feature_names(self) -> tuple[str, ...]:
+        return self.features or (self.name,)
+
+
+class ShardedEmbeddingCollection:
+    """A set of embedding tables and their lookup, on one device.
+
+    ``init`` returns the table dict; ``lookup`` maps feature ids to vectors
+    (a gather, no autograd link to the tables); ``sparse_update`` applies the
+    row-sparse optimizer to one array in place."""
+
+    def __init__(self, specs: list[EmbeddingSpec], *, fused_kind: str = "adam"):
+        line_layout(1, fused_kind)  # validates the kind eagerly
+        self.fused_kind = fused_kind
+        self.specs = {s.name: s for s in specs}
+        if len(self.specs) != len(specs):
+            raise ValueError("duplicate table names")
+        self._feature_to_table: dict[str, str] = {}
+        for s in specs:
+            if s.sharding not in ("row", "replicated"):
+                raise NotImplementedError(
+                    f"table {s.name!r}: {s.sharding!r} sharding is not ported "
+                    "yet (ROADMAP.md Queue A item 12)")
+            if s.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"table {s.name!r}: {s.dtype} storage is not ported yet "
+                    "(ROADMAP.md Queue A item 13)")
+            for f in s.feature_names():
+                if f in self._feature_to_table:
+                    raise ValueError(f"feature {f!r} served by two tables")
+                self._feature_to_table[f] = s.name
+        # fused-table stacks: tables sharing (dim, sharding) -> one array
+        self._stack_rows: dict[str, tuple[int, int]] = {}
+        self._fat_groups: dict[str, tuple[str, int, list[EmbeddingSpec]]] = {}
+        self._fat_member_to_stack: dict[str, str] = {}
+        by_key: dict[tuple, list[EmbeddingSpec]] = {}
+        for s in specs:
+            if s.fused:
+                by_key.setdefault((s.embedding_dim, s.sharding), []).append(s)
+        for (dim, shard_kind), group in sorted(by_key.items(),
+                                               key=lambda kv: str(kv[0])):
+            if len(group) < 2:
+                continue  # single tables keep their own array (and name)
+            gname = f"__fatstack_{dim}_{shard_kind}"
+            total = sum(s.num_embeddings for s in group)
+            unit = self.fat_layout(dim).r  # whole lines
+            total = -(-total // unit) * unit
+            off = 0
+            for s in group:
+                self._stack_rows[s.name] = (off, total)
+                self._fat_member_to_stack[s.name] = gname
+                off += s.num_embeddings
+            self._fat_groups[gname] = (shard_kind, dim, group)
+
+    # ---------------------------------------------------------------- init
+
+    def fat_layout(self, d: int):
+        """Packed-line geometry of fused storage at embedding dim ``d``
+        under this collection's ``fused_kind``."""
+        return line_layout(d, self.fused_kind)
+
+    def fat_layout_for(self, array_name: str):
+        return self.fat_layout(self.array_embedding_dim(array_name))
+
+    def init(self, seed: int = 0, *, device="cuda") -> dict[str, torch.Tensor]:
+        """Create all tables on ``device`` (default the card; ``"cpu"`` must
+        be asked for).  Uniform(-init_scale, init_scale) per table from a
+        ``torch.Generator`` seeded with ``seed``; optimizer state in fat
+        lines starts at zero; stack padding rows are zero."""
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+
+        def draw(spec, rows):
+            t = torch.rand((rows, spec.embedding_dim), generator=gen,
+                           device=device, dtype=torch.float32)
+            return t.mul_(2 * spec.init_scale).sub_(spec.init_scale)
+
+        tables: dict[str, torch.Tensor] = {}
+        for name, spec in self.specs.items():
+            if name in self._fat_member_to_stack:
+                continue
+            unit = (self.fat_layout(spec.embedding_dim).r if spec.fused else 1)
+            rows = -(-spec.num_embeddings // unit) * unit
+            t = draw(spec, rows)
+            tables[name] = (fat_pack(t, kind=self.fused_kind) if spec.fused
+                            else t)
+        for gname, (_, dim, group) in self._fat_groups.items():
+            total = self._stack_rows[group[0].name][1]
+            t = torch.zeros((total, dim), dtype=torch.float32, device=device)
+            for s in group:
+                off, _ = self._stack_rows[s.name]
+                t[off:off + s.num_embeddings] = draw(s, s.num_embeddings)
+            tables[gname] = fat_pack(t, kind=self.fused_kind)
+        return tables
+
+    # -------------------------------------------------------------- lookup
+
+    def features(self) -> tuple[str, ...]:
+        """All feature names served by this collection."""
+        return tuple(self._feature_to_table)
+
+    def resolve(self, feature: str) -> tuple[str, EmbeddingSpec, int]:
+        """Map a feature name to ``(array_name, spec, row_offset)``."""
+        tname = self._feature_to_table.get(feature)
+        if tname is None:
+            raise KeyError(f"no table serves feature {feature!r}")
+        return self.resolve_table(tname)
+
+    def resolve_table(self, tname: str) -> tuple[str, EmbeddingSpec, int]:
+        """:meth:`resolve` keyed by logical TABLE name instead of feature."""
+        spec = self.specs[tname]
+        gname = self._fat_member_to_stack.get(tname)
+        if gname is not None:
+            return gname, spec, self._stack_rows[tname][0]
+        return tname, spec, 0
+
+    def array_embedding_dim(self, array_name: str) -> int:
+        if array_name in self._fat_groups:
+            return self._fat_groups[array_name][1]
+        return self.specs[array_name].embedding_dim
+
+    def lookup(self, tables, features, mode: str = "gspmd"):
+        """ids -> f32 vectors for every feature (ids any shape; the output
+        gains a trailing ``embedding_dim`` axis).  Out-of-range ids clamp as
+        the reference's ``jnp.take`` does."""
+        if mode != "gspmd":
+            raise NotImplementedError(
+                f"lookup mode {mode!r} is not ported yet (ROADMAP.md Queue A "
+                "item 12)")
+        out: dict[str, torch.Tensor] = {}
+        for feat, ids in features.items():
+            aname, spec, offset = self.resolve(feat)
+            table = tables[aname]
+            gid = ids.to(torch.int64) + offset
+            if spec.fused:
+                vecs = fat_gather_rows(table, gid,
+                                       self.fat_layout(spec.embedding_dim))
+            else:
+                vecs = table[gid.clamp(0, table.shape[0] - 1)]
+            out[feat] = vecs.to(torch.float32)
+        return out
+
+    # -------------------------------------------------------------- update
+
+    def sparse_update(self, opt, array_name: str, table, slots, ids, grads,
+                      max_distinct: int | None = None):
+        """Apply the row-sparse optimizer to one array (in place; returns
+        ``(table, slots)``).  On one device every array takes
+        ``opt.update`` directly (the reference's shard_map branch serves
+        row-sharded fat tables on a real model axis)."""
+        d = self.array_embedding_dim(array_name)
+        return opt.update(table, slots, ids, grads, embedding_dim=d,
+                          capacity=max_distinct, max_distinct=max_distinct)

@@ -1,0 +1,109 @@
+"""The port's CLI journey on the CPU: ``python -m tdfo_tpu_torch.launch
+synth | preprocess-ctr | train --device cpu`` with ``model_parallel = true``
+and ``fused_table_threshold = 0`` (every table fat, packed R = 2 lines at
+d = 16).  ``metrics.jsonl`` must carry train loss / train AUC and an eval
+AUC in range; the fused update ran through the ``fat_line_update``
+wrapper."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401
+import numpy as np
+import pytest
+import torch
+
+from tdfo_tpu_torch.core.config import read_configs
+from tdfo_tpu_torch.ops.kernels import fat_line_update as tk
+from tdfo_tpu_torch.train.trainer import Trainer, pad_batch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _write_config(tmp: Path, **extra) -> Path:
+    body = {
+        "data_dir": str(tmp / "data"), "model": "twotower",
+        "model_parallel": True, "embed_dim": 16, "fused_table_threshold": 0,
+        "n_epochs": 1, "per_device_train_batch_size": 256,
+        "per_device_eval_batch_size": 256, "log_every_n_steps": 4, **extra,
+    }
+    lines = [f"{k} = {json.dumps(v) if not isinstance(v, bool) else str(v).lower()}"
+             for k, v in body.items()]
+    path = tmp / "config.toml"
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def _launch(*args):
+    """``python -m tdfo_tpu_torch.launch`` in a subprocess."""
+    return subprocess.run([sys.executable, "-m", "tdfo_tpu_torch.launch", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+
+
+def test_cli_synth_preprocess_train_cpu(tmp_path):
+    from tdfo_tpu_torch import launch
+
+    cfg = _write_config(tmp_path)
+    for cmd in ("synth", "preprocess-ctr"):  # in-process: same entry point
+        assert launch.main([cmd, "--config", str(cfg)]) == 0
+    out = _launch("train", "--config", str(cfg), "--log-dir",
+                  str(tmp_path / "logs"), "--device", "cpu")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "__fatstack_16_row" in out.stdout  # every table in one fat stack
+    recs = [json.loads(x) for x in
+            (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in recs if "train_loss" in r]
+    epoch = [r for r in recs if "train_loss_epoch" in r]
+    evals = [r for r in recs if "auc" in r]
+    assert steps and np.isfinite([r["train_loss"] for r in steps]).all()
+    assert epoch and 0.0 <= epoch[-1]["train_auc"] <= 1.0 and epoch[-1]["steps"] > 4
+    assert evals and 0.0 <= evals[-1]["auc"] <= 1.0
+    assert np.isfinite(evals[-1]["eval_loss"])
+
+
+def test_train_defaults_to_the_card(tmp_path):
+    from tdfo_tpu_torch import launch
+
+    cfg = _write_config(tmp_path)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            launch.main(["train", "--config", str(cfg)])
+
+
+def test_trainer_in_process_counts_launches(tmp_path):
+    """In-process epoch on the CPU: the packed-form fused update runs
+    through the wrapper once per step, and eval reads the trained tables."""
+    from tdfo_tpu_torch.data.ctr_preprocessing import run_ctr_preprocessing
+    from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+
+    write_synthetic_goodreads(tmp_path / "data")
+    run_ctr_preprocessing(tmp_path / "data")
+    cfg = read_configs(_write_config(tmp_path))
+    tr = Trainer(cfg, device="cpu")
+    assert tr.coll.fat_layout_for("__fatstack_16_row").r == 2
+    before = tk.fat_line_update.launches
+    loss = tr.train_epoch(0)
+    assert np.isfinite(loss)
+    assert tk.fat_line_update.launches - before == tr._logged_steps > 0
+    m = tr.evaluate(0)
+    assert 0.0 <= m["auc"] <= 1.0
+
+
+def test_pad_batch_zero_weights():
+    b = {"a": np.arange(3, dtype=np.int32), "b": np.ones((3, 2), np.float32)}
+    out, w = pad_batch(b, 5)
+    assert out["a"].tolist() == [0, 1, 2, 0, 0] and out["b"].shape == (5, 2)
+    assert w.tolist() == [1, 1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("extra", [
+    {"model_parallel": False}, {"checkpoint_dir": "ckpt"},
+    {"dedup_lookup": True}, {"steps_per_execution": 2},
+    {"mixed_precision": True}, {"lookup_mode": "psum"},
+])
+def test_unported_knobs_refuse(tmp_path, extra):
+    cfg = read_configs(_write_config(tmp_path, **extra))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
+        Trainer(cfg, device="cpu")
