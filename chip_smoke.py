@@ -32,9 +32,42 @@ Phases (each prints its lines; any failure raises, so the script never exits
    directory with ``model_parallel = true``, ``embed_dim = 16``,
    ``fused_table_threshold = 0`` (every table fat, packed R = 2 lines),
    ``n_epochs = 1``; ``metrics.jsonl`` must hold eval AUC.
+5. flash_oracle — the three flash-attention kernels (forward, dQ, dK/dV)
+   against their plain versions on the card, f32 and bf16, T in {20, 100,
+   4096}, Dh in {32, 64}, with key padding (a whole first key tile masked at
+   T >= 80), a fully masked batch row (output 0, lse = +inf, zero
+   gradients) and ragged last tiles.  f32: forward and lse within
+   rtol/atol 2e-5, gradients within 1e-4 (summation order only, the JAX
+   tests' own bounds).  bf16: compared in bf16, within 2e-2 relative plus
+   2e-2 of the largest |value| (the kernel and its plain version round p,
+   ds and the result to bf16 at the same places, so a different f32
+   summation order can move a rounding by one bf16 ulp, 2^-8).
+6. flash_timing — CUDA-event times of each flash kernel, its plain version
+   and ``torch.nn.functional.scaled_dot_product_attention`` with the same
+   boolean mask (the yardstick, timed only; the backward kernels' yardstick
+   is SDPA's whole backward), L2 flushed before each launch, beside the
+   bound (the larger of bytes / HBM rate and 4, 6 or 8 B H T^2 Dh flops /
+   peak rate for the operand type), at the Bert4Rec main path's shape (B =
+   256, H = 2, T = 20, Dh = 32, f32) and at ``bench_kernels.py:23``'s (B =
+   1, H = 8, T = 4096, Dh = 64) in bf16 and f32.
+7. b4r_main — Bert4Rec sparse training with ``attn = "flash"`` at the full
+   width of ``configs/bert4rec.toml`` (d = 64, 2 heads, 2 layers, ff 256, T =
+   20, B = 256, dropout 0.1, adam lr 3e-4, wd 1e-4) over the catalogue of
+   ``bench.py::bench_serve_seq`` (200,000 items; a fat item table): 20 steps
+   with finite losses, n_layers launches per step of each flash kernel and
+   one of ``fat_line_update``; then the first 3 steps at dropout 0 on the
+   card and on the port's CPU path from one initial state: losses within
+   rtol 1e-4, and the touched item rows too, except at most 0.1% of their
+   elements, each within 2 lr per step (Adam's step on a gradient element
+   that lies inside the two devices' f32 summation noise may take either
+   sign).
+8. b4r_cli — ``launch synth -> preprocess-seq -> train`` with ``model =
+   "bert4rec"``, ``attn = "flash"``, ``fused_table_threshold = 0``;
+   ``metrics.jsonl`` must hold Recall/NDCG@{10,20,50} and ``test_*``, and
+   every kernel must have launched.
 
-``--phases profile`` (not in the default run) adds a ``torch.profiler``
-breakdown of steady main-path steps.
+``--phases profile`` / ``profile_b4r`` (not in the default run) add a
+``torch.profiler`` breakdown of steady TwoTower / Bert4Rec main-path steps.
 
 Output: a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -64,8 +97,28 @@ SIZE_MAP = {
 BATCH, DIM, LR, WD = 8192, 64, 3e-4, 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 outside the tensor cores, same sheet
+BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense, same sheet
 ADAM_FLOP_PER_ELEMENT = 16  # mu 3, nu 4, 2 bias divides, sqrt, eps, divide, wd 2, lr, subtract
 KINDS = ("sgd", "adagrad", "rowwise_adagrad", "adam")
+
+# configs/bert4rec.toml at full width over bench.py::bench_serve_seq's
+# catalogue (bench.py:1286)
+B4R = dict(n_items=200_000, max_len=20, embed_dim=64, n_heads=2, n_layers=2,
+           dropout=0.1)
+B4R_BATCH, B4R_SEED, B4R_MASK_PROB = 256, 42, 0.2
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# 4, 6 and 8 B H T^2 Dh flops: QK^T and PV; dQ recomputes QK^T, dO V^T and
+# adds dS K; dK/dV recomputes QK^T, dO V^T and adds P^T dO and dS^T Q
+FLASH_FLOPS = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+_CSRC, _PK = "tdfo_tpu_torch/ops/csrc/", "tdfo_tpu/ops/pallas_kernels.py:"
+KERNEL_TABLE = (  # name, source, the TPU kernel it replaces
+    ("fat_line_update", _CSRC + "fat_line_update.cu", _PK + "885"),
+    ("flash_fwd", _CSRC + "flash_attn_fwd.cu", _PK + "73"),
+    ("flash_bwd_dq", _CSRC + "flash_attn_bwd.cu", _PK + "222"),
+    ("flash_bwd_dkv", _CSRC + "flash_attn_bwd.cu", _PK + "261"),
+)
+DEFAULT_PHASES = ("build", "oracle", "timing", "main", "cli", "flash_oracle",
+                  "flash_timing", "b4r_main", "b4r_cli")
 
 
 def say(*parts) -> None:
@@ -382,12 +435,39 @@ def phase_main_path(torch, card: str, steps: int = 20, check_steps: int = 3) -> 
     return {"launches": launches, "step_ms": step_ms, "losses": losses}
 
 
-def phase_profile(torch, warm: int = 3, steps: int = 5) -> None:
-    """Optional (``--phases profile``): ``torch.profiler`` over ``steps``
-    steady main-path steps; prints device time by kernel and the device's
-    busy share of the window (host clock)."""
+def profile_steps(torch, name, state, step, batches, warm, *step_args) -> None:
+    """``torch.profiler`` over the steady steps ``batches[warm:]``; prints
+    device time by kernel and the device's busy share of the window (host
+    clock)."""
     from torch.profiler import ProfilerActivity, profile
 
+    for b in batches[:warm]:
+        state, _ = step(state, b, *step_args)
+    torch.cuda.synchronize()
+    steps = len(batches) - warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[warm:]:
+            state, _ = step(state, b, *step_args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    n_kernels = sum(e.count for e in events)
+    say(f"profile {name}: {steps} steps, wall {wall_ms:.4f} ms "
+        f"({wall_ms / steps:.4f} ms/step), device busy {dev_us / 1e3:.4f} ms "
+        f"({100 * dev_us / 1e3 / wall_ms:.2f}% of the window), "
+        f"{n_kernels / steps:.1f} device ops per step")
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))
+    for e in top[:15]:
+        say(f"  {getattr(e, 'self_device_time_total', 0.0) / steps:10.2f} us/step "
+            f"x{e.count // steps:<4d} {e.key[:110]}")
+
+
+def phase_profile(torch, warm: int = 3, steps: int = 5) -> None:
+    """Optional (``--phases profile``): the TwoTower main path's steps."""
     from tdfo_tpu_torch.models.twotower import TwoTowerBackbone, ctr_embedding_specs
     from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
 
@@ -399,28 +479,7 @@ def phase_profile(torch, warm: int = 3, steps: int = 5) -> None:
     rng = np.random.default_rng(11)
     batches = [to_device(torch, make_host_batch(rng, BATCH), "cuda")
                for _ in range(warm + steps)]
-    for b in batches[:warm]:
-        state, _ = step(state, b)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches[warm:]:
-            state, _ = step(state, b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-    n_kernels = sum(e.count for e in events)
-    say(f"profile: {steps} steps, wall {wall_ms:.4f} ms ({wall_ms / steps:.4f} "
-        f"ms/step), device busy {dev_us / 1e3:.4f} ms "
-        f"({100 * dev_us / 1e3 / wall_ms:.2f}% of the window), "
-        f"{n_kernels / steps:.1f} device ops per step")
-    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))
-    for e in top[:15]:
-        say(f"  {getattr(e, 'self_device_time_total', 0.0) / steps:10.2f} us/step "
-            f"x{e.count // steps:<4d} {e.key[:110]}")
+    profile_steps(torch, "twotower", state, step, batches, warm)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -462,14 +521,412 @@ def phase_cli(torch) -> dict:
     return {"launches": launches, "auc": aucs[-1]}
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def flash_inputs(torch, dtype, b, h, t, dh, gen, masked_row=True):
+    """q, k, v, dO on the card and a key mask: ~25% of keys masked at random
+    (10% without ``masked_row``); with ``masked_row`` batch row 0 also has
+    its first min(40, T/2) keys masked (a whole 32-key tile at T >= 80) and
+    the last batch row has every key masked."""
+    q, k, v, do = (torch.randn((b, h, t, dh), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    kv = torch.rand((b, t), generator=gen, device="cuda") > (
+        0.25 if masked_row else 0.1)
+    kv[:, -1] = True
+    if masked_row:
+        kv[0, :min(40, t // 2)] = False
+        kv[-1] = False
+    return q, k, v, do, kv
+
+
+def flash_tol(torch, dtype, ref, f32_tol):
+    if dtype == torch.float32:
+        return dict(rtol=f32_tol, atol=f32_tol)
+    return dict(rtol=2e-2, atol=2e-2 * float(ref.float().abs().max()))
+
+
+def flash_check(torch, what, got, want, tol) -> float:
+    """Kernel vs plain within ``tol`` (inf where the plain version has inf);
+    returns the max |err| over the finite elements."""
+    torch.testing.assert_close(got.float(), want.float(), **tol,
+                               msg=lambda s: f"{what}: {s}")
+    fin = torch.isfinite(want)
+    return float((got.float()[fin] - want.float()[fin]).abs().max()) if fin.any() else 0.0
+
+
+def flash_against_plain(torch, fa, name, q, k, v, do, kv, masked_row) -> dict:
+    """Each flash kernel against its plain version on the same operands
+    (the backward pair gets the plain forward's lse and delta); returns the
+    max |err| per kernel."""
+    f32 = q.dtype == torch.float32
+    out, lse = fa.flash_fwd(q, k, v, kv)
+    torch.cuda.synchronize()
+    out_inf, none = fa.flash_fwd(q, k, v, kv, with_lse=False)
+    torch.cuda.synchronize()
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, kv)
+    torch.cuda.synchronize()
+    if none is not None or not torch.equal(out_inf, out):
+        raise AssertionError(f"{name}: the inference forward differs")
+    err = {"flash_fwd": max(
+        flash_check(torch, f"{name} out", out, out_p,
+                    flash_tol(torch, q.dtype, out_p, 2e-5)),
+        flash_check(torch, f"{name} lse", lse, lse_p, dict(rtol=2e-5, atol=2e-5)))}
+    delta = (do.float() * out_p.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, kv, lse_p, delta)
+    torch.cuda.synchronize()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, kv, lse_p, delta)
+    torch.cuda.synchronize()
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, kv, lse_p, delta)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, kv, lse_p, delta)
+    torch.cuda.synchronize()
+    err["flash_bwd_dq"] = flash_check(torch, f"{name} dq", dq, dq_p,
+                                      flash_tol(torch, q.dtype, dq_p, 1e-4))
+    err["flash_bwd_dkv"] = max(
+        flash_check(torch, f"{name} dk", dk, dk_p,
+                    flash_tol(torch, q.dtype, dk_p, 1e-4)),
+        flash_check(torch, f"{name} dv", dv, dv_p,
+                    flash_tol(torch, q.dtype, dv_p, 1e-4)))
+    if masked_row and not (bool((out[-1] == 0).all())
+                           and bool(torch.isinf(lse[-1]).all())
+                           and all(bool((x[-1] == 0).all()) for x in (dq, dk, dv))):
+        raise AssertionError(f"{name}: the fully masked row is not 0 / +inf")
+    say(f"  {name}: max_abs_err fwd {err['flash_fwd']:.3e} dq "
+        f"{err['flash_bwd_dq']:.3e} dkv {err['flash_bwd_dkv']:.3e}"
+        f"{' (f32)' if f32 else ' (bf16)'}")
+    return err
+
+
+def phase_flash_oracle(torch) -> dict:
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {dt: dict.fromkeys(FLASH_KERNELS, 0.0) for dt in ("f32", "bf16")}
+    for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for t in (20, 100, 4096):
+            for dh in (32, 64):
+                ops = flash_inputs(torch, dtype, 2, 2, t, dh, gen)
+                err = flash_against_plain(torch, fa, f"{dt} B=2 H=2 T={t} Dh={dh}",
+                                          *ops, masked_row=True)
+                for k, e in err.items():
+                    worst[dt][k] = max(worst[dt][k], e)
+    say(f"flash_oracle: passed, worst max_abs_err {worst}")
+    return worst
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def flash_bound(torch, name, b, h, t, dh, dtype):
+    """(bound ms, "bytes" | "operations"): each input read once, each output
+    written once (fwd: q, k, v, mask -> out, lse; dQ: q, k, v, dO, mask, lse,
+    delta -> dQ; dK/dV: the same -> dK, dV), flops over the type's peak."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    tensor = b * h * t * dh * es
+    rows = b * h * t * 4
+    nbytes = {"flash_fwd": 4 * tensor + b * t + rows,
+              "flash_bwd_dq": 5 * tensor + b * t + 2 * rows,
+              "flash_bwd_dkv": 6 * tensor + b * t + 2 * rows}[name]
+    flops = FLASH_FLOPS[name] * b * h * t * t * dh
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def flash_timing_shape(torch, fa, label, b, h, t, dh, dtype, gen, n_k, n_p,
+                       kv=None) -> dict:
+    import torch.nn.functional as F
+
+    q, k, v, do, kv_r = flash_inputs(torch, dtype, b, h, t, dh, gen,
+                                     masked_row=False)
+    kv = kv_r if kv is None else kv
+    err = flash_against_plain(torch, fa, f"timing {label}", q, k, v, do, kv,
+                              masked_row=False)
+    out, lse = fa.flash_fwd(q, k, v, kv)
+    delta = (do.float() * out.float()).sum(-1)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    mask = kv[:, None, None, :]
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    fns = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, kv),
+                      lambda: fa.flash_fwd_plain(q, k, v, kv),
+                      lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, kv, lse, delta),
+                         lambda: fa.flash_bwd_dq_plain(q, k, v, do, kv, lse, delta),
+                         None),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, kv, lse, delta),
+                          lambda: fa.flash_bwd_dkv_plain(q, k, v, do, kv, lse, delta),
+                          None),
+    }
+    lib_bwd = lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,  # noqa: E731
+                                          retain_graph=True)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for run_k, run_p, _ in fns.values():
+        for _ in range(2):
+            run_k()
+            run_p()
+    fns["flash_fwd"][2]()
+    lib_bwd()
+    lib_bwd_ms = [timed_ms(torch, lib_bwd, n_p, flush) for _ in range(2)]
+    res = {}
+    for name, (run_k, run_p, run_l) in fns.items():
+        ks_, ps_, ls_ = [], [], []
+        for _ in range(2):  # in turns: kernel, plain, library, kernel, ...
+            ks_.append(timed_ms(torch, run_k, n_k, flush))
+            ps_.append(timed_ms(torch, run_p, n_p, flush))
+            if run_l is not None:
+                ls_.append(timed_ms(torch, run_l, n_k, flush))
+        bound, by = flash_bound(torch, name, b, h, t, dh, dtype)
+        lib = ls_ if run_l is not None else lib_bwd_ms
+        res[name] = {"ms": sum(ks_) / 2, "plain_ms": sum(ps_) / 2,
+                     "library_ms": sum(lib) / 2, "bound_ms": bound,
+                     "bound_by": by, "max_abs_err": err[name]}
+        say(f"flash_timing {label}: {name} kernel {ks_} ms, plain {ps_} ms, "
+            f"library {lib} ms "
+            f"({'SDPA forward' if run_l is not None else 'SDPA backward, dQ+dK+dV'}); "
+            f"bound {bound:.6f} ms by {by} ({FLASH_FLOPS[name]} B H T^2 Dh = "
+            f"{FLASH_FLOPS[name] * b * h * t * t * dh} flop)")
+    del flush
+    return res
+
+
+def b4r_batch(rng, b: int = B4R_BATCH) -> dict[str, np.ndarray]:
+    """A random Bert4Rec training batch: items in [1, n_items], 20% of
+    positions replaced by the MASK id and labelled, and every fourth row
+    short, PAD-padded at the tail (as preprocess-seq pads train windows) or
+    on the left (as it pads eval windows)."""
+    n, t = B4R["n_items"], B4R["max_len"]
+    item = rng.integers(1, n + 1, (b, t)).astype(np.int32)
+    masked = rng.random((b, t)) < B4R_MASK_PROB
+    label = np.where(masked, item, 0).astype(np.int32)
+    item = np.where(masked, n + 1, item).astype(np.int32)
+    for r in range(0, b, 4):
+        keep = int(rng.integers(2, t))
+        cols = slice(keep, None) if r % 8 else slice(0, t - keep)
+        item[r, cols] = 0
+        label[r, cols] = 0
+    return {"item": item, "label": label}
+
+
+def phase_flash_timing(torch) -> dict:
+    """The JSON line's numbers come from the main path's shape; the
+    bench_kernels.py shapes are printed beside them."""
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    d, hh, t = B4R["embed_dim"], B4R["n_heads"], B4R["max_len"]
+    kv = torch.from_numpy(b4r_batch(np.random.default_rng(5))["item"] != 0).cuda()
+    main = flash_timing_shape(torch, fa, f"main path B={B4R_BATCH} H={hh} T={t} "
+                              f"Dh={d // hh} f32", B4R_BATCH, hh, t, d // hh,
+                              torch.float32, gen, 50, 20, kv=kv)
+    for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        flash_timing_shape(torch, fa, f"bench_kernels B=1 H=8 T=4096 Dh=64 {dt}",
+                           1, 8, 4096, 64, dtype, gen, 10, 5)
+    return main
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def b4r_initial():
+    """One initial state, made on the CPU from fixed seeds, for every run."""
+    from tdfo_tpu_torch.models.bert4rec import Bert4RecConfig, make_sharded_bert4rec
+
+    return make_sharded_bert4rec(Bert4RecConfig(**B4R), seed=B4R_SEED,
+                                 attn="flash", device="cpu")
+
+
+def b4r_state(torch, coll, tables0, backbone0, device):
+    """``(state, step)`` on ``device`` from copies of the initial state."""
+    import copy
+
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.train.seq import bert4rec_sparse_forward
+    from tdfo_tpu_torch.train.sparse_step import (
+        SparseTrainState,
+        make_sparse_train_step,
+    )
+
+    backbone = copy.deepcopy(backbone0).to(device)
+    state = SparseTrainState.create(
+        backbone=backbone,
+        tables={k: v.to(device, copy=True) for k, v in tables0.items()},
+        sparse_opt=sparse_optimizer("adam", lr=LR, weight_decay=WD),
+        learning_rate=LR, weight_decay=WD)
+    return state, make_sparse_train_step(coll, bert4rec_sparse_forward(backbone))
+
+
+def item_slots(coll, state, ids):
+    """The whole slots (weights | adam mu | nu | pad) of item rows ``ids``."""
+    from tdfo_tpu_torch.ops.fat_lines import fat_view
+
+    aname, _, off = coll.resolve("item")
+    table = state.tables[aname]
+    if table.dim() != 3:
+        raise AssertionError("the Bert4Rec item table is not fat")
+    return fat_view(table, coll.fat_layout_for(aname))[ids + off].cpu()
+
+
+def flash_counts():
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    return {"fat_line_update": kl.fat_line_update.launches,
+            **{k: getattr(fa, k).launches for k in FLASH_KERNELS}}
+
+
+def zero_counts():
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    kl.fat_line_update.launches = 0
+    for k in FLASH_KERNELS:
+        getattr(fa, k).launches = 0
+
+
+def phase_b4r_main(torch, card: str, steps: int = 20, check_steps: int = 3) -> dict:
+    from tdfo_tpu_torch.interop import TOL
+
+    coll, tables0, backbone0 = b4r_initial()
+    n_layers = B4R["n_layers"]
+    say(f"b4r_main: {B4R}, B {B4R_BATCH}, item array "
+        f"{tuple(tables0['item_embedding'].shape)} (fat)")
+    rng = np.random.default_rng(8)
+    host = [b4r_batch(rng) for _ in range(steps)]
+    dev_batches = [to_device(torch, h, "cuda") for h in host]
+    state, step = b4r_state(torch, coll, tables0, backbone0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(B4R_SEED + 1)
+    torch.cuda.synchronize()
+    zero_counts()
+    losses = []
+    t_start = None
+    for i, b in enumerate(dev_batches):
+        if i == check_steps:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        state, loss = step(state, b, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_start) * 1e3 / (steps - check_steps)
+    counts = flash_counts()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses: {losses}")
+    want = {"fat_line_update": steps, **dict.fromkeys(FLASH_KERNELS, n_layers * steps)}
+    if counts != want:
+        raise AssertionError(f"launches in {steps} steps {counts}, expected {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say(f"b4r_main: {steps} steps on the card at dropout {B4R['dropout']}, losses "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}, launches {counts} "
+        f"({n_layers} per step of each flash kernel), step_ms {step_ms:.4f} "
+        f"(host clock over steps {check_steps + 1}-{steps}), peak device "
+        f"memory {peak_gb:.2f} GB, on {card}")
+    del state, dev_batches
+    torch.cuda.empty_cache()
+
+    # the first steps at dropout 0 on the card and on the CPU path
+    touched = torch.from_numpy(np.unique(np.concatenate(
+        [h["item"].ravel() for h in host[:check_steps]])).astype(np.int64))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        st, stp = b4r_state(torch, coll, tables0, backbone0, device)
+        ls = []
+        for h in host[:check_steps]:
+            st, loss = stp(st, to_device(torch, h, device))
+            ls.append(float(loss))
+        runs[device] = (ls, item_slots(coll, st, touched.to(device)))
+        del st
+    rtol, atol = TOL["trajectory"]
+    d = B4R["embed_dim"]
+    (lg, sg), (lc, sc) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=rtol, atol=atol)
+    # Adam divides each gradient element by its own magnitude, so where an
+    # element's summed gradient lies inside the f32 noise of the two
+    # devices' summation orders its step may take either sign: the weight
+    # then moves by up to 2 lr per step.  At most 0.1% of the elements may
+    # do so, each within that bound; every other one holds rtol 1e-4.
+    rg, rc = sg[:, :d], sc[:, :d]
+    diff = (rg - rc).abs()
+    out = diff > atol + rtol * rc.abs()
+    n_out, bound = int(out.sum()), 2 * LR * check_steps
+    worst_out = float(diff[out].max()) if n_out else 0.0
+    mu_g, mu_c = sg[:, d:2 * d], sc[:, d:2 * d]
+    flips = int((torch.sign(mu_g[out]) != torch.sign(mu_c[out])).sum())
+    say(f"b4r_main: card vs CPU over {check_steps} steps at dropout 0: losses "
+        f"{lg} vs {lc}; {touched.numel()} touched item rows, "
+        f"{rg.numel()} elements: max_abs_err {float(diff[~out].max()):.3e} "
+        f"inside rtol {rtol}; {n_out} outside it, max |diff| {worst_out:.3e} "
+        f"(bound {bound:.1e}), {flips} of them with the adam first moment of "
+        f"opposite sign; median |mu| there "
+        f"{float(mu_c.abs()[out].median()) if n_out else 0.0:.3e} vs "
+        f"{float(mu_c.abs().median()):.3e} over all elements")
+    if n_out > 1e-3 * rg.numel() or worst_out > bound:
+        raise AssertionError(
+            f"card vs CPU: {n_out} item-row elements outside rtol {rtol} "
+            f"(max |diff| {worst_out}); at most {1e-3 * rg.numel():.0f} within "
+            f"{bound} allowed")
+    return {"launches": counts, "step_ms": step_ms, "losses": losses}
+
+
+def phase_profile_b4r(torch, warm: int = 3, steps: int = 5) -> None:
+    """Optional (``--phases profile_b4r``): the Bert4Rec main path's steps."""
+    coll, tables0, backbone0 = b4r_initial()
+    state, step = b4r_state(torch, coll, tables0, backbone0, "cuda")
+    rng = np.random.default_rng(12)
+    batches = [to_device(torch, b4r_batch(rng), "cuda") for _ in range(warm + steps)]
+    gen = torch.Generator(device="cuda").manual_seed(B4R_SEED + 1)
+    profile_steps(torch, "bert4rec", state, step, batches, warm, gen)
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def phase_b4r_cli(torch) -> dict:
+    from tdfo_tpu_torch import launch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = tmp / "config.toml"
+        cfg.write_text(
+            f'data_dir = "{tmp / "data"}"\n'
+            'model = "bert4rec"\nattn = "flash"\nmodel_parallel = true\n'
+            'embed_dim = 16\nfused_table_threshold = 0\nn_epochs = 1\n'
+            'per_device_train_batch_size = 32\nper_device_eval_batch_size = 32\n'
+            'log_every_n_steps = 4\n')
+        for cmd in ("synth", "preprocess-seq"):
+            if launch.main([cmd, "--config", str(cfg)]) != 0:
+                raise AssertionError(f"launch {cmd} failed")
+        zero_counts()
+        rc = launch.main(["train", "--config", str(cfg), "--log-dir",
+                          str(tmp / "logs"), "--device", "cuda"])
+        counts = flash_counts()
+        if rc != 0:
+            raise AssertionError("launch train failed")
+        recs = [json.loads(x) for x in
+                (tmp / "logs" / "metrics.jsonl").read_text().splitlines()]
+    keys = [f"{m}@{k}" for k in (10, 20, 50) for m in ("Recall", "NDCG")]
+    evals = [r for r in recs if all(k in r for k in keys)]
+    tests = [r for r in recs if all(f"test_{k}" in r for k in keys)]
+    vals = [r[k] for r in evals for k in keys] + [r[f"test_{k}"] for r in tests
+                                                  for k in keys]
+    if not evals or not tests or not all(0.0 <= x <= 1.0 for x in vals):
+        raise AssertionError(f"metrics.jsonl lacks Recall/NDCG or test_*: {recs}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"CLI train left a kernel unlaunched: {counts}")
+    say(f"b4r_cli: synth -> preprocess-seq -> train on the card: "
+        f"{ {k: round(evals[-1][k], 4) for k in keys} }, test "
+        f"{ {k: round(tests[-1]['test_' + k], 4) for k in keys} }, launches {counts}")
+    return {"launches": counts}
+
+
 # ------------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="build,oracle,timing,main,cli",
-                   help="comma-separated subset of build,oracle,timing,main,"
-                        "cli,profile (default: all but profile)")
+    p.add_argument("--phases", default=",".join(DEFAULT_PHASES),
+                   help="comma-separated subset of " + ",".join(DEFAULT_PHASES)
+                        + ",profile,profile_b4r (default: all but the profiles)")
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -505,26 +962,43 @@ def main(argv=None) -> int:
                 f"{r.seconds:.2f} s\n{r.log.strip()}")
         say(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
-    rec = {"name": "fat_line_update", "route": "cuda",
-           "source": "tdfo_tpu_torch/ops/csrc/fat_line_update.cu",
-           "replaces": "tdfo_tpu/ops/pallas_kernels.py:885",
-           "launches": None, "max_abs_err": None, "ms": None,
-           "plain_ms": None, "bound_ms": None, "bound_by": "bytes",
-           "library_ms": None}
+    recs = {name: {"name": name, "route": "cuda", "source": source,
+                   "replaces": replaces, "launches": None, "max_abs_err": None,
+                   "ms": None, "plain_ms": None, "bound_ms": None,
+                   "bound_by": None, "library_ms": None}
+            for name, source, replaces in KERNEL_TABLE}
+    fat = recs["fat_line_update"]
     if "oracle" in phases:
-        rec.update(phase_oracle(torch, rng))
+        fat.update(phase_oracle(torch, rng))
     if "timing" in phases:
         t = phase_timing(torch, rng)
-        rec.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        fat.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                    bound_by=t["bound_by"],
-                   max_abs_err=max(rec["max_abs_err"] or 0.0, t["max_abs_err"]))
+                   max_abs_err=max(fat["max_abs_err"] or 0.0, t["max_abs_err"]))
     if "main" in phases:
-        rec["launches"] = phase_main_path(torch, smi)["launches"]
+        fat["launches"] = phase_main_path(torch, smi)["launches"]
     if "cli" in phases:
         phase_cli(torch)
+    if "flash_oracle" in phases:
+        worst = phase_flash_oracle(torch)
+        for k in FLASH_KERNELS:  # f32 is the main path's type
+            recs[k].update(max_abs_err=worst["f32"][k],
+                           max_abs_err_bf16=worst["bf16"][k])
+    if "flash_timing" in phases:
+        for k, t in phase_flash_timing(torch).items():
+            err = t.pop("max_abs_err")
+            recs[k].update(t, max_abs_err=max(recs[k]["max_abs_err"] or 0.0, err))
+    if "b4r_main" in phases:
+        counts = phase_b4r_main(torch, smi)["launches"]
+        for k in FLASH_KERNELS:
+            recs[k]["launches"] = counts[k]
+    if "b4r_cli" in phases:
+        phase_b4r_cli(torch)
     if "profile" in phases:
         phase_profile(torch)
-    say(json.dumps({"kernels": [rec]}))
+    if "profile_b4r" in phases:
+        phase_profile_b4r(torch)
+    say(json.dumps({"kernels": list(recs.values())}))
     say(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -6,7 +6,12 @@ JAX package:
 * :func:`backbone_params_from_flax` maps a flax param tree (nested dicts of
   numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives) to a torch
   ``state_dict``: each ``Dense.kernel [in, out]`` becomes
-  ``Linear.weight [out, in]``; biases carry over.
+  ``Linear.weight [out, in]``, each ``LayerNorm.scale`` becomes
+  ``LayerNorm.weight``; biases and plain parameters (``pos_embed``) carry
+  over.  Module names are kept, so a TwoTower or a ``Bert4RecBackbone`` tree
+  loads with ``load_state_dict(strict=True)``; the fused ``qkv`` kernel
+  keeps its (head, qkv, dh) column order, which the port's attention reads
+  the same way.
 * :func:`tables_from_numpy` copies a table dict onto a device.  Fat tables
   already share the ``[L, T, 128]`` layout, so no reshaping happens.
 
@@ -33,7 +38,8 @@ TOL = {
 
 def backbone_params_from_flax(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
     """Flatten a flax param tree into a torch ``state_dict``
-    (``user_tower/fc1/kernel`` -> ``user_tower.fc1.weight``, transposed)."""
+    (``user_tower/fc1/kernel`` -> ``user_tower.fc1.weight``, transposed;
+    ``block_0/ln_ff/scale`` -> ``block_0.ln_ff.weight``)."""
     out: dict[str, torch.Tensor] = {}
     for k, v in tree.items():
         name = f"{prefix}{k}"
@@ -41,6 +47,8 @@ def backbone_params_from_flax(tree: Mapping, prefix: str = "") -> dict[str, torc
             out.update(backbone_params_from_flax(v, prefix=name + "."))
         elif k == "kernel":
             out[f"{prefix}weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(v).T))
+        elif k == "scale":
+            out[f"{prefix}weight"] = torch.from_numpy(np.array(v))
         else:
             out[name] = torch.from_numpy(np.array(v))
     return out

@@ -1,11 +1,16 @@
-"""Entry point: ``python -m tdfo_tpu_torch.launch {synth,preprocess-ctr,train}
---config config.toml [--device cuda|cpu]``.
+"""Entry point: ``python -m tdfo_tpu_torch.launch
+{synth,preprocess-ctr,preprocess-seq,train} --config config.toml
+[--device cuda|cpu]``.
 
-Port of ``tdfo_tpu/launch.py`` for this slice's three subcommands:
+Port of ``tdfo_tpu/launch.py`` for the ported subcommands:
 
   * ``synth``          — write a synthetic raw-goodreads fixture;
   * ``preprocess-ctr`` — TwoTower ETL -> parquet shards + size_map.json;
-  * ``train``          — build the Trainer from config and fit.
+  * ``preprocess-seq`` — Bert4Rec ETL -> parquet_bert4rec/ shards +
+    size_map_bert4rec.json;
+  * ``train``          — build the Trainer from config and fit.  For
+    ``model = "bert4rec"`` the size map is ``size_map_bert4rec.json`` (its
+    remapped 1-based item count sizes the MASK token), as in the reference.
 
 ``train`` runs on the card unless ``--device cpu`` is given, and refuses to
 start when CUDA is asked for and absent.  The other subcommands of the
@@ -22,7 +27,8 @@ import sys
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tdfo_tpu_torch.launch", description=__doc__)
     p.add_argument("command", nargs="?", default="train",
-                   choices=["train", "preprocess-ctr", "synth"])
+                   choices=["train", "preprocess-ctr", "preprocess-seq",
+                            "synth"])
     p.add_argument("--config", default="config.toml", help="path to config.toml")
     p.add_argument("--data-dir", default=None, help="override config data_dir")
     p.add_argument("--log-dir", default=None)
@@ -53,6 +59,24 @@ def main(argv: list[str] | None = None) -> int:
         )
         print(f"size_map: {size_map}")
         return 0
+    if args.command == "preprocess-seq":
+        from tdfo_tpu_torch.data.seq_preprocessing import run_seq_preprocessing
+
+        stats = run_seq_preprocessing(
+            cfg.data_dir, max_len=cfg.max_len, sliding_step=cfg.sliding_step,
+            mask_prob=cfg.mask_prob, seed=cfg.seed, pad=not cfg.jagged)
+        print(f"seq preprocessing: {stats}")
+        return 0
+
+    if cfg.model == "bert4rec":
+        # the CTR size_map.json that read_configs merges counts the full
+        # catalogue and would mis-size the MASK token
+        import json
+        from pathlib import Path
+
+        alt = Path(cfg.data_dir) / "size_map_bert4rec.json"
+        if alt.exists():
+            cfg = cfg.replace(size_map=json.loads(alt.read_text()))
 
     from tdfo_tpu_torch.train.trainer import Trainer
 

@@ -97,14 +97,17 @@ def fat_view(fat: torch.Tensor, layout: LineLayout) -> torch.Tensor:
 def fat_gather_rows(fat: torch.Tensor, ids: torch.Tensor,
                     layout: LineLayout) -> torch.Tensor:
     """Gather the table lanes of vocab rows ``ids`` (any shape; the output
-    gains a trailing ``d`` axis).  Out-of-contract ids clamp the way the
-    reference's ``jnp.take`` does: negative ids to row 0, ids past the
-    table to the last LINE (keeping their within-line slot ``id % R``).
-    Torch indexing would raise instead, so the clamp is explicit."""
+    gains a trailing ``d`` axis).  Out-of-contract ids behave as in the
+    reference, whose ``jnp.take`` of lines runs in jax's default
+    ``mode="fill"``: negative ids read row 0, and an id whose line lies past
+    the table reads a row of NaN.  Torch indexing would raise instead, so
+    both rules are explicit."""
     ids = ids.to(torch.int64).clamp_min(0)
-    line = torch.clamp(ids // layout.r, max=fat.shape[0] - 1)
-    idx = line * layout.r + ids % layout.r
-    return fat_view(fat, layout)[idx, :layout.d]
+    line = ids // layout.r
+    inside = line < fat.shape[0]
+    idx = torch.where(inside, line, 0) * layout.r + ids % layout.r
+    rows = fat_view(fat, layout)[idx, :layout.d]
+    return torch.where(inside[..., None], rows, float("nan"))
 
 
 def fat_pack(table: torch.Tensor, *state: torch.Tensor, kind: str = "adam",

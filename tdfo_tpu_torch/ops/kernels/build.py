@@ -3,11 +3,12 @@
 Each kernel is one ``.cu`` file under ``tdfo_tpu_torch/ops/csrc/`` with a
 plain ``extern "C"`` launcher, compiled by ``nvcc`` into its own shared
 library and loaded with ``ctypes``.  The library lands in
-``tdfo_tpu_torch/build/<name>-<hash>/`` where the hash covers the source and
-the compiler flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing here runs at import time: the first call that needs a
-kernel builds it.  :func:`build_all` starts one ``nvcc`` per source, all at
-once, so a run that needs several kernels pays for the slowest build only.
+``tdfo_tpu_torch/build/<name>-<hash>/`` where the hash covers the source, the
+shared ``*.cuh`` headers and the compiler flags, so an edited source
+rebuilds and an unchanged one is reused.  Nothing here runs at import
+time: the first call that needs a kernel builds it.  :func:`build_all`
+starts one ``nvcc`` per source, all at once, so a run that needs several
+kernels pays for the slowest build only.
 """
 
 from __future__ import annotations
@@ -29,7 +30,11 @@ CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "build"
 
 # kernel name -> source file under ops/csrc
-KERNEL_SOURCES = {"fat_line_update": "fat_line_update.cu"}
+KERNEL_SOURCES = {
+    "fat_line_update": "fat_line_update.cu",
+    "flash_attn_fwd": "flash_attn_fwd.cu",
+    "flash_attn_bwd": "flash_attn_bwd.cu",
+}
 
 # -fmad=false: no contracted multiply-adds, so each kernel rounds exactly
 # where its plain PyTorch version does; --use_fast_math stays off for the
@@ -67,6 +72,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / KERNEL_SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):  # shared headers rebuild every user
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 

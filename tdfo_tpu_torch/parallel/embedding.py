@@ -34,7 +34,20 @@ import torch
 from tdfo_tpu_torch.core.device import resolve_device
 from tdfo_tpu_torch.ops.fat_lines import fat_gather_rows, fat_pack, line_layout
 
-__all__ = ["EmbeddingSpec", "ShardedEmbeddingCollection", "make_embedding_specs"]
+__all__ = ["EmbeddingSpec", "ShardedEmbeddingCollection", "make_embedding_specs",
+           "take_fill"]
+
+
+def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)`` under jax's default ``mode="fill"``:
+    ids in ``[-V, V)`` index numpy-style (negatives wrap), any other id
+    reads a row of NaN.  ``ids`` any shape; the output gains the row axis."""
+    v = table.shape[0]
+    ids = ids.to(torch.int64)
+    ids = torch.where(ids < 0, ids + v, ids)
+    inside = (ids >= 0) & (ids < v)
+    rows = table[torch.where(inside, ids, 0)]
+    return torch.where(inside[..., None], rows, float("nan"))
 
 
 def make_embedding_specs(size_map, entries, embed_dim: int,
@@ -196,8 +209,9 @@ class ShardedEmbeddingCollection:
 
     def lookup(self, tables, features, mode: str = "gspmd"):
         """ids -> f32 vectors for every feature (ids any shape; the output
-        gains a trailing ``embedding_dim`` axis).  Out-of-range ids clamp as
-        the reference's ``jnp.take`` does."""
+        gains a trailing ``embedding_dim`` axis).  Out-of-range ids read
+        what the reference's ``jnp.take`` (jax's default ``mode="fill"``)
+        reads: see :func:`take_fill` and ``fat_gather_rows``."""
         if mode != "gspmd":
             raise NotImplementedError(
                 f"lookup mode {mode!r} is not ported yet (ROADMAP.md Queue A "
@@ -211,7 +225,7 @@ class ShardedEmbeddingCollection:
                 vecs = fat_gather_rows(table, gid,
                                        self.fat_layout(spec.embedding_dim))
             else:
-                vecs = table[gid.clamp(0, table.shape[0] - 1)]
+                vecs = take_fill(table, gid)
             out[feat] = vecs.to(torch.float32)
         return out
 

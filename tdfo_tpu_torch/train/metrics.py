@@ -1,14 +1,18 @@
-"""Evaluation metrics — port of ``binary_auc`` and ``AUC`` from
-``tdfo_tpu/train/metrics.py``.
+"""Evaluation metrics — port of ``binary_auc``, ``AUC`` and
+``recalls_and_ndcgs_for_ks`` from ``tdfo_tpu/train/metrics.py``.
 
 * :func:`binary_auc` — exact ROC-AUC (Mann-Whitney U, tie-aware), host-side
   numpy; copied unchanged.
 * :class:`AUC` — streaming thresholded ROC-AUC (``tf.keras.metrics.AUC``
   parity, 200 bins): per-class histograms of sigmoid scores kept as tensors
   on the scores' device, so folding a batch never syncs to the host.
+* :func:`recalls_and_ndcgs_for_ks` — sampled-candidate Recall@k / NDCG@k
+  (Bert4Rec eval); the top-k takes the lower candidate index first on tied
+  scores, as ``jax.lax.top_k`` does (a stable descending sort: ``torch.topk``
+  promises no order among ties).
 
-``ranking_auc`` and the Recall/NDCG ranking metrics belong to the Bert4Rec
-slice (``ROADMAP.md`` Queue A item 11).
+``ranking_auc`` belongs to the serving slice (``ROADMAP.md`` Queue A item
+15).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["binary_auc", "AUC"]
+__all__ = ["binary_auc", "AUC", "recalls_and_ndcgs_for_ks"]
 
 
 def binary_auc(labels, scores, weights=None) -> float:
@@ -84,3 +88,37 @@ class AUC:
         ok = (total_pos > 0) & (total_neg > 0)
         val = u / torch.clamp(total_pos * total_neg, min=1.0)
         return torch.where(ok, val, torch.full_like(val, float("nan")))
+
+
+def recalls_and_ndcgs_for_ks(scores: torch.Tensor, labels: torch.Tensor,
+                             ks: tuple[int, ...] = (10, 20, 50),
+                             row_weights: torch.Tensor | None = None,
+                             ) -> dict[str, torch.Tensor]:
+    """Recall@k = hits in the top k / min(k, positives); NDCG@k with the
+    1/log2(rank + 2) gain.  ``scores``/``labels`` ``[B, C]``;
+    ``row_weights`` masks padded rows; returns weighted batch means as
+    0-d tensors on the scores' device."""
+    b, c = scores.shape
+    w = (torch.ones((b,), dtype=torch.float32, device=scores.device)
+         if row_weights is None else row_weights.to(torch.float32))
+    denom = w.sum().clamp_min(1.0)
+    labels = labels.to(torch.float32)
+    n_pos = labels.sum(dim=1)
+    k_max = min(max(ks), c)  # k past the candidate count ranks all of them
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    hit = torch.gather(labels, 1, order[:, :k_max])
+    positions = torch.arange(k_max, dtype=torch.float32, device=scores.device)
+    gains = 1.0 / torch.log2(positions + 2.0)
+    out: dict[str, torch.Tensor] = {}
+    for k in ks:
+        kk = min(k, c)
+        hits_k = hit[:, :kk]
+        recall = hits_k.sum(dim=1) / torch.clamp(
+            torch.clamp(n_pos, max=float(kk)), min=1.0)
+        dcg = (hits_k * gains[:kk]).sum(dim=1)
+        ideal = (positions[:kk][None, :] < n_pos[:, None]).to(torch.float32)
+        idcg = (ideal * gains[:kk]).sum(dim=1)
+        ndcg = dcg / idcg.clamp_min(1e-9)
+        out[f"Recall@{k}"] = (recall * w).sum() / denom
+        out[f"NDCG@{k}"] = (ndcg * w).sum() / denom
+    return out

@@ -17,6 +17,7 @@ item.
 from __future__ import annotations
 
 import copy
+import inspect
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -83,11 +84,15 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                            forward: Callable, *, mode: str = "gspmd",
                            with_aux: bool = False,
                            dedup_lookup: bool = False):
-    """Build the step ``(state, batch) -> (state, loss)`` (``(state, (loss,
-    aux))`` with ``with_aux``); ``forward(embs, batch)`` returns the loss
-    (or ``(loss, aux)``).  ``batch`` holds an id tensor for every feature
-    the collection serves.  Returned losses are detached device tensors:
-    reading one is the caller's (only) host sync."""
+    """Build the step ``(state, batch, generator=None) -> (state, loss)``
+    (``(state, (loss, aux))`` with ``with_aux``); ``forward(embs, batch)``
+    returns the loss (or ``(loss, aux)``).  A forward that also takes a
+    ``generator`` keyword receives the step's ``torch.Generator`` (the
+    reference's ``dropout_rng``; ``None`` disables dropout).  ``batch``
+    holds an id tensor, of any shape, for every feature the collection
+    serves (``[B]`` CTR ids, ``[B, T]`` item sequences).  Returned losses are
+    detached device tensors: reading one is the caller's (only) host
+    sync."""
     if mode != "gspmd":
         raise NotImplementedError(
             f"lookup mode {mode!r} is not ported yet (ROADMAP.md Queue A "
@@ -96,6 +101,7 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
         raise NotImplementedError(
             "dedup_lookup is not ported yet (ROADMAP.md Queue A item 10)")
     features = list(coll.features())
+    takes_gen = "generator" in inspect.signature(forward).parameters
     by_table: dict[str, list[str]] = {}
     for f in features:
         by_table.setdefault(coll.resolve(f)[0], []).append(f)
@@ -112,12 +118,13 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
             bound += min(flat.shape[0], spec.num_embeddings)
         return torch.cat(id_list), bound
 
-    def step(state: SparseTrainState, batch):
+    def step(state: SparseTrainState, batch, generator=None):
         ids = {f: batch[f] for f in features}
         with torch.no_grad():
             gathered = coll.lookup(state.tables, ids, mode=mode)
         embs = {f: v.requires_grad_(True) for f, v in gathered.items()}
-        out = forward(embs, batch)
+        out = (forward(embs, batch, generator=generator) if takes_gen
+               else forward(embs, batch))
         loss, aux = out if with_aux else (out, None)
         params = list(state.backbone.parameters())
         grads = torch.autograd.grad(loss, params + [embs[f] for f in features])

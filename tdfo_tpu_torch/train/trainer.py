@@ -1,16 +1,24 @@
-"""Epoch loop, CTR sparse (DMP) path — port of ``tdfo_tpu/train/trainer.py``
-(``_build_ctr_sparse``, ``pad_batch``, ``train_epoch``, ``evaluate``,
-``fit``, train AUC).
+"""Epoch loop, DMP (model-parallel) paths — port of
+``tdfo_tpu/train/trainer.py`` (``_build_ctr_sparse``, ``_build_bert4rec``,
+``pad_batch``, ``train_epoch``, ``evaluate``, ``evaluate_test``, ``fit``,
+train AUC).
 
 TwoTower with ``model_parallel = true``: the 7 tables live in a
 ShardedEmbeddingCollection with the row-sparse in-backward optimizer, the
-towers under AdamW.  Streaming parquet epochs feed the card through a
-pinned-memory double buffer; losses stay on the device and are fetched in
-windows of ``log_every_n_steps`` (the reference's sync cadence); the
-non-finite guard keeps a device snapshot and rolls back after
-``nonfinite_tolerance`` consecutive non-finite losses, skipping the window.
-Eval pads the last batch with zero-weight rows and folds loss and a
-streaming AUC on the device.
+towers under AdamW.  Bert4Rec with ``model_parallel = true``: the item table
+(fat lines above ``fused_table_threshold`` rows) under the row-sparse
+optimizer, the transformer under AdamW, attention ``"full"`` or ``"flash"``
+(the hand-written kernels); masked-LM loss with dropout drawn from a
+``torch.Generator`` seeded ``seed + 1``, eval Recall/NDCG@{10,20,50} on the
+last position against 1 positive + 100 negatives, a pre-training eval and a
+held-out test eval after ``fit``.
+
+Streaming parquet epochs feed the card through a pinned-memory double
+buffer; losses stay on the device and are fetched in windows of
+``log_every_n_steps`` (the reference's sync cadence); the non-finite guard
+keeps a device snapshot and rolls back after ``nonfinite_tolerance``
+consecutive non-finite losses, skipping the window.  Eval pads the last
+batch with zero-weight rows and folds its metrics on the device.
 
 Knobs whose code paths are not ported yet raise ``NotImplementedError``
 naming the ``ROADMAP.md`` item that ports them (see
@@ -36,7 +44,7 @@ from tdfo_tpu_torch.data.loader import (
     prefetch_to_device,
     resolve_files,
 )
-from tdfo_tpu_torch.train.metrics import AUC
+from tdfo_tpu_torch.train.metrics import AUC, recalls_and_ndcgs_for_ks
 from tdfo_tpu_torch.utils import retry as _retry
 from tdfo_tpu_torch.utils.summary import MetricLogger, param_summary
 
@@ -65,7 +73,9 @@ def refuse_unported(cfg: Config) -> None:
     tele = cfg.telemetry
     checks = [
         (cfg.model == "dlrm", "model = 'dlrm'", 10),
-        (cfg.model == "bert4rec", "model = 'bert4rec'", 11),
+        (cfg.jagged, "jagged = true (ragged sequence windows)", 11),
+        (cfg.attn in ("ring", "ring_flash"), f"attn = {cfg.attn!r}", 12),
+        (cfg.tensor_parallel, "tensor_parallel = true", 12),
         (not cfg.model_parallel,
          "the dense TwoTower regime (model_parallel = false)", 17),
         (cfg.checkpoint_dir is not None, "checkpoint_dir (checkpoint/resume)", 17),
@@ -102,8 +112,11 @@ def refuse_unported(cfg: Config) -> None:
 
 
 class Trainer:
-    """Config-driven trainer for the TwoTower DMP regime on one device
-    (``device`` defaults to the card; pass ``"cpu"`` explicitly)."""
+    """Config-driven trainer for the TwoTower and Bert4Rec DMP regimes on
+    one device (``device`` defaults to the card; pass ``"cpu"``
+    explicitly)."""
+
+    _METRIC_KS = (10, 20, 50)
 
     def __init__(self, config: Config, *, log_dir: str | Path | None = None,
                  device="cuda"):
@@ -113,9 +126,13 @@ class Trainer:
         self.logger = MetricLogger(log_dir)
         self._logged_steps = 0  # run-global data-step counter
         self._map_streams: dict = {}
+        self._seq = config.model == "bert4rec"
         if log_dir is not None:
             _retry.set_failure_log(Path(log_dir) / "retries.jsonl")
-        self._build_ctr_sparse()
+        if self._seq:
+            self._build_bert4rec()
+        else:
+            self._build_ctr_sparse()
         print(param_summary(self.state.backbone, tables=self.state.tables,
                             coll=self.coll,
                             title=f"{config.model} parameters"), flush=True)
@@ -171,6 +188,47 @@ class Trainer:
         schema.update({c: np.float32 for c in TWOTOWER_CONTINUOUS})
         schema["label"] = np.int8
         self._eval_schema = schema
+        self._eval_rename = None
+
+    def _build_bert4rec(self) -> None:
+        from tdfo_tpu_torch.models.bert4rec import (
+            Bert4RecConfig,
+            make_sharded_bert4rec,
+        )
+        from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+        from tdfo_tpu_torch.train.seq import bert4rec_sparse_forward
+        from tdfo_tpu_torch.train.sparse_step import (
+            SparseTrainState,
+            make_sparse_train_step,
+        )
+
+        cfg = self.config
+        n_items = int(cfg.size_map.get("n_items", cfg.size_map.get("item", 0)))
+        if not n_items:
+            raise ValueError("bert4rec needs n_items in size_map (run preprocessing)")
+        self.model_cfg = Bert4RecConfig(
+            n_items=n_items, max_len=cfg.max_len, embed_dim=cfg.embed_dim,
+            n_heads=cfg.n_heads, n_layers=cfg.n_layers, dropout=cfg.dropout)
+        self.coll, tables, self.backbone = make_sharded_bert4rec(
+            self.model_cfg, seed=cfg.seed, sharding=cfg.embedding_sharding,
+            attn=cfg.attn, fused_threshold=cfg.effective_fused_threshold,
+            fused_kind=cfg.sparse_optimizer, device=self.device)
+        self.state = SparseTrainState.create(
+            backbone=self.backbone, tables=tables,
+            sparse_opt=sparse_optimizer(cfg.sparse_optimizer,
+                                        lr=cfg.learning_rate,
+                                        weight_decay=cfg.weight_decay),
+            learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay)
+        self.train_step = make_sparse_train_step(
+            self.coll, bert4rec_sparse_forward(self.backbone),
+            mode=cfg.lookup_mode)
+        self._dropout_gen = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 1)
+        self._train_pattern = str(Path("parquet_bert4rec") / cfg.train_data)
+        self._eval_pattern = str(Path("parquet_bert4rec") / cfg.eval_data)
+        self._eval_schema = {"seqs": np.int32, "cands": np.int32}
+        self._eval_rename = lambda raw: {"seqs": raw["eval_seqs"],
+                                         "cands": raw["candidate_items"]}
 
     # ------------------------------------------------------------- streams
 
@@ -195,6 +253,9 @@ class Trainer:
     def _train_batches(self, epoch: int) -> Iterator[dict]:
         stream = self._stream(self._train_pattern, train=True)
         stream.set_epoch(epoch)
+        if self._seq:
+            stream = ({"item": b["train_interactions"], "label": b["labels"]}
+                      for b in stream)
         yield from prefetch_to_device(stream, self.device)
 
     # ---------------------------------------------------------------- train
@@ -249,11 +310,15 @@ class Trainer:
                 steps_at_snap = n_steps
 
         for batch in self._train_batches(epoch):
-            self.state, (loss, logits) = self.train_step(self.state, batch)
-            ok = torch.isfinite(logits)
-            train_auc = train_auc.update(
-                batch["label"], torch.sigmoid(torch.where(ok, logits, 0.0)),
-                ok.to(torch.float32))
+            if self._seq:  # no train AUC: a binary-CTR metric
+                self.state, loss = self.train_step(self.state, batch,
+                                                   self._dropout_gen)
+            else:
+                self.state, (loss, logits) = self.train_step(self.state, batch)
+                ok = torch.isfinite(logits)
+                train_auc = train_auc.update(
+                    batch["label"], torch.sigmoid(torch.where(ok, logits, 0.0)),
+                    ok.to(torch.float32))
             n_steps += 1
             gstep = self._logged_steps + n_steps
             pending.append((loss, gstep))
@@ -268,7 +333,7 @@ class Trainer:
         self._logged_steps += n_steps
         avg = loss_sum / contributed if contributed else 0.0
         extra = {}
-        if n_steps:
+        if n_steps and not self._seq:
             extra["train_auc"] = float(train_auc.result())
         self.logger.log(epoch=epoch, train_loss_epoch=avg, steps=n_steps,
                         examples_per_sec=n_steps * cfg.per_device_train_batch_size
@@ -277,15 +342,25 @@ class Trainer:
 
     # ----------------------------------------------------------------- eval
 
-    def _eval_batches(self) -> Iterator[dict]:
-        """Padded eval batches restricted to the schema, each with a
-        ``_weight`` row mask (0 on padding rows)."""
-        stream = self._stream(self._eval_pattern, train=False)
+    def _eval_batches(self, pattern: str | None = None) -> Iterator[dict]:
+        """Padded eval batches (of ``pattern``, default the eval split)
+        restricted to the schema, each with a ``_weight`` row mask (0 on
+        padding rows)."""
+        stream = self._stream(pattern or self._eval_pattern, train=False)
         bsz = stream.batch_size
         schema = self._eval_schema
+        rename = self._eval_rename
 
         def gen():
             for raw in stream:
+                if rename is not None:
+                    try:
+                        raw = rename(raw)
+                    except KeyError as e:
+                        raise ValueError(
+                            f"eval shard is missing column {e} (has "
+                            f"{sorted(raw)}); re-run preprocessing for this "
+                            "data_dir") from None
                 missing = schema.keys() - raw.keys()
                 if missing:
                     raise ValueError(
@@ -300,8 +375,10 @@ class Trainer:
         yield from prefetch_to_device(gen(), self.device)
 
     def evaluate(self, epoch: int) -> dict[str, float]:
-        """Eval loss and streaming AUC over the eval split; one host fetch
-        at the end."""
+        """Eval metrics over the eval split: loss and streaming AUC
+        (TwoTower), Recall/NDCG@k (Bert4Rec); one host fetch at the end."""
+        if self._seq:
+            return self._evaluate_bert4rec(epoch)
         loss_sum = torch.zeros((), device=self.device)
         w_sum = torch.zeros((), device=self.device)
         auc = AUC.empty(device=self.device)
@@ -323,16 +400,67 @@ class Trainer:
         self.logger.log(epoch=epoch, **metrics)
         return metrics
 
+    @torch.no_grad()
+    def _evaluate_bert4rec(self, epoch: int, pattern: str | None = None,
+                           prefix: str = "") -> dict[str, float]:
+        """Last-position scores of 1 positive (column 0) + 100 negatives ->
+        weighted Recall/NDCG@{10,20,50}, folded on the device.  Runs the
+        inference forward (flash: no lse)."""
+        from tdfo_tpu_torch.models.bert4rec import key_padding_mask
+        from tdfo_tpu_torch.train.seq import score_candidates
+
+        acc = {"w_sum": torch.zeros((), device=self.device)}
+        for k in self._METRIC_KS:
+            acc[f"Recall@{k}"] = torch.zeros((), device=self.device)
+            acc[f"NDCG@{k}"] = torch.zeros((), device=self.device)
+        for batch in self._eval_batches(pattern):
+            w = batch["_weight"]
+            embs = self.coll.lookup(self.state.tables, {"item": batch["seqs"]},
+                                    mode=self.config.lookup_mode)
+            logits = self.backbone(embs["item"], key_padding_mask(batch["seqs"]))
+            scores = score_candidates(logits, batch["cands"])
+            labels = torch.zeros_like(scores)
+            labels[:, 0] = 1.0
+            m = recalls_and_ndcgs_for_ks(scores, labels, ks=self._METRIC_KS,
+                                         row_weights=w)
+            acc["w_sum"] += w.sum()
+            for k, v in m.items():
+                acc[k] += v * w.sum()
+        w_sum = max(float(acc.pop("w_sum")), 1.0)
+        metrics = {prefix + k: float(v) / w_sum for k, v in acc.items()}
+        self.logger.log(epoch=epoch, **metrics)
+        return metrics
+
+    def evaluate_test(self) -> dict[str, float]:
+        """Final held-out TEST evaluation (Bert4Rec leave-last-one); {} for
+        other models, an empty ``test_data`` or a data dir without test
+        shards."""
+        cfg = self.config
+        if not self._seq or not cfg.test_data:
+            return {}
+        pattern = str(Path("parquet_bert4rec") / cfg.test_data)
+        try:
+            resolve_files(cfg.data_dir, pattern)
+        except FileNotFoundError:
+            self.logger.log(test_split="absent (re-run preprocess-seq to write it)")
+            return {}
+        return self._evaluate_bert4rec(cfg.n_epochs, pattern=pattern,
+                                       prefix="test_")
+
     # ------------------------------------------------------------------ fit
 
     def fit(self) -> dict[str, float]:
-        """Train and evaluate for ``n_epochs``; returns the last eval
-        metrics.  Closes the metrics sink either way."""
+        """Train and evaluate for ``n_epochs`` (Bert4Rec: after a
+        pre-training eval at epoch -1, and then the test eval); returns the
+        last eval metrics.  Closes the metrics sink either way."""
         metrics: dict[str, float] = {}
         try:
+            if self._seq:
+                self.evaluate(epoch=-1)  # pre-training sanity floor
             for epoch in range(self.config.n_epochs):
                 self.train_epoch(epoch)
                 metrics = self.evaluate(epoch)
+            metrics.update(self.evaluate_test())
         finally:
             self.logger.close()
         return metrics

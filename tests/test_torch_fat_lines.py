@@ -75,13 +75,14 @@ def test_pack_unpack_and_gather(kind, d):
                                         jpk.line_layout(d, kind)))
     tr = tfl.fat_gather_rows(t, torch.from_numpy(ids), lay)
     np.testing.assert_array_equal(tr.numpy(), jr)
-    # past the last line the port clamps to the last line (keeping the
-    # slot), as the reference's docstring states; the reference's jnp.take
-    # fills NaN there instead (ROADMAP.md Queue C)
-    hi = np.array([lay.padded_rows(v) + 3, 10_000], np.int64)
-    want = t.view(-1, lay.w)[(lay.n_lines(v) - 1) * lay.r + hi % lay.r, :d]
-    np.testing.assert_array_equal(
-        tfl.fat_gather_rows(t, torch.from_numpy(hi), lay).numpy(), want.numpy())
+    # an id whose line lies past the table reads NaN in both packages (the
+    # reference's jnp.take runs in jax's default mode="fill")
+    hi = np.array([lay.padded_rows(v) + 3, 10_000, 1, -7], np.int32)
+    jr = np.asarray(jpk.fat_gather_rows(jnp.asarray(j), jnp.asarray(hi),
+                                        jpk.line_layout(d, kind)))
+    tr = tfl.fat_gather_rows(t, torch.from_numpy(hi), lay).numpy()
+    np.testing.assert_array_equal(tr, jr)  # NaN == NaN position-wise
+    assert np.isnan(tr[:2]).all() and np.isfinite(tr[2:]).all()
 
 
 def _touched_mask(lay, n_rows, ids):

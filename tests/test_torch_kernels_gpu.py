@@ -66,3 +66,91 @@ def test_fat_line_update_refuses_mixed_devices():
     with pytest.raises(ValueError, match="ulines"):
         tk.fat_line_update(fat, ul, torch.zeros(2, 64, device="cuda"), None,
                            torch.ones(2, device="cuda"), layout=lay, lr=0.1)
+
+
+# ------------------------------------------------------------ flash attention
+
+
+def _flash_inputs(dtype, b=2, h=2, t=45, dh=32, seed=0):
+    """Random q, k, v, dO on the card; key padding, one fully masked row,
+    and (t = 45) a ragged last tile of 13 rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, t, dh), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    kv = torch.rand((b, t), generator=gen, device="cuda") > 0.25
+    kv[-1] = False  # every key of the last batch row masked
+    return q, k, v, do, kv
+
+
+def _flash_tol(dtype, ref):
+    """f32: 2e-5 (summation order only).  bf16: the kernel and its plain
+    version round p / ds / the output to bf16 at the same places, so they
+    differ by about one bf16 ulp (2^-8 relative) of the largest term."""
+    if dtype == torch.float32:
+        return dict(rtol=2e-5, atol=2e-5)
+    return dict(rtol=2e-2, atol=2e-2 * float(ref.float().abs().max()) + 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,dh", [(45, 32), (20, 64), (100, 8)])
+def test_flash_kernels_match_plain_on_card(dtype, t, dh):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, do, kv = _flash_inputs(dtype, t=t, dh=dh)
+    out, lse = fa.flash_fwd(q, k, v, kv)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, kv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), out_p.float(), **_flash_tol(dtype, out_p))
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    assert torch.isinf(lse[-1]).all() and (out[-1] == 0).all()  # masked row
+    inf_out, none = fa.flash_fwd(q, k, v, kv, with_lse=False)
+    assert none is None and torch.equal(inf_out, out)
+    delta = (do.float() * out_p.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, kv, lse_p, delta)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, kv, lse_p, delta)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, kv, lse_p, delta)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, kv, lse_p, delta)
+    torch.cuda.synchronize()
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+               else _flash_tol(dtype, want))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert (dq[-1] == 0).all() and (dk[-1] == 0).all() and (dv[-1] == 0).all()
+
+
+@pytest.mark.gpu
+def test_flash_autograd_counts_launches_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, do, kv = _flash_inputs(torch.float32)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    (fa.flash_attention(q, k, v, kv) * do).sum().backward()
+    torch.cuda.synchronize()
+    after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+             fa.flash_bwd_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+@pytest.mark.gpu
+def test_flash_refuses_bad_operands_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    q = torch.zeros((1, 1, 8, 130), device="cuda")
+    kv = torch.ones((1, 8), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="Dh"):
+        fa.flash_fwd(q, q, q, kv)
+    q = torch.zeros((1, 1, 8, 32), device="cuda")
+    with pytest.raises(ValueError, match="key_valid"):
+        fa.flash_fwd(q, q, q, kv.cpu())
+    with pytest.raises(ValueError, match="k is"):
+        fa.flash_fwd(q, q.to(torch.bfloat16), q, kv)

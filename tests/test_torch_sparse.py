@@ -140,3 +140,30 @@ def test_tier_dispatch():
     assert tk.fat_line_update.launches == before + 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsp.SparseOptimizer(kind="adam", lr=0.1, slot_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_lookup_out_of_range_ids_match_jax(fused):
+    """In-range, negative and past-the-end ids read what the JAX package
+    reads: jnp.take's default mode="fill" wraps negatives of a plain table
+    and gives NaN rows past it; the fat path reads row 0 for negatives and
+    NaN for a line past the table."""
+    from tdfo_tpu.parallel import embedding as jemb
+    from tdfo_tpu_torch.interop import tables_from_numpy
+    from tdfo_tpu_torch.parallel import embedding as temb
+
+    v, d = 203, 16
+    kw = dict(num_embeddings=v, embedding_dim=d, features=("f",),
+              fused=fused)
+    jcoll = jemb.ShardedEmbeddingCollection([jemb.EmbeddingSpec("t", **kw)])
+    tcoll = temb.ShardedEmbeddingCollection([temb.EmbeddingSpec("t", **kw)])
+    jt = jcoll.init(jax.random.key(0))
+    tt = tables_from_numpy({k: np.asarray(x) for k, x in jt.items()})
+    assert (tt["t"].dim() == 3) == fused
+    ids = np.array([[0, 5, v - 1, -1, -3, -v], [-v - 1, v, v + 7, 4096, 1, 2]],
+                   np.int32)
+    want = np.asarray(jcoll.lookup(jt, {"f": jnp.asarray(ids)})["f"])
+    got = tcoll.lookup(tt, {"f": torch.from_numpy(ids)})["f"].numpy()
+    assert got.shape == (2, 6, d)
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[1, 2:4]).all() and np.isfinite(got[0, :3]).all()

@@ -3,7 +3,9 @@ synth | preprocess-ctr | train --device cpu`` with ``model_parallel = true``
 and ``fused_table_threshold = 0`` (every table fat, packed R = 2 lines at
 d = 16).  ``metrics.jsonl`` must carry train loss / train AUC and an eval
 AUC in range; the fused update ran through the ``fat_line_update``
-wrapper."""
+wrapper.  The Bert4Rec journey (``synth | preprocess-seq | train`` with
+``attn = "flash"``) must log Recall/NDCG and ``test_*`` metrics in range
+through the flash wrappers, and its unported knobs name their item."""
 
 import json
 import subprocess
@@ -106,4 +108,48 @@ def test_pad_batch_zero_weights():
 def test_unported_knobs_refuse(tmp_path, extra):
     cfg = read_configs(_write_config(tmp_path, **extra))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
+        Trainer(cfg, device="cpu")
+
+
+def test_bert4rec_flash_fit_cpu(tmp_path):
+    """``synth -> preprocess-seq -> train --device cpu`` in-process with
+    ``model = "bert4rec"``, ``attn = "flash"`` and a fat item table:
+    Recall/NDCG@{10,20,50} for the pre-training eval, every epoch and the
+    held-out test split, all in [0, 1]; every step ran the flash forward,
+    dQ and dK/dV once per layer and the fused update once."""
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg = _write_config(tmp_path, model="bert4rec", attn="flash", n_layers=2,
+                        per_device_train_batch_size=32,
+                        per_device_eval_batch_size=32)
+    for cmd in ("synth", "preprocess-seq"):
+        assert launch.main([cmd, "--config", str(cfg)]) == 0
+    counts = lambda: (tk.fat_line_update.launches, fa.flash_fwd.launches,  # noqa: E731
+                      fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    before = counts()
+    assert launch.main(["train", "--config", str(cfg), "--log-dir",
+                        str(tmp_path / "logs"), "--device", "cpu"]) == 0
+    recs = [json.loads(x) for x in
+            (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
+    steps = sum(r["steps"] for r in recs if "train_loss_epoch" in r)
+    evals = [r for r in recs if "Recall@10" in r]
+    tests = [r for r in recs if "test_Recall@10" in r]
+    assert steps > 0 and [r["epoch"] for r in evals] == [-1, 0] and len(tests) == 1
+    for r in (*evals, *tests):
+        vals = [v for k, v in r.items() if "Recall@" in k or "NDCG@" in k]
+        assert len(vals) == 6 and all(0.0 <= v <= 1.0 for v in vals), r
+    fused, fwd, dq, dkv = (a - b for a, b in zip(counts(), before))
+    assert fused == steps and dq == dkv == 2 * steps
+    assert fwd > 2 * steps  # training steps plus the eval forwards
+
+
+@pytest.mark.parametrize("extra,item", [
+    ({"jagged": True}, 11), ({"attn": "ring_flash"}, 12),
+    ({"attn": "ring"}, 12), ({"tensor_parallel": True}, 12),
+])
+def test_bert4rec_unported_knobs_name_their_item(tmp_path, extra, item):
+    cfg = read_configs(_write_config(tmp_path, model="bert4rec", **extra))
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue A item {item}\\)"):
         Trainer(cfg, device="cpu")
