@@ -66,8 +66,40 @@ Phases (each prints its lines; any failure raises, so the script never exits
    ``metrics.jsonl`` must hold Recall/NDCG@{10,20,50} and ``test_*``, and
    every kernel must have launched.
 
-``--phases profile`` / ``profile_b4r`` (not in the default run) add a
-``torch.profiler`` breakdown of steady TwoTower / Bert4Rec main-path steps.
+9. routed_oracle — ``fat_line_update_routed`` against its plain version on
+   the card, on the same operands: the 4 kinds at d = 16 (packed, R = 2-8),
+   rowwise_adagrad on the full 4.32 GB Criteo fat stack; rowwise_adagrad at
+   d = 8 (R = 8); adam at d = 64 (R = 1, two tiles); with negative ids (the
+   sentinel row and line), capacity padding rows and distinct rows sharing
+   a line.  Touched rows within rtol 1e-6 / atol 1e-7, every other element
+   bitwise unchanged, and the kernel bitwise equal to ``fat_line_update``
+   fed the same update in slot space.
+10. routed_timing — CUDA-event times of the routed kernel and its plain
+   version at the DLRM main path's shape (the 8 fat tables' 65,536 ids of
+   one B = 8192 step on the 4.32 GB stack), L2 flushed before each launch,
+   beside the byte bound.
+11. dlrm_main — DLRM-Criteo sparse training at full width, the library flow
+   of ``bench.py::build_criteo_train_bench`` as the planner bench's
+   defaults arm calls it (``bench.py:492-493``): the 26 Criteo-Kaggle tables
+   of ``bench.py:64-68`` at d = 16, the 8 tables above 16,384 rows in one
+   rowwise-adagrad fat stack (``[8,428,795, 1, 128]`` f32), the 18 others in
+   one plain stack, B = 8192 with 13 continuous columns (uniform ids, as
+   ``bench.py:248-265``), ``DLRMBackbone`` (bottom (64,), top (128, 64)),
+   sparse rowwise_adagrad lr 3e-4, dense AdamW lr 3e-4 wd 1e-4,
+   ``dedup_lookup``; f32 compute (the bench computes the dense half in
+   bf16; ``mixed_precision`` is not ported).  20 steps with finite losses,
+   one routed launch and no ``fat_line_update`` launch per step, median
+   step time and peak device memory; then 3 steps on the card and on the
+   port's CPU path from one initial state: losses and the touched rows of
+   both stacks within rtol 1e-4.
+12. dlrm_cli — ``launch synth-criteo -> preprocess-criteo -> train`` with a
+   copy of ``configs/dlrm-criteo.toml`` whose ``fused_table_threshold`` is
+   lowered so a fat and a plain stack exist; ``metrics.jsonl`` must hold
+   eval AUC and the routed kernel must have launched.
+
+``--phases profile`` / ``profile_b4r`` / ``profile_dlrm`` (not in the
+default run) add a ``torch.profiler`` breakdown of steady TwoTower /
+Bert4Rec / DLRM-Criteo main-path steps.
 
 Output: a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -110,15 +142,32 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # 4, 6 and 8 B H T^2 Dh flops: QK^T and PV; dQ recomputes QK^T, dO V^T and
 # adds dS K; dK/dV recomputes QK^T, dO V^T and adds P^T dO and dS^T Q
 FLASH_FLOPS = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+
+# DLRM-Criteo: bench.py:64-68's 26 Criteo-Kaggle vocabularies (33,762,577
+# rows), the planner bench's defaults arm (bench.py:492-493, 346-349)
+CRITEO_VOCABS = (
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572,
+)
+CRITEO_CATS = tuple(f"cat_{i}" for i in range(26))
+CRITEO_CONTS = tuple(f"cont_{i}" for i in range(13))
+CRITEO_DIM, CRITEO_FUSED_MIN = 16, 16384  # tdfo_tpu/plan/planner.py:94
+OOB = 2**31 - 1
+# rowwise_adagrad per element: g + wd x (2), g^2 (1), sum (1), then
+# x - lr g / denom (3) with g + wd x again (2); per row mean, sqrt, eps (3)
+ROWWISE_FLOP_PER_ELEMENT, ROWWISE_FLOP_PER_ROW = 9, 3
 _CSRC, _PK = "tdfo_tpu_torch/ops/csrc/", "tdfo_tpu/ops/pallas_kernels.py:"
 KERNEL_TABLE = (  # name, source, the TPU kernel it replaces
     ("fat_line_update", _CSRC + "fat_line_update.cu", _PK + "885"),
+    ("fat_line_update_routed", _CSRC + "fat_line_update_routed.cu", _PK + "1122"),
     ("flash_fwd", _CSRC + "flash_attn_fwd.cu", _PK + "73"),
     ("flash_bwd_dq", _CSRC + "flash_attn_bwd.cu", _PK + "222"),
     ("flash_bwd_dkv", _CSRC + "flash_attn_bwd.cu", _PK + "261"),
 )
 DEFAULT_PHASES = ("build", "oracle", "timing", "main", "cli", "flash_oracle",
-                  "flash_timing", "b4r_main", "b4r_cli")
+                  "flash_timing", "b4r_main", "b4r_cli", "routed_oracle",
+                  "routed_timing", "dlrm_main", "dlrm_cli")
 
 
 def say(*parts) -> None:
@@ -919,6 +968,380 @@ def phase_b4r_cli(torch) -> dict:
     return {"launches": counts}
 
 
+# ------------------------------------------------------------ phases 9, 10
+
+
+def routed_operands(torch, lay, rows, ids, gen, *, pad_rows=8):
+    """One step's routed operands on a fat table of ``rows`` vocab rows:
+    ``dedupe_rows_and_lines`` over ``ids`` with capacities as the dedup
+    step sizes them (+ ``pad_rows`` padding row slots), the forward's line
+    gather and random row grads (padding rows included: they must be
+    ignored)."""
+    from tdfo_tpu_torch.ops import sparse as sp
+    from tdfo_tpu_torch.parallel.embedding import take_fill
+
+    fat = random_fat(torch, lay, rows, gen)
+    b = ids.shape[0]
+    seg, ul, rl, rs = sp.dedupe_rows_and_lines(
+        ids, capacity_rows=b + pad_rows, capacity_lines=b, rows_per_line=lay.r)
+    lines = take_fill(fat, torch.where(ul < OOB, ul, 0)).contiguous()
+    g_u = torch.randn((b + pad_rows, lay.d), generator=gen, device="cuda")
+    return fat, lines, ul, rl, rs, g_u
+
+
+def routed_case(torch, name, lay, fat0, lines, ul, rl, rs, g_u, corr) -> float:
+    """Routed kernel vs its plain version (touched rows within the
+    optimizer tolerance, everything else bitwise unchanged) and vs
+    ``fat_line_update`` on the same update in slot space (bitwise).
+    Clones of ``fat0``; returns the max |err| against the plain version."""
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as kr
+
+    rtol, atol = TOL["optimizer"]
+    kw = dict(layout=lay, lr=0.05, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-2)
+    g_slots, touched = kr.routed_to_slots(ul, rl, rs, g_u, lay)
+    m = touched_mask(torch, fat0, ul, touched, lay)
+    v0 = fat0.view(-1, lay.w).view(torch.int32)
+
+    def untouched_changed(t):
+        return bool(((t.view(-1, lay.w).view(torch.int32) != v0) & ~m).any())
+
+    a = fat0.clone()
+    kr.fat_line_update_routed_plain(a, lines, ul, rl, rs, g_u, corr, **kw)
+    torch.cuda.synchronize()
+    if untouched_changed(a):
+        raise AssertionError(f"{name}: plain version changed untouched elements")
+    ref_touched = a.view(-1, lay.w)[m]
+    del a
+    b = fat0.clone()
+    kr.fat_line_update_routed(b, lines, ul, rl, rs, g_u, corr, **kw)
+    torch.cuda.synchronize()
+    vb = b.view(-1, lay.w)
+    if untouched_changed(b):
+        raise AssertionError(f"{name}: kernel changed untouched elements")
+    if not torch.isfinite(vb[m]).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    torch.testing.assert_close(vb[m], ref_touched, rtol=rtol, atol=atol,
+                               msg=lambda s_: f"{name}: {s_}")
+    err = float((vb[m] - ref_touched).abs().max()) if m.any() else 0.0
+    c = fat0.clone()
+    kl.fat_line_update(c, ul, g_slots, touched, corr, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(b.view(torch.int32), c.view(torch.int32)):
+        raise AssertionError(f"{name}: routed kernel differs from fat_line_update")
+    del b, c
+    n_rows = int(m.any(dim=1).sum())
+    shared = int((touched.sum(dim=1) > 1).sum())
+    say(f"  {name}: touched rows {n_rows} ({shared} lines hold 2+ of them), "
+        f"max_abs_err {err:.3e}, bitwise equal to fat_line_update, "
+        f"bitwise-unchanged elements {int((~m).sum())}")
+    return err
+
+
+def criteo_fat_rows() -> int:
+    return sum(v for v in CRITEO_VOCABS if v > CRITEO_FUSED_MIN)
+
+
+def phase_routed_oracle(torch, rng) -> dict:
+    from tdfo_tpu_torch.ops.fat_lines import line_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    t = torch.tensor(3.0, device="cuda")
+    corr = torch.stack([1.0 - 0.9**t, 1.0 - 0.999**t]).to(torch.float32)
+    worst = 0.0
+    cases = [(kind, 16, criteo_fat_rows() if kind == "rowwise_adagrad"
+              else 2_000_000) for kind in KINDS]
+    cases += [("rowwise_adagrad", 8, 2_000_000), ("adam", 64, 2_000_000)]
+    for kind, d, rows in cases:
+        lay = line_layout(d, kind)
+        idn = rng.integers(0, rows, BATCH * 4)
+        idn[rng.random(idn.shape[0]) < 0.01] = -1      # the sentinel row
+        idn[1::97] = idn[::97][: idn[1::97].shape[0]] ^ 1  # neighbours share lines
+        ids = torch.from_numpy(idn).cuda()
+        fat, lines, ul, rl, rs, g_u = routed_operands(torch, lay, rows, ids, gen)
+        worst = max(worst, routed_case(
+            torch, f"{kind} d={d} R={lay.r} rows={rows}", lay, fat, lines, ul,
+            rl, rs, g_u, corr))
+        del fat, lines
+        torch.cuda.empty_cache()
+    # hand-made edges: sentinel lines, a line past the table, padding rows
+    lay = line_layout(16, "rowwise_adagrad")
+    fat = random_fat(torch, lay, 64 * lay.r, gen)
+    ul = torch.tensor([3, 7, 40, 70, OOB, OOB], dtype=torch.int32, device="cuda")
+    rl = torch.tensor([0, 0, 0, 1, 2, 3, 4, 6, 6], dtype=torch.int32, device="cuda")
+    rs = torch.tensor([0, 1, 3, 2, 1, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
+    lines = fat[torch.where(ul < 64, ul, 0).long()].contiguous()
+    g_u = torch.randn((9, 16), generator=gen, device="cuda")
+    worst = max(worst, routed_case(torch, "rowwise_adagrad d=16 edge lines", lay,
+                                   fat, lines, ul, rl, rs, g_u, corr))
+    say(f"routed_oracle: fat_line_update_routed passed, worst max_abs_err {worst:.3e}")
+    return {"max_abs_err": worst}
+
+
+def criteo_host_batch(rng: np.random.Generator, b: int = BATCH) -> dict:
+    """bench.py:248-265 (uniform ids)."""
+    out = {c: rng.integers(0, v, b, dtype=np.int32)
+           for c, v in zip(CRITEO_CATS, CRITEO_VOCABS)}
+    out.update({c: rng.random(b, dtype=np.float32) for c in CRITEO_CONTS})
+    out["label"] = rng.integers(0, 2, b).astype(np.float32)
+    return out
+
+
+def phase_routed_timing(torch, rng) -> dict:
+    """The routed kernel at the DLRM main path's shape: one step's fat ids
+    (the 8 big features x B, offsets into the stack, dedup capacities)."""
+    from tdfo_tpu_torch.ops.fat_lines import line_layout
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as kr
+
+    lay = line_layout(CRITEO_DIM, "rowwise_adagrad")
+    rows = criteo_fat_rows()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    big = [v for v in CRITEO_VOCABS if v > CRITEO_FUSED_MIN]
+    offs = np.cumsum([0] + big[:-1])
+    ids = np.concatenate([o + rng.integers(0, v, BATCH) for o, v in zip(offs, big)])
+    fat, lines, ul, rl, rs, g_u = routed_operands(
+        torch, lay, rows, torch.from_numpy(ids).cuda(), gen, pad_rows=0)
+    g_u *= 1e-3
+    corr = torch.zeros(2, device="cuda")
+    err = routed_case(torch, "rowwise_adagrad main-path shape", lay, fat, lines,
+                      ul, rl, rs, g_u, corr)
+    kw = dict(layout=lay, lr=3e-4, eps=1e-8)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    run_k = lambda: kr.fat_line_update_routed(fat, lines, ul, rl, rs, g_u, corr, **kw)  # noqa: E731
+    run_p = lambda: kr.fat_line_update_routed_plain(fat, lines, ul, rl, rs, g_u, corr, **kw)  # noqa: E731
+    for _ in range(3):
+        run_k()
+        run_p()
+    ks, ps = [], []
+    for _ in range(2):  # in turns: kernel, plain, kernel, plain
+        ks.append(timed_ms(torch, run_k, 50, flush))
+        ps.append(timed_ms(torch, run_p, 20, flush))
+    c = ul.shape[0]
+    lidx = rl.to(torch.int64)
+    line_of = torch.where(lidx < c, ul.to(torch.int64)[lidx.clamp(max=c - 1)], OOB)
+    n_rows = int(((lidx < c) & (line_of < fat.shape[0])).sum())
+    cr = rl.shape[0]
+    # per updated row: the slot's need lanes read (from lines) and written,
+    # its d grads read, row_lidx + row_slot + its ulines entry; every other
+    # row slot reads its row_lidx; corr
+    per_row = 2 * lay.need * 4 + lay.d * 4 + 12
+    nbytes = n_rows * per_row + (cr - n_rows) * 4 + 8
+    flops = n_rows * (lay.d * ROWWISE_FLOP_PER_ELEMENT + ROWWISE_FLOP_PER_ROW)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    ms, plain_ms = sum(ks) / len(ks), sum(ps) / len(ps)
+    say(f"routed_timing: fat_line_update_routed at the DLRM main path's shape "
+        f"(rowwise_adagrad d={CRITEO_DIM} R={lay.r}, {rows} rows in "
+        f"{fat.shape[0]} lines, {n_rows} updated rows of {cr} row slots, "
+        f"{c} line slots): kernel {ks} ms, plain {ps} ms; bound {bound:.6f} ms "
+        f"by {bound_by} ({per_row} B per row, {nbytes} B at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s = {bytes_ms:.6f} ms; {flops} f32 flop "
+        f"at {F32_FLOP_PER_S / 1e12} TFLOP/s = {ops_ms:.6f} ms)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+# ------------------------------------------------------------ phases 11, 12
+
+
+def dlrm_initial(torch):
+    """The main path's collection, initial tables (on the card) and
+    backbone (on the CPU), from fixed seeds."""
+    from tdfo_tpu_torch.models.dlrm import DLRMBackbone, generic_embedding_specs
+    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
+
+    size_map = dict(zip(CRITEO_CATS, CRITEO_VOCABS))
+    coll = ShardedEmbeddingCollection(
+        generic_embedding_specs(size_map, CRITEO_CATS, CRITEO_DIM, "row",
+                                fused_threshold=CRITEO_FUSED_MIN),
+        stack_tables=True, fused_kind="rowwise_adagrad")
+    tables0 = coll.init(0, device="cuda")
+    backbone0 = DLRMBackbone(CRITEO_DIM, cat_columns=CRITEO_CATS,
+                             cont_columns=CRITEO_CONTS,
+                             generator=torch.Generator().manual_seed(1))
+    return coll, tables0, backbone0
+
+
+def dlrm_state(torch, coll, tables0, backbone0, device):
+    """``(state, step)`` on ``device`` from copies of the initial state."""
+    import copy
+
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.train.ctr import ctr_sparse_forward
+    from tdfo_tpu_torch.train.sparse_step import (
+        SparseTrainState,
+        make_sparse_train_step,
+    )
+
+    backbone = copy.deepcopy(backbone0).to(device)
+    state = SparseTrainState.create(
+        backbone=backbone,
+        tables={k: v.to(device, copy=True) for k, v in tables0.items()},
+        sparse_opt=sparse_optimizer("rowwise_adagrad", lr=LR),
+        learning_rate=LR, weight_decay=WD)
+    return state, make_sparse_train_step(coll, ctr_sparse_forward(backbone),
+                                         dedup_lookup=True)
+
+
+def dlrm_counts():
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as kr
+
+    return {"fat_line_update": kl.fat_line_update.launches,
+            "fat_line_update_routed": kr.fat_line_update_routed.launches}
+
+
+def zero_dlrm_counts():
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as kr
+
+    kl.fat_line_update.launches = 0
+    kr.fat_line_update_routed.launches = 0
+
+
+def dlrm_touched_rows(torch, coll, state, host):
+    """Each stack's touched rows ``[n, W]`` (fat: the whole slot, table and
+    accumulator; plain: the row and its rowwise accumulator), on the CPU."""
+    from tdfo_tpu_torch.ops.fat_lines import fat_view
+
+    out = {}
+    for aname, table in state.tables.items():
+        feats = [c for c in CRITEO_CATS if coll.resolve(c)[0] == aname]
+        ids = np.unique(np.concatenate(
+            [h[c].astype(np.int64) + coll.resolve(c)[2] for h in host for c in feats]))
+        idx = torch.from_numpy(ids).to(table.device)
+        if table.dim() == 3:
+            out[aname] = fat_view(table, coll.fat_layout_for(aname))[idx].cpu()
+        else:
+            acc = state.slots[aname][0]
+            out[aname] = torch.cat([table[idx], acc[idx][:, None]], dim=1).cpu()
+    return out
+
+
+def phase_dlrm_main(torch, card: str, steps: int = 20, check_steps: int = 3) -> dict:
+    from tdfo_tpu_torch.interop import TOL
+
+    coll, tables0, backbone0 = dlrm_initial(torch)
+    shapes = {k: tuple(v.shape) for k, v in tables0.items()}
+    say(f"dlrm_main: arrays {shapes}, B {BATCH}, d {CRITEO_DIM}, "
+        f"rowwise_adagrad lr {LR}, dense AdamW lr {LR} wd {WD}, dedup_lookup")
+    rng = np.random.default_rng(9)
+    host = [criteo_host_batch(rng) for _ in range(steps)]
+    state, step = dlrm_state(torch, coll, tables0, backbone0, "cuda")
+    dev_batches = [to_device(torch, h, "cuda") for h in host]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_dlrm_counts()
+    losses, times = [], []
+    for b in dev_batches:
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    counts = dlrm_counts()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses: {losses}")
+    want = {"fat_line_update": 0, "fat_line_update_routed": steps}
+    if counts != want:
+        raise AssertionError(f"launches in {steps} steps {counts}, expected {want}")
+    steady = times[check_steps:]
+    step_ms = float(np.median(steady))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say(f"dlrm_main: {steps} steps on the card, losses {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}, launches {counts} (1 routed per step), step_ms "
+        f"median {step_ms:.4f} mean {float(np.mean(steady)):.4f} min "
+        f"{min(steady):.4f} max {max(steady):.4f} (host clock, each step "
+        f"synchronised, steps {check_steps + 1}-{steps}; {BATCH / step_ms * 1e3:.0f} "
+        f"examples/s), peak device memory {peak_gb:.2f} GB, on {card}")
+    del state, dev_batches
+    torch.cuda.empty_cache()
+
+    # the first steps on the card and on the CPU path from one initial state
+    runs = {}
+    for device in ("cuda", "cpu"):
+        src = tables0 if device == "cuda" else {k: v.cpu() for k, v in tables0.items()}
+        st, stp = dlrm_state(torch, coll, src, backbone0, device)
+        del src
+        ls = []
+        for h in host[:check_steps]:
+            st, loss = stp(st, to_device(torch, h, device))
+            ls.append(float(loss))
+        runs[device] = (ls, dlrm_touched_rows(torch, coll, st, host[:check_steps]))
+        del st
+        torch.cuda.empty_cache()
+    rtol, atol = TOL["trajectory"]
+    (lg, rg), (lc, rc) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=rtol, atol=atol)
+    parts = []
+    for aname in rg:
+        g, c = rg[aname], rc[aname]
+        diff = (g - c).abs()
+        out = int((diff > atol + rtol * c.abs()).sum())
+        parts.append(f"{aname}: {g.shape[0]} touched rows, {g.numel()} elements, "
+                     f"max_abs_err {float(diff.max()):.3e}, {out} outside rtol {rtol}")
+        torch.testing.assert_close(g, c, rtol=rtol, atol=atol,
+                                   msg=lambda s_, a=aname: f"{a}: {s_}")
+    say(f"dlrm_main: card vs CPU over {check_steps} steps: losses {lg} vs {lc}; "
+        + "; ".join(parts))
+    return {"launches": counts, "step_ms": step_ms, "losses": losses}
+
+
+def phase_profile_dlrm(torch, warm: int = 3, steps: int = 5) -> None:
+    """Optional (``--phases profile_dlrm``): the DLRM-Criteo main path's steps."""
+    coll, tables0, backbone0 = dlrm_initial(torch)
+    state, step = dlrm_state(torch, coll, tables0, backbone0, "cuda")
+    del tables0
+    rng = np.random.default_rng(13)
+    batches = [to_device(torch, criteo_host_batch(rng), "cuda")
+               for _ in range(warm + steps)]
+    profile_steps(torch, "dlrm-criteo", state, step, batches, warm)
+
+
+def phase_dlrm_cli(torch) -> dict:
+    from tdfo_tpu_torch import launch
+
+    src = (ROOT / "configs" / "dlrm-criteo.toml").read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        body = []
+        for line in src.splitlines():
+            if line.startswith("data_dir ="):
+                line = f'data_dir = "{tmp / "data"}"'
+            elif line.startswith("fused_table_threshold ="):
+                line = "fused_table_threshold = 20"  # fat and plain stacks
+            elif line.startswith("per_device_"):
+                line = line.split("=")[0] + "= 256"
+            body.append(line)
+        cfg = tmp / "dlrm-criteo.toml"
+        cfg.write_text("\n".join(body) + "\n")
+        for cmd in ("synth-criteo", "preprocess-criteo"):
+            if launch.main([cmd, "--config", str(cfg)]) != 0:
+                raise AssertionError(f"launch {cmd} failed")
+        zero_dlrm_counts()
+        rc = launch.main(["train", "--config", str(cfg), "--log-dir",
+                          str(tmp / "logs"), "--device", "cuda"])
+        counts = dlrm_counts()
+        if rc != 0:
+            raise AssertionError("launch train failed")
+        recs = [json.loads(x) for x in
+                (tmp / "logs" / "metrics.jsonl").read_text().splitlines()]
+    aucs = [r["auc"] for r in recs if "auc" in r]
+    steps = sum(r["steps"] for r in recs if "train_loss_epoch" in r)
+    if not aucs or not all(0.0 <= a <= 1.0 for a in aucs):
+        raise AssertionError(f"metrics.jsonl lacks eval AUC: {recs}")
+    if counts["fat_line_update_routed"] != steps or steps <= 0:
+        raise AssertionError(f"routed launches {counts} for {steps} steps")
+    say(f"dlrm_cli: synth-criteo -> preprocess-criteo -> train on the card "
+        f"(configs/dlrm-criteo.toml, fused_table_threshold 20): eval auc "
+        f"{[round(a, 4) for a in aucs]}, {steps} steps, launches {counts}")
+    return {"launches": counts}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -926,7 +1349,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                    help="comma-separated subset of " + ",".join(DEFAULT_PHASES)
-                        + ",profile,profile_b4r (default: all but the profiles)")
+                        + ",profile,profile_b4r,profile_dlrm (default: all but "
+                        "the profiles)")
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -967,7 +1391,7 @@ def main(argv=None) -> int:
                    "ms": None, "plain_ms": None, "bound_ms": None,
                    "bound_by": None, "library_ms": None}
             for name, source, replaces in KERNEL_TABLE}
-    fat = recs["fat_line_update"]
+    fat, routed = recs["fat_line_update"], recs["fat_line_update_routed"]
     if "oracle" in phases:
         fat.update(phase_oracle(torch, rng))
     if "timing" in phases:
@@ -994,10 +1418,23 @@ def main(argv=None) -> int:
             recs[k]["launches"] = counts[k]
     if "b4r_cli" in phases:
         phase_b4r_cli(torch)
+    if "routed_oracle" in phases:
+        routed.update(phase_routed_oracle(torch, rng))
+    if "routed_timing" in phases:
+        t = phase_routed_timing(torch, rng)
+        err = t.pop("max_abs_err")
+        routed.update(t, max_abs_err=max(routed["max_abs_err"] or 0.0, err))
+    if "dlrm_main" in phases:
+        routed["launches"] = phase_dlrm_main(torch, smi)["launches"][
+            "fat_line_update_routed"]
+    if "dlrm_cli" in phases:
+        phase_dlrm_cli(torch)
     if "profile" in phases:
         phase_profile(torch)
     if "profile_b4r" in phases:
         phase_profile_b4r(torch)
+    if "profile_dlrm" in phases:
+        phase_profile_dlrm(torch)
     say(json.dumps({"kernels": list(recs.values())}))
     say(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,10 @@
 """Synthetic Goodreads raw files — test/demo fixture for the ETL pipeline.
 
-Port of ``write_synthetic_goodreads`` from ``tdfo_tpu/data/synthetic.py``
-(numpy/pandas only, unchanged: the same seed writes byte-identical raw files
-in both packages).  The Criteo fixture and ``zipf_ids`` come with the DLRM
-slice (``ROADMAP.md`` Queue A item 10).
+Port of ``write_synthetic_goodreads`` and ``write_synthetic_criteo`` from
+``tdfo_tpu/data/synthetic.py`` (numpy/pandas only, unchanged: the same seed
+writes byte-identical raw files in both packages).  ``zipf_ids`` (the
+reference bench's power-law batches) is not ported: nothing in the port
+draws power-law ids yet.
 
 Generates the four raw inputs the preprocessing layer consumes
 (``goodreads_interactions.csv``, ``goodreads_books.json`` ndjson,
@@ -22,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 
-__all__ = ["write_synthetic_goodreads"]
+__all__ = ["write_synthetic_goodreads", "write_synthetic_criteo"]
 
 
 _LANGS = ["eng", "en-US", "spa", "fre", "ger", ""]
@@ -119,4 +120,44 @@ def write_synthetic_goodreads(
                 "publication_year": "" if rng.random() < 0.1 else str(year),
             }
             f.write(json.dumps(rec) + "\n")
+    return data_dir
+
+
+def write_synthetic_criteo(
+    data_dir: str | Path,
+    *,
+    n_rows: int = 4000,
+    seed: int = 0,
+) -> Path:
+    """Criteo-format ``train.txt`` fixture: label \\t 13 ints \\t 26 hex cats,
+    TSV, no header, with the real dump's dirt — missing ints, missing cats,
+    skewed (zipf) category popularity so the frequency-thresholded vocab
+    build has both kept and OOV-folded values."""
+    data_dir = Path(data_dir)
+    data_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lines = []
+    cat_pools = [
+        [f"{rng.integers(0, 2**32):08x}" for _ in range(max(4, 3 + i * 2))]
+        for i in range(26)
+    ]
+    for _ in range(n_rows):
+        label = int(rng.random() < 0.25)
+        ints = []
+        for i in range(13):
+            if rng.random() < 0.15:
+                ints.append("")  # missing
+            else:
+                ints.append(str(int(rng.zipf(1.7)) - 1 + (i % 3)))
+        cats = []
+        for i in range(26):
+            if rng.random() < 0.1:
+                cats.append("")  # missing
+            else:
+                pool = cat_pools[i]
+                # zipf-ranked pick: head values frequent, tail values rare
+                j = min(int(rng.zipf(1.5)) - 1, len(pool) - 1)
+                cats.append(pool[j])
+        lines.append("\t".join([str(label), *ints, *cats]))
+    (data_dir / "train.txt").write_text("\n".join(lines) + "\n")
     return data_dir

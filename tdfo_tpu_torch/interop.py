@@ -8,8 +8,8 @@ JAX package:
   ``state_dict``: each ``Dense.kernel [in, out]`` becomes
   ``Linear.weight [out, in]``, each ``LayerNorm.scale`` becomes
   ``LayerNorm.weight``; biases and plain parameters (``pos_embed``) carry
-  over.  Module names are kept, so a TwoTower or a ``Bert4RecBackbone`` tree
-  loads with ``load_state_dict(strict=True)``; the fused ``qkv`` kernel
+  over.  Module names are kept, so a TwoTower, ``DLRMBackbone`` or
+  ``Bert4RecBackbone`` tree loads with ``load_state_dict(strict=True)``; the fused ``qkv`` kernel
   keeps its (head, qkv, dh) column order, which the port's attention reads
   the same way.
 * :func:`tables_from_numpy` copies a table dict onto a device.  Fat tables

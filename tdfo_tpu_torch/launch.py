@@ -1,11 +1,14 @@
 """Entry point: ``python -m tdfo_tpu_torch.launch
-{synth,preprocess-ctr,preprocess-seq,train} --config config.toml
-[--device cuda|cpu]``.
+{synth,synth-criteo,preprocess-ctr,preprocess-criteo,preprocess-seq,train}
+--config config.toml [--device cuda|cpu]``.
 
 Port of ``tdfo_tpu/launch.py`` for the ported subcommands:
 
   * ``synth``          — write a synthetic raw-goodreads fixture;
+  * ``synth-criteo``   — write a synthetic Criteo ``train.txt`` fixture;
   * ``preprocess-ctr`` — TwoTower ETL -> parquet shards + size_map.json;
+  * ``preprocess-criteo`` — Criteo ETL -> parquet shards + size_map.json
+    (the 26 + 13 column schema of ``configs/dlrm-criteo.toml``);
   * ``preprocess-seq`` — Bert4Rec ETL -> parquet_bert4rec/ shards +
     size_map_bert4rec.json;
   * ``train``          — build the Trainer from config and fit.  For
@@ -27,8 +30,8 @@ import sys
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tdfo_tpu_torch.launch", description=__doc__)
     p.add_argument("command", nargs="?", default="train",
-                   choices=["train", "preprocess-ctr", "preprocess-seq",
-                            "synth"])
+                   choices=["train", "preprocess-ctr", "preprocess-criteo",
+                            "preprocess-seq", "synth", "synth-criteo"])
     p.add_argument("--config", default="config.toml", help="path to config.toml")
     p.add_argument("--data-dir", default=None, help="override config data_dir")
     p.add_argument("--log-dir", default=None)
@@ -48,6 +51,22 @@ def main(argv: list[str] | None = None) -> int:
 
         write_synthetic_goodreads(cfg.data_dir)
         print(f"synthetic goodreads raw files written to {cfg.data_dir}")
+        return 0
+    if args.command == "synth-criteo":
+        from tdfo_tpu_torch.data.synthetic import write_synthetic_criteo
+
+        write_synthetic_criteo(cfg.data_dir)
+        print(f"synthetic criteo train.txt written to {cfg.data_dir}")
+        return 0
+    if args.command == "preprocess-criteo":
+        from tdfo_tpu_torch.data.criteo_preprocessing import (
+            run_criteo_preprocessing,
+        )
+
+        size_map = run_criteo_preprocessing(
+            cfg.data_dir, seed=cfg.seed, hot_vocab=cfg.embeddings.hot_vocab)
+        print(f"size_map: {{{len(size_map)} tables, "
+              f"max vocab {max(size_map.values())}}}")
         return 0
     if args.command == "preprocess-ctr":
         from tdfo_tpu_torch.data.ctr_preprocessing import run_ctr_preprocessing

@@ -5,9 +5,8 @@
 // What it computes is the same: for every touched vocab-row slot of every
 // line in `ulines`, one optimizer step (sgd / adagrad / rowwise_adagrad /
 // adam with decoupled weight decay) on the slot's [table | state] lanes, in
-// place.  The arithmetic follows tdfo_tpu/ops/sparse.py::_fat_apply_lines_xla
-// operation by operation; build with -fmad=false so no multiply-add is
-// contracted and the rounding matches the plain PyTorch version.
+// place.  The per-row math lives in fat_line_common.cuh, shared with the
+// routed kernel (fat_line_update_routed.cu).
 //
 // Layout: fat is [L, T, 128] f32, byte-identical to the [L*R, W] row view;
 // row slot s of line l starts at (l*R + s) * W.  Lanes [0, d) hold the
@@ -30,15 +29,9 @@
 // staging.  Making it fast (vector loads, several rows per warp) is later
 // work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fat_line_common.cuh"
 
 namespace {
-
-constexpr int KIND_SGD = 0;
-constexpr int KIND_ADAGRAD = 1;
-constexpr int KIND_ROWWISE_ADAGRAD = 2;
-constexpr int KIND_ADAM = 3;
 
 constexpr int WARPS_PER_BLOCK = 8;
 
@@ -47,21 +40,12 @@ struct Params {
   const int32_t* ulines;
   const float* g;
   const float* touched;
-  const float* corr;
   int64_t n_lines;
   int64_t n_slots;  // U * R
   int r;
   int w;
-  int d;
-  int kind;
-  float lr, b1, b2, om_b1, om_b2, eps, wd;
+  fat_lines::StepParams step;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 __global__ void fat_line_update_kernel(Params p) {
   const int lane = threadIdx.x & 31;
@@ -74,55 +58,7 @@ __global__ void fat_line_update_kernel(Params p) {
   if (p.touched != nullptr && !(p.touched[slot] > 0.0f)) return;
 
   float* row = p.fat + (line * p.r + s) * (int64_t)p.w;
-  const float* g = p.g + slot * (int64_t)p.d;
-  const int d = p.d;
-
-  if (p.kind == KIND_SGD) {
-    for (int j = lane; j < d; j += 32) {
-      const float x = row[j];
-      const float g2 = g[j] + p.wd * x;
-      row[j] = x - p.lr * g2;
-    }
-  } else if (p.kind == KIND_ADAGRAD) {
-    for (int j = lane; j < d; j += 32) {
-      const float x = row[j];
-      const float g2 = g[j] + p.wd * x;
-      const float acc_n = row[d + j] + g2 * g2;
-      const float delta = p.lr * g2 / (sqrtf(acc_n) + p.eps);
-      row[j] = x - delta;
-      row[d + j] = acc_n;
-    }
-  } else if (p.kind == KIND_ROWWISE_ADAGRAD) {
-    float part = 0.0f;
-    for (int j = lane; j < d; j += 32) {
-      const float g2 = g[j] + p.wd * row[j];
-      part += g2 * g2;
-    }
-    const float acc_n = row[d] + warp_sum(part) / (float)d;
-    const float denom = sqrtf(acc_n) + p.eps;
-    for (int j = lane; j < d; j += 32) {
-      const float x = row[j];
-      const float g2 = g[j] + p.wd * x;
-      row[j] = x - p.lr * g2 / denom;
-    }
-    __syncwarp();  // every lane read row[j] before lane 0 writes the accumulator
-    if (lane == 0) row[d] = acc_n;
-  } else if (p.kind == KIND_ADAM) {
-    const float c1 = p.corr[0];
-    const float c2 = p.corr[1];
-    for (int j = lane; j < d; j += 32) {
-      const float x = row[j];
-      const float gj = g[j];
-      const float mu_n = p.b1 * row[d + j] + p.om_b1 * gj;
-      const float nu_n = p.b2 * row[2 * d + j] + p.om_b2 * gj * gj;
-      const float mu_hat = mu_n / c1;
-      const float nu_hat = nu_n / c2;
-      const float delta = p.lr * (mu_hat / (sqrtf(nu_hat) + p.eps) + p.wd * x);
-      row[j] = x - delta;
-      row[d + j] = mu_n;
-      row[2 * d + j] = nu_n;
-    }
-  }
+  fat_lines::fat_row_step(row, row, p.g + slot * (int64_t)p.step.d, p.step, lane);
 }
 
 }  // namespace
@@ -137,20 +73,11 @@ extern "C" int fat_line_update_f32(
   p.ulines = ulines;
   p.g = g;
   p.touched = touched;
-  p.corr = corr;
   p.n_lines = n_lines;
   p.n_slots = n_ulines * r;
   p.r = r;
   p.w = w;
-  p.d = d;
-  p.kind = kind;
-  p.lr = lr;
-  p.b1 = b1;
-  p.b2 = b2;
-  p.om_b1 = om_b1;
-  p.om_b2 = om_b2;
-  p.eps = eps;
-  p.wd = wd;
+  p.step = fat_lines::StepParams{corr, d, kind, lr, b1, b2, om_b1, om_b2, eps, wd};
   if (p.n_slots > 0) {
     const int64_t blocks = (p.n_slots + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
     fat_line_update_kernel<<<(unsigned)blocks, WARPS_PER_BLOCK * 32, 0,

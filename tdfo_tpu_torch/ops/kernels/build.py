@@ -32,6 +32,7 @@ BUILD_DIR = _PKG / "build"
 # kernel name -> source file under ops/csrc
 KERNEL_SOURCES = {
     "fat_line_update": "fat_line_update.cu",
+    "fat_line_update_routed": "fat_line_update_routed.cu",
     "flash_attn_fwd": "flash_attn_fwd.cu",
     "flash_attn_bwd": "flash_attn_bwd.cu",
 }

@@ -8,8 +8,8 @@ kernel) and of its portable formulation
 * :func:`fat_line_update` is the wrapper every caller uses.  For a CUDA
   ``fat`` it checks the operands and launches the kernel on PyTorch's
   current stream, or raises; there is no fallback.  For a CPU ``fat`` it
-  runs :func:`fat_line_update_plain`.  Its ``launches`` attribute counts the
-  calls through it: kernel launches on the card, plain-version runs on the
+  runs :func:`fat_line_update_plain`.  Its ``launches`` attribute counts
+  kernel launches only; ``plain_runs`` counts the plain-version runs on the
   CPU.
 * :func:`fat_line_update_plain` is the torch transcription of
   ``_fat_apply_lines_xla``: gather the slot rows through ``fat_view``, apply
@@ -19,7 +19,7 @@ kernel) and of its portable formulation
 Both update ``fat`` IN PLACE (the reference donated the buffer) and return
 it: clone first to keep the old table.  ``ulines`` must be duplicate-free
 (``ops.sparse.dedupe_ids`` guarantees it).  The bf16 stochastic-rounding
-writeback of the TPU kernel is not ported (``ROADMAP.md`` Queue B item 1):
+writeback of the TPU kernel is not ported (``ROADMAP.md`` Queue A item 13):
 both functions refuse a non-f32 table.
 """
 
@@ -42,7 +42,7 @@ def _check(fat, ulines, g, touched, corr, layout: LineLayout) -> bool:
     if fat.dtype != torch.float32:
         raise NotImplementedError(
             f"fat_line_update: {fat.dtype} fat lines need the bf16/SR "
-            "writeback, which is not ported yet (ROADMAP.md Queue B item 1)")
+            "writeback, which is not ported yet (ROADMAP.md Queue A item 13)")
     if fat.dim() != 3 or fat.shape[1] != layout.tiles or fat.shape[2] != LANE:
         raise ValueError(
             f"fat must be [L, {layout.tiles}, {LANE}], got {tuple(fat.shape)}")
@@ -168,7 +168,7 @@ def fat_line_update(fat, ulines, g, touched, corr, *, layout: LineLayout,
     kw = dict(layout=layout, lr=lr, b1=b1, b2=b2, eps=eps,
               weight_decay=weight_decay)
     if fat.device.type == "cpu":
-        fat_line_update.launches += 1
+        fat_line_update.plain_runs += 1
         return fat_line_update_plain(fat, ulines, g, touched, corr, **kw)
     if fat.device.type != "cuda":
         raise ValueError(f"fat_line_update: unsupported device {fat.device}")
@@ -179,3 +179,4 @@ def fat_line_update(fat, ulines, g, touched, corr, *, layout: LineLayout,
 
 
 fat_line_update.launches = 0
+fat_line_update.plain_runs = 0

@@ -18,7 +18,8 @@ with its dQ and dK/dV kernels.
   :func:`flash_bwd_dkv` launch the kernel for CUDA tensors or raise; for CPU
   tensors they run the plain versions :func:`flash_fwd_plain`,
   :func:`flash_bwd_dq_plain` and :func:`flash_bwd_dkv_plain`.  Each wrapper
-  counts its calls in ``.launches``.
+  counts its kernel launches in ``.launches`` and its plain-version runs on
+  the CPU in ``.plain_runs``.
 
 The plain versions materialise ``[B, H, T, T]`` in f32 and follow the
 reference rule for rule: masked logits are ``finfo(f32).min`` after the
@@ -186,7 +187,7 @@ def flash_fwd(q, k, v, key_valid, with_lse: bool = True):
     None)``.  ``with_lse=False`` is the inference call (no lse write)."""
     _check(q, k, v, key_valid)
     if _device_kind(q, "flash_fwd") == "cpu":
-        flash_fwd.launches += 1
+        flash_fwd.plain_runs += 1
         return flash_fwd_plain(q, k, v, key_valid, with_lse)
     q, k, v, key_valid = (x.contiguous() for x in (q, k, v, key_valid))
     out = torch.empty_like(q)
@@ -206,7 +207,7 @@ def flash_bwd_dq(q, k, v, do, key_valid, lse, delta):
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     if _device_kind(q, "flash_bwd_dq") == "cpu":
-        flash_bwd_dq.launches += 1
+        flash_bwd_dq.plain_runs += 1
         return flash_bwd_dq_plain(q, k, v, do, key_valid, lse, delta)
     q, k, v, do, key_valid, lse, delta = (
         x.contiguous() for x in (q, k, v, do, key_valid, lse, delta))
@@ -225,7 +226,7 @@ def flash_bwd_dkv(q, k, v, do, key_valid, lse, delta):
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     if _device_kind(q, "flash_bwd_dkv") == "cpu":
-        flash_bwd_dkv.launches += 1
+        flash_bwd_dkv.plain_runs += 1
         return flash_bwd_dkv_plain(q, k, v, do, key_valid, lse, delta)
     q, k, v, do, key_valid, lse, delta = (
         x.contiguous() for x in (q, k, v, do, key_valid, lse, delta))
@@ -241,6 +242,9 @@ def flash_bwd_dkv(q, k, v, do, key_valid, lse, delta):
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_fwd.plain_runs = 0
+flash_bwd_dq.plain_runs = 0
+flash_bwd_dkv.plain_runs = 0
 
 
 # ------------------------------------------------------------ public function

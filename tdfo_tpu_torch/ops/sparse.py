@@ -7,7 +7,12 @@ touched rows of table + optimizer state.  Three tiers, as in the reference:
 
 * fat-line tables (``[L, T, 128]``, every kind): :func:`fat_update` — one
   line-aware dedupe, one segment-sum, one ``fat_line_update`` kernel launch
-  (``ops/kernels/fat_line_update.py``);
+  (``ops/kernels/fat_line_update.py``).  The dedup-lookup step takes the
+  routed form instead: :func:`dedupe_rows_and_lines` (one sort for the
+  forward's line gather, the row expand and the update) and
+  :func:`fat_apply_routed`, one ``fat_line_update_routed`` launch on
+  row-level summed grads (``ops/kernels/fat_line_update_routed.py``);
+  :func:`fat_apply_unique` serves pre-deduplicated row ids;
 * small plain adam tables (``<= small_vocab_threshold`` rows):
   :func:`dense_lazy_adam` — a dense masked sweep, no dedupe;
 * other plain tables: :func:`dedupe_grads` + ``sparse_{sgd,adam,adagrad,
@@ -17,9 +22,8 @@ PyTorch idiom: every update mutates its table and slot tensors IN PLACE
 (the reference donated them) and returns them; clone first to keep the old
 values.  Adam's global step count is a 0-dim int32 tensor on the table's
 device, so bias corrections never sync to the host.  Storage-dtype knobs
-(bf16/int8 tables, bf16 slots, stochastic rounding), the routed/unique fat
-paths of the dedup lookup and the update cache are not ported yet
-(``ROADMAP.md`` Queue A items 10 and 13).
+(bf16/int8 tables, bf16 slots, stochastic rounding) and the update cache
+are not ported yet (``ROADMAP.md`` Queue A item 13).
 """
 
 from __future__ import annotations
@@ -34,16 +38,22 @@ from tdfo_tpu_torch.ops.kernels.fat_line_update import (
     SENTINEL,
     fat_line_update,
 )
+from tdfo_tpu_torch.ops.kernels.fat_line_update_routed import (
+    fat_line_update_routed,
+)
 
 __all__ = [
     "dedupe_grads",
     "dedupe_ids",
+    "dedupe_rows_and_lines",
     "sparse_sgd",
     "sparse_adam",
     "sparse_adagrad",
     "sparse_rowwise_adagrad",
     "dense_lazy_adam",
     "fat_update",
+    "fat_apply_routed",
+    "fat_apply_unique",
     "SparseOptimizer",
     "sparse_optimizer",
 ]
@@ -228,6 +238,61 @@ def dense_lazy_adam(table, mu, nu, count, ids, grads, *, lr, b1=0.9,
     return table, mu, nu, count
 
 
+def dedupe_rows_and_lines(ids: torch.Tensor, *, capacity_rows: int,
+                          capacity_lines: int, rows_per_line: int):
+    """Row- AND line-level dedupe from one sort (reference
+    ``dedupe_rows_and_lines``, the routed fat-line path): ``ids[B] ->
+    (seg_row[B] int64, ulines[CL] int32, row_lidx[CR] int32, row_slot[CR]
+    int32)``.  ``seg_row`` maps each position to its distinct-row slot;
+    ``ulines`` are the distinct line ids, sorted, int32-max sentinels at the
+    top; ``row_lidx`` / ``row_slot`` give each distinct row its line slot
+    and its slot within the line, and unused row slots hold
+    ``capacity_lines``.  Negative ids group under the sentinel line with
+    slot 0.  Groups past a capacity drop, as the reference's
+    ``mode="drop"`` scatters do.  Integer outputs equal the reference's."""
+    r = rows_per_line
+    ids = ids.to(torch.int64)
+    clean = torch.where(ids >= 0, ids, torch.full_like(ids, SENTINEL))
+    sorted_ids, order = torch.sort(clean)
+    ok = sorted_ids < SENTINEL
+
+    def group_index(key):
+        first = torch.ones_like(key, dtype=torch.bool)
+        first[1:] = key[1:] != key[:-1]
+        return torch.cumsum(first.to(torch.int64), 0) - 1
+
+    uidx = group_index(sorted_ids)
+    line = torch.where(ok, sorted_ids // r, torch.full_like(sorted_ids, SENTINEL))
+    slot = torch.where(ok, sorted_ids % r, torch.zeros_like(sorted_ids))
+    lidx = group_index(line)
+    seg_row = torch.empty_like(uidx)
+    seg_row[order] = uidx
+    dev = ids.device
+    ulines = torch.full((capacity_lines,), SENTINEL, dtype=torch.int64, device=dev)
+    keep = lidx < capacity_lines
+    ulines[lidx[keep]] = line[keep]
+    row_lidx = torch.full((capacity_rows,), capacity_lines, dtype=torch.int64,
+                          device=dev)
+    row_slot = torch.zeros((capacity_rows,), dtype=torch.int64, device=dev)
+    keep = uidx < capacity_rows
+    row_lidx[uidx[keep]] = lidx[keep]
+    row_slot[uidx[keep]] = slot[keep]
+    return (seg_row, ulines.to(torch.int32), row_lidx.to(torch.int32),
+            row_slot.to(torch.int32))
+
+
+def _bias_corrections(layout, slots, b1, b2, device):
+    """``corr [2]`` f32 for the fat kernels: adam advances its step count
+    in place and gets ``(1 - b1^t, 1 - b2^t)`` on the device (no host
+    sync); the other kinds ignore it."""
+    if layout.kind != "adam":
+        return torch.zeros((2,), dtype=torch.float32, device=device)
+    (count,) = slots
+    count += 1
+    t = count.to(torch.float32)
+    return torch.stack([1.0 - b1**t, 1.0 - b2**t])
+
+
 def _fat_apply_lines(fat, slots, ulines, g_slots, touched, *, layout, lr,
                      b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
     """Line-level dispatch (reference ``_fat_apply_lines``): bias
@@ -236,13 +301,7 @@ def _fat_apply_lines(fat, slots, ulines, g_slots, touched, *, layout, lr,
     otherwise.  ``g_slots``: [C*R, d] summed grads in line-slot order;
     ``touched``: [C*R] occupancy (> 0 = touched) or None with R == 1.
     Returns ``(fat, slots)``."""
-    if layout.kind == "adam":
-        (count,) = slots
-        count += 1
-        t = count.to(torch.float32)
-        corr = torch.stack([1.0 - b1**t, 1.0 - b2**t])
-    else:
-        corr = torch.zeros((2,), dtype=torch.float32, device=fat.device)
+    corr = _bias_corrections(layout, slots, b1, b2, fat.device)
     c = ulines.shape[0]
     g_slots = g_slots.to(torch.float32)
     kw = dict(layout=layout, lr=lr, b1=b1, b2=b2, eps=eps,
@@ -279,6 +338,68 @@ def fat_update(fat, slots, ids, grads, *, embedding_dim, kind, lr, b1=0.9,
     return _fat_apply_lines(
         fat, slots, ulines, g_slots, touched, layout=layout, lr=lr, b1=b1,
         b2=b2, eps=eps, weight_decay=weight_decay)
+
+
+def _lines_from_unique(uids, g, valid, layout):
+    """Row-level uniques -> line-level operands (reference
+    ``_lines_from_unique``).  ``uids`` arrive sorted with sentinels at the
+    top, so their line ids are sorted too and a first-occurrence cumsum
+    assigns line slots without a second sort.  Returns ``(ulines[C],
+    g_slots[C*R, d], touched[C*R])`` with C the row capacity."""
+    r = layout.r
+    cap = uids.shape[0]
+    uids = uids.to(torch.int64)
+    line = torch.where(valid, uids // r, torch.full_like(uids, SENTINEL))
+    slot = torch.where(valid, uids % r, torch.zeros_like(uids))
+    first = torch.ones_like(line, dtype=torch.bool)
+    first[1:] = line[1:] != line[:-1]
+    lidx = torch.cumsum(first.to(torch.int64), 0) - 1
+    ulines = torch.full((cap,), SENTINEL, dtype=torch.int64, device=uids.device)
+    ulines[lidx] = line
+    # every sentinel row shares one line id -> one slot, which stays oob
+    seg2 = torch.where(valid, lidx * r + slot, torch.full_like(lidx, cap * r))
+    g_slots = _segment_sum(g.to(torch.float32), seg2, cap * r)
+    touched = (_segment_sum(valid.to(torch.float32), seg2, cap * r) > 0
+               ).to(torch.float32)
+    return ulines.to(torch.int32), g_slots, touched
+
+
+def fat_apply_unique(fat, slots, uids, g, valid=None, *, embedding_dim, kind,
+                     lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
+    """Fused fat-line step on pre-deduplicated row-level ``(uids, g)``
+    (reference ``fat_apply_unique``): ``uids`` sorted ascending with
+    int32-max sentinels at the top (the :func:`dedupe_grads` layout).  One
+    :func:`fat_line_update` launch.  In place; returns ``(fat, slots)``."""
+    layout = line_layout(embedding_dim, kind, fat.dtype)
+    if valid is None:
+        valid = uids < SENTINEL
+    ulines, g_slots, touched = _lines_from_unique(uids, g, valid, layout)
+    return _fat_apply_lines(
+        fat, slots, ulines, g_slots, touched, layout=layout, lr=lr, b1=b1,
+        b2=b2, eps=eps, weight_decay=weight_decay)
+
+
+def fat_apply_routed(fat, slots, ulines, g_u, row_lidx, row_slot, lines, *,
+                     embedding_dim, kind, lr, b1=0.9, b2=0.999, eps=1e-8,
+                     weight_decay=0.0, sr_key=None):
+    """Fused fat-line step on row-level summed grads ``g_u [CR, d]`` plus
+    the routing of :func:`dedupe_rows_and_lines` (reference
+    ``fat_apply_routed``): the C x R slot-space segment-sum never exists.
+    ``lines [CL, T, 128]`` is the forward's gather of ``fat`` at ``ulines``
+    (sentinels read line 0); the kernel reads the touched rows' state from
+    it.  One ``fat_line_update_routed`` launch; in place; returns ``(fat,
+    slots)``.  The reference's int8 byte lines and its stochastic-rounding
+    key belong to ``ROADMAP.md`` Queue A item 13 and refuse here."""
+    if sr_key is not None:
+        raise NotImplementedError(
+            "fat_apply_routed: stochastic rounding (sr_key) is not ported "
+            "yet (ROADMAP.md Queue A item 13)")
+    layout = line_layout(embedding_dim, kind, fat.dtype)
+    corr = _bias_corrections(layout, slots, b1, b2, fat.device)
+    fat_line_update_routed(
+        fat, lines, ulines, row_lidx, row_slot, g_u.to(torch.float32), corr,
+        layout=layout, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    return fat, slots
 
 
 @dataclass(frozen=True)
@@ -322,15 +443,32 @@ class SparseOptimizer:
         return (torch.zeros_like(table, dtype=torch.float32),
                 torch.zeros_like(table, dtype=torch.float32), count())
 
+    def update_routed(self, table, slots, ulines, g_u, row_lidx, row_slot,
+                      lines, *, embedding_dim: int):
+        """Fat-line routed path of the dedup-lookup step: row-level summed
+        grads plus the routing of :func:`dedupe_rows_and_lines`, and the
+        forward's line gather ``lines`` (:func:`fat_apply_routed`)."""
+        if table.dim() != 3:
+            raise ValueError("update_routed is the fat-line path")
+        return fat_apply_routed(
+            table, slots, ulines, g_u, row_lidx, row_slot, lines,
+            embedding_dim=embedding_dim, kind=self.kind, lr=self.lr,
+            b1=self.b1, b2=self.b2, eps=self.eps,
+            weight_decay=self.weight_decay)
+
     def update_unique(self, table, slots, uids, g, valid, *,
                       embedding_dim: int | None = None):
-        """Tier dispatch on PRE-deduplicated ``(uids, g, valid)`` for plain
-        tables (the fat-line ``fat_apply_unique`` path belongs to the
-        dedup-lookup slice, ``ROADMAP.md`` Queue A item 10)."""
+        """Tier dispatch on PRE-deduplicated ``(uids, g, valid)`` (the
+        dedup-lookup step's path): fat lines take :func:`fat_apply_unique`,
+        plain tables ``sparse_*`` (the small-vocab dense tier needs raw ids
+        and is bypassed; ``sparse_adam`` has its semantics)."""
         if table.dim() == 3:
-            raise NotImplementedError(
-                "update_unique on fat lines (the dedup-lookup path) is not "
-                "ported yet (ROADMAP.md Queue A item 10)")
+            if embedding_dim is None:
+                raise ValueError("fat-table update needs embedding_dim")
+            return fat_apply_unique(
+                table, slots, uids, g, valid, embedding_dim=embedding_dim,
+                kind=self.kind, lr=self.lr, b1=self.b1, b2=self.b2,
+                eps=self.eps, weight_decay=self.weight_decay)
         kw = dict(lr=self.lr, weight_decay=self.weight_decay)
         if self.kind == "sgd":
             return sparse_sgd(table, uids, g, valid, **kw), slots

@@ -6,18 +6,20 @@ Tables are plain tensors in a dict (name -> tensor), exactly the reference's
 ``fused_threshold``) live as packed fat lines ``[L, T, 128]``
 (``ops/fat_lines.py``) and all fused tables sharing ``(d, sharding)`` are
 STACKED into one ``__fatstack_{d}_{sharding}`` array, so the whole group
-costs one dedupe and one ``fat_line_update`` launch per step (fbgemm's
-table-batched embedding design).  Array names and row offsets equal the
-reference's, so tables move between the packages as arrays.
+costs one dedupe and one fat-line kernel launch per step (fbgemm's
+table-batched embedding design).  With ``stack_tables=True`` the plain
+tables sharing ``(d, sharding)`` stack the same way into one
+``__tablestack_{d}_{sharding}_float32`` ``[V, d]`` array.  Array names and
+row offsets equal the reference's, so tables move between the packages as
+arrays.
 
 Ported: ``make_embedding_specs``, ``EmbeddingSpec`` and, on the
 collection, ``init``, ``features``, ``resolve``, ``resolve_table``,
 ``fat_layout``, ``fat_layout_for``, ``array_embedding_dim``,
 ``lookup(mode="gspmd")`` and ``sparse_update``.  Not ported yet: meshes,
 column/table sharding, the psum/alltoall lookups and the grouped exchange
-(``ROADMAP.md`` Queue A item 12), plain-table stacking (item 10), hot/cold
-tables, the update cache and non-f32 storage (item 13).  Refused, not
-ignored.
+(``ROADMAP.md`` Queue A item 12), hot/cold tables, the update cache and
+non-f32 storage (item 13).  Refused, not ignored.
 
 ``init`` draws from a ``torch.Generator`` (the reference uses
 ``jax.random``, so same-seed tables differ between the packages; the
@@ -41,13 +43,15 @@ __all__ = ["EmbeddingSpec", "ShardedEmbeddingCollection", "make_embedding_specs"
 def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)`` under jax's default ``mode="fill"``:
     ids in ``[-V, V)`` index numpy-style (negatives wrap), any other id
-    reads a row of NaN.  ``ids`` any shape; the output gains the row axis."""
+    reads a row of NaN.  ``ids`` any shape; the output gains the table's
+    trailing axes (a row of a plain table, a whole line of a fat one)."""
     v = table.shape[0]
     ids = ids.to(torch.int64)
     ids = torch.where(ids < 0, ids + v, ids)
     inside = (ids >= 0) & (ids < v)
     rows = table[torch.where(inside, ids, 0)]
-    return torch.where(inside[..., None], rows, float("nan"))
+    inside = inside.reshape(inside.shape + (1,) * (table.dim() - 1))
+    return torch.where(inside, rows, float("nan"))
 
 
 def make_embedding_specs(size_map, entries, embed_dim: int,
@@ -97,7 +101,8 @@ class ShardedEmbeddingCollection:
     (a gather, no autograd link to the tables); ``sparse_update`` applies the
     row-sparse optimizer to one array in place."""
 
-    def __init__(self, specs: list[EmbeddingSpec], *, fused_kind: str = "adam"):
+    def __init__(self, specs: list[EmbeddingSpec], *, fused_kind: str = "adam",
+                 stack_tables: bool = False):
         line_layout(1, fused_kind)  # validates the kind eagerly
         self.fused_kind = fused_kind
         self.specs = {s.name: s for s in specs}
@@ -117,28 +122,40 @@ class ShardedEmbeddingCollection:
                 if f in self._feature_to_table:
                     raise ValueError(f"feature {f!r} served by two tables")
                 self._feature_to_table[f] = s.name
-        # fused-table stacks: tables sharing (dim, sharding) -> one array
+        # table stacks: fused tables sharing (dim, sharding) -> one fat
+        # array, and with stack_tables the plain ones -> one [V, d] array;
+        # _stacks maps the array name to (sharding, dim, members, fused)
         self._stack_rows: dict[str, tuple[int, int]] = {}
-        self._fat_groups: dict[str, tuple[str, int, list[EmbeddingSpec]]] = {}
-        self._fat_member_to_stack: dict[str, str] = {}
-        by_key: dict[tuple, list[EmbeddingSpec]] = {}
-        for s in specs:
-            if s.fused:
-                by_key.setdefault((s.embedding_dim, s.sharding), []).append(s)
-        for (dim, shard_kind), group in sorted(by_key.items(),
-                                               key=lambda kv: str(kv[0])):
-            if len(group) < 2:
-                continue  # single tables keep their own array (and name)
-            gname = f"__fatstack_{dim}_{shard_kind}"
-            total = sum(s.num_embeddings for s in group)
-            unit = self.fat_layout(dim).r  # whole lines
-            total = -(-total // unit) * unit
-            off = 0
-            for s in group:
-                self._stack_rows[s.name] = (off, total)
-                self._fat_member_to_stack[s.name] = gname
-                off += s.num_embeddings
-            self._fat_groups[gname] = (shard_kind, dim, group)
+        self._stacks: dict[str, tuple[str, int, list[EmbeddingSpec], bool]] = {}
+        self._member_to_stack: dict[str, str] = {}
+
+        def build_stacks(members, fused: bool):
+            by_key: dict[tuple, list[EmbeddingSpec]] = {}
+            for s in members:
+                # f32 fat stacks keep the un-suffixed name; plain stacks
+                # carry the dtype name (reference build_stacks)
+                dt = "" if fused else "float32"
+                by_key.setdefault((s.embedding_dim, s.sharding, dt), []).append(s)
+            prefix = "__fatstack_" if fused else "__tablestack_"
+            for (dim, shard_kind, dt), group in sorted(
+                    by_key.items(), key=lambda kv: str(kv[0])):
+                if len(group) < 2:
+                    continue  # single tables keep their own array (and name)
+                gname = (f"{prefix}{dim}_{shard_kind}" if fused
+                         else f"{prefix}{dim}_{shard_kind}_{dt}")
+                total = sum(s.num_embeddings for s in group)
+                unit = self.fat_layout(dim).r if fused else 1  # whole lines
+                total = -(-total // unit) * unit
+                off = 0
+                for s in group:
+                    self._stack_rows[s.name] = (off, total)
+                    self._member_to_stack[s.name] = gname
+                    off += s.num_embeddings
+                self._stacks[gname] = (shard_kind, dim, group, fused)
+
+        build_stacks([s for s in specs if s.fused], fused=True)
+        if stack_tables:
+            build_stacks([s for s in specs if not s.fused], fused=False)
 
     # ---------------------------------------------------------------- init
 
@@ -165,20 +182,20 @@ class ShardedEmbeddingCollection:
 
         tables: dict[str, torch.Tensor] = {}
         for name, spec in self.specs.items():
-            if name in self._fat_member_to_stack:
+            if name in self._member_to_stack:
                 continue
             unit = (self.fat_layout(spec.embedding_dim).r if spec.fused else 1)
             rows = -(-spec.num_embeddings // unit) * unit
             t = draw(spec, rows)
             tables[name] = (fat_pack(t, kind=self.fused_kind) if spec.fused
                             else t)
-        for gname, (_, dim, group) in self._fat_groups.items():
+        for gname, (_, dim, group, fused) in self._stacks.items():
             total = self._stack_rows[group[0].name][1]
             t = torch.zeros((total, dim), dtype=torch.float32, device=device)
             for s in group:
                 off, _ = self._stack_rows[s.name]
                 t[off:off + s.num_embeddings] = draw(s, s.num_embeddings)
-            tables[gname] = fat_pack(t, kind=self.fused_kind)
+            tables[gname] = fat_pack(t, kind=self.fused_kind) if fused else t
         return tables
 
     # -------------------------------------------------------------- lookup
@@ -197,14 +214,14 @@ class ShardedEmbeddingCollection:
     def resolve_table(self, tname: str) -> tuple[str, EmbeddingSpec, int]:
         """:meth:`resolve` keyed by logical TABLE name instead of feature."""
         spec = self.specs[tname]
-        gname = self._fat_member_to_stack.get(tname)
+        gname = self._member_to_stack.get(tname)
         if gname is not None:
             return gname, spec, self._stack_rows[tname][0]
         return tname, spec, 0
 
     def array_embedding_dim(self, array_name: str) -> int:
-        if array_name in self._fat_groups:
-            return self._fat_groups[array_name][1]
+        if array_name in self._stacks:
+            return self._stacks[array_name][1]
         return self.specs[array_name].embedding_dim
 
     def lookup(self, tables, features, mode: str = "gspmd"):

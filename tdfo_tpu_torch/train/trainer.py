@@ -1,11 +1,14 @@
 """Epoch loop, DMP (model-parallel) paths — port of
-``tdfo_tpu/train/trainer.py`` (``_build_ctr_sparse``, ``_build_bert4rec``,
-``pad_batch``, ``train_epoch``, ``evaluate``, ``evaluate_test``, ``fit``,
-train AUC).
+``tdfo_tpu/train/trainer.py`` (``_ctr_columns``, ``_ctr_eval_schema``,
+``_build_ctr_sparse``, ``_build_bert4rec``, ``pad_batch``, ``train_epoch``,
+``evaluate``, ``evaluate_test``, ``fit``, train AUC).
 
-TwoTower with ``model_parallel = true``: the 7 tables live in a
-ShardedEmbeddingCollection with the row-sparse in-backward optimizer, the
-towers under AdamW.  Bert4Rec with ``model_parallel = true``: the item table
+TwoTower and DLRM with ``model_parallel = true``: the tables (TwoTower's 7,
+or one per ``categorical_features`` column of a custom schema such as
+Criteo's 26) live in a ShardedEmbeddingCollection with the row-sparse
+in-backward optimizer (``stack_tables`` stacks the plain ones,
+``dedup_lookup`` shares one sort between the lookup and the update), the
+dense backbone under AdamW.  Bert4Rec with ``model_parallel = true``: the item table
 (fat lines above ``fused_table_threshold`` rows) under the row-sparse
 optimizer, the transformer under AdamW, attention ``"full"`` or ``"flash"``
 (the hand-written kernels); masked-LM loss with dropout drawn from a
@@ -51,6 +54,34 @@ from tdfo_tpu_torch.utils.summary import MetricLogger, param_summary
 __all__ = ["Trainer", "pad_batch", "refuse_unported"]
 
 
+def _ctr_columns(cfg: Config) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(categorical input columns, continuous columns) for the CTR family:
+    the custom schema (``categorical_features``, e.g. Criteo's 26 + 13) or
+    the Goodreads TwoTower default."""
+    if cfg.categorical_features:
+        return tuple(cfg.categorical_features), tuple(cfg.continuous_features)
+    from tdfo_tpu_torch.models.twotower import (
+        FEATURE_TO_INPUT,
+        TWOTOWER_CATEGORICAL,
+        TWOTOWER_CONTINUOUS,
+    )
+
+    return (tuple(FEATURE_TO_INPUT[f] for f in TWOTOWER_CATEGORICAL),
+            TWOTOWER_CONTINUOUS)
+
+
+def _ctr_eval_schema(cat_columns: tuple[str, ...],
+                     cont_columns: tuple[str, ...]) -> dict[str, type]:
+    """Eval-batch schema of the CTR family: column -> numpy dtype, as the
+    CTR ETLs write them.  (The reference also keeps each column's trailing
+    shape, for the zero-weight template batches of hosts without eval rows:
+    multi-host, ``ROADMAP.md`` Queue A item 12.)"""
+    schema: dict[str, type] = {c: np.int32 for c in cat_columns}
+    schema.update({c: np.float32 for c in cont_columns})
+    schema["label"] = np.int8
+    return schema
+
+
 def pad_batch(batch: dict[str, np.ndarray], size: int) -> tuple[dict[str, np.ndarray], np.ndarray]:
     """Pad a short final eval batch to ``size`` rows; returns (batch, weights)
     with 0-weight padding rows."""
@@ -72,7 +103,6 @@ def refuse_unported(cfg: Config) -> None:
     emb = cfg.embeddings
     tele = cfg.telemetry
     checks = [
-        (cfg.model == "dlrm", "model = 'dlrm'", 10),
         (cfg.jagged, "jagged = true (ragged sequence windows)", 11),
         (cfg.attn in ("ring", "ring_flash"), f"attn = {cfg.attn!r}", 12),
         (cfg.tensor_parallel, "tensor_parallel = true", 12),
@@ -89,9 +119,6 @@ def refuse_unported(cfg: Config) -> None:
          "a multi-device [mesh]", 12),
         (emb.grouped_a2a, "embeddings.grouped_a2a", 12),
         (cfg.train.pipeline_overlap, "train.pipeline_overlap", 12),
-        (cfg.dedup_lookup, "dedup_lookup = true", 10),
-        (cfg.stack_tables, "stack_tables = true", 10),
-        (bool(cfg.categorical_features), "a custom CTR schema", 10),
         (cfg.mixed_precision, "mixed_precision = true (bf16 compute)", 13),
         (emb.table_dtype != "float32" or emb.slot_dtype != "float32"
          or bool(emb.table_dtype_overrides), "non-f32 table/slot storage", 13),
@@ -112,7 +139,7 @@ def refuse_unported(cfg: Config) -> None:
 
 
 class Trainer:
-    """Config-driven trainer for the TwoTower and Bert4Rec DMP regimes on
+    """Config-driven trainer for the TwoTower, DLRM and Bert4Rec DMP regimes on
     one device (``device`` defaults to the card; pass ``"cpu"``
     explicitly)."""
 
@@ -141,9 +168,7 @@ class Trainer:
 
     def _build_ctr_sparse(self) -> None:
         from tdfo_tpu_torch.models.twotower import (
-            FEATURE_TO_INPUT,
             TWOTOWER_CATEGORICAL,
-            TWOTOWER_CONTINUOUS,
             TwoTowerBackbone,
             ctr_embedding_specs,
         )
@@ -159,19 +184,37 @@ class Trainer:
         )
 
         cfg = self.config
-        missing = [f for f in TWOTOWER_CATEGORICAL if f not in cfg.size_map]
+        cat_cols, cont_cols = _ctr_columns(cfg)
+        custom = bool(cfg.categorical_features)
+        vocab_keys = cat_cols if custom else TWOTOWER_CATEGORICAL
+        missing = [f for f in vocab_keys if f not in cfg.size_map]
         if missing:
             raise ValueError(
                 f"{cfg.model} needs vocab sizes {missing} in size_map (run preprocessing)")
         self._train_pattern = str(Path("parquet") / cfg.train_data)
         self._eval_pattern = str(Path("parquet") / cfg.eval_data)
-        specs = ctr_embedding_specs(cfg.size_map, cfg.embed_dim,
-                                    cfg.embedding_sharding,
-                                    fused_threshold=cfg.effective_fused_threshold)
-        coll = ShardedEmbeddingCollection(specs, fused_kind=cfg.sparse_optimizer)
+        if custom:
+            from tdfo_tpu_torch.models.dlrm import generic_embedding_specs
+
+            specs = generic_embedding_specs(
+                cfg.size_map, cat_cols, cfg.embed_dim, cfg.embedding_sharding,
+                fused_threshold=cfg.effective_fused_threshold)
+        else:
+            specs = ctr_embedding_specs(
+                cfg.size_map, cfg.embed_dim, cfg.embedding_sharding,
+                fused_threshold=cfg.effective_fused_threshold)
+        coll = ShardedEmbeddingCollection(specs, fused_kind=cfg.sparse_optimizer,
+                                          stack_tables=cfg.stack_tables)
         tables = coll.init(cfg.seed, device=self.device)
         gen = torch.Generator().manual_seed(cfg.seed + 1)
-        backbone = TwoTowerBackbone(cfg.embed_dim, generator=gen).to(self.device)
+        if cfg.model == "dlrm":
+            from tdfo_tpu_torch.models.dlrm import DLRMBackbone
+
+            backbone = DLRMBackbone(cfg.embed_dim, cat_columns=cat_cols,
+                                    cont_columns=cont_cols, generator=gen)
+        else:
+            backbone = TwoTowerBackbone(cfg.embed_dim, generator=gen)
+        backbone = backbone.to(self.device)
         self.coll = coll
         self.state = SparseTrainState.create(
             backbone=backbone, tables=tables,
@@ -181,13 +224,10 @@ class Trainer:
             learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay)
         self.train_step = make_sparse_train_step(
             coll, ctr_sparse_forward(backbone, with_logits=True),
-            mode=cfg.lookup_mode, with_aux=True)
+            mode=cfg.lookup_mode, with_aux=True, dedup_lookup=cfg.dedup_lookup)
         self.eval_step = make_ctr_sparse_eval_step(coll, backbone,
                                                    mode=cfg.lookup_mode)
-        schema = {FEATURE_TO_INPUT[f]: np.int32 for f in TWOTOWER_CATEGORICAL}
-        schema.update({c: np.float32 for c in TWOTOWER_CONTINUOUS})
-        schema["label"] = np.int8
-        self._eval_schema = schema
+        self._eval_schema = _ctr_eval_schema(cat_cols, cont_cols)
         self._eval_rename = None
 
     def _build_bert4rec(self) -> None:
@@ -221,7 +261,7 @@ class Trainer:
             learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay)
         self.train_step = make_sparse_train_step(
             self.coll, bert4rec_sparse_forward(self.backbone),
-            mode=cfg.lookup_mode)
+            mode=cfg.lookup_mode, dedup_lookup=cfg.dedup_lookup)
         self._dropout_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
         self._train_pattern = str(Path("parquet_bert4rec") / cfg.train_data)

@@ -90,11 +90,11 @@ def test_backbone_logits_match_jax(attn):
     want = jax.jit(lambda e, i: jbb.apply({"params": dense}, e,
                                           jb4r.key_padding_mask(i)))(
         jnp.asarray(embs), jnp.asarray(item))
-    before = fa.flash_fwd.launches
+    before = fa.flash_fwd.plain_runs
     with torch.no_grad():
         got = tbb(torch.from_numpy(embs),
                   tb4r.key_padding_mask(torch.from_numpy(item)))
-    assert fa.flash_fwd.launches - before == (1 if attn == "flash" else 0)
+    assert fa.flash_fwd.plain_runs - before == (1 if attn == "flash" else 0)
     assert got.shape == (B, T, N_ITEMS + 2)
     rtol, atol = TOL["logits"]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=atol)
@@ -178,8 +178,8 @@ def test_three_step_sparse_trajectory_matches_jax():
     assert list(tstate.tables) == ["item_embedding"]
     assert tstate.tables["item_embedding"].dim() == 3  # fat lines
 
-    counts = lambda: (tk.fat_line_update.launches, fa.flash_fwd.launches,  # noqa: E731
-                      fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    counts = lambda: (tk.fat_line_update.plain_runs, fa.flash_fwd.plain_runs,  # noqa: E731
+                      fa.flash_bwd_dq.plain_runs, fa.flash_bwd_dkv.plain_runs)
     before = counts()
     jl, tl = [], []
     for _ in range(3):
@@ -234,3 +234,33 @@ def test_ring_attention_refuses():
     for attn in ("ring", "ring_flash"):
         with pytest.raises(NotImplementedError, match="item 12"):
             tb4r.make_sharded_bert4rec(tcfg, attn=attn, device="cpu")
+
+
+def test_dedup_lookup_matches_default_path():
+    """``dedup_lookup`` on the sequence family ([B, T] ids with PAD 0, a
+    fat item table): the routed update writes bitwise what ``fat_update``
+    writes on the CPU and the forward gathers the same rows, so three steps
+    give the default path's losses and tables."""
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as tkr
+
+    rng = np.random.default_rng(6)
+    batches = [_seqs(rng) for _ in range(3)]
+    runs = {}
+    for dedup in (False, True):
+        _, tcfg = _cfgs(n_layers=1)
+        coll, tables, bb = tb4r.make_sharded_bert4rec(
+            tcfg, fused_threshold=100, device="cpu")
+        state = TState.create(backbone=bb, tables=tables,
+                              sparse_opt=t_opt("adam", lr=LR, weight_decay=WD),
+                              learning_rate=LR, weight_decay=WD)
+        step = t_step(coll, tseq.bert4rec_sparse_forward(bb), dedup_lookup=dedup)
+        before = tkr.fat_line_update_routed.plain_runs
+        losses = []
+        for item, label in batches:
+            state, loss = step(state, {"item": torch.from_numpy(item),
+                                       "label": torch.from_numpy(label)})
+            losses.append(float(loss))
+        assert tkr.fat_line_update_routed.plain_runs - before == (3 if dedup else 0)
+        runs[dedup] = (losses, state.tables["item_embedding"])
+    assert runs[True][0] == runs[False][0]
+    assert torch.equal(runs[True][1], runs[False][1])

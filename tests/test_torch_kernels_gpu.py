@@ -1,9 +1,11 @@
 """Card-only checks of the port's hand-written kernels (``gpu`` marker).
 
-Each kernel against its plain PyTorch version on the card, at small sizes,
-for every optimizer kind and both operand forms.  They skip without a CUDA
-card (a CUDA kernel has no CPU mode).  This file imports neither jax nor the
-JAX package, so it also runs on a machine without them:
+Each kernel against its plain PyTorch version on the card, at small sizes:
+the fat-line kernels for every optimizer kind and operand form (the routed
+one also bitwise against ``fat_line_update``), the flash kernels in f32 and
+bf16.  They skip without a CUDA card (a CUDA kernel has no CPU mode).
+This file imports neither jax nor the JAX package, so it also runs on a
+machine without them:
 ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest``
 (the repository's ``conftest.py`` imports jax).  ``chip_smoke.py`` runs the
 full-width version of these checks.
@@ -66,6 +68,66 @@ def test_fat_line_update_refuses_mixed_devices():
     with pytest.raises(ValueError, match="ulines"):
         tk.fat_line_update(fat, ul, torch.zeros(2, 64, device="cuda"), None,
                            torch.ones(2, device="cuda"), layout=lay, lr=0.1)
+
+
+# ------------------------------------------------------ fat_line_update_routed
+
+
+def _routed_operands(kind, d, v=4000, b=512, seed=10):
+    """A fat table on the card, one step's routing (negative ids, shared
+    lines, capacity padding), the forward's line gather and row grads."""
+    from tdfo_tpu_torch.parallel.embedding import take_fill
+
+    rng = np.random.default_rng(seed)
+    lay = tfl.line_layout(d, kind)
+    fat = tfl.fat_pack(torch.randn(v, d), kind=kind).cuda()
+    view = fat.view(-1, lay.w)
+    view[:, d:lay.need] = view[:, d:lay.need].abs() + 0.1  # accumulators >= 0
+    ids = torch.from_numpy(rng.integers(-1, v, b)).cuda()
+    seg, ul, rl, rs = tsp.dedupe_rows_and_lines(
+        ids, capacity_rows=b + 8, capacity_lines=b, rows_per_line=lay.r)
+    lines = take_fill(fat, torch.where(ul < 2**31 - 1, ul, 0))
+    g_u = torch.randn(b + 8, d, device="cuda")
+    return lay, fat, lines, ul, rl, rs, g_u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("d", [8, 16, 64])
+def test_fat_line_update_routed_matches_plain_on_card(kind, d):
+    """Kernel vs plain version within the optimizer tolerance, and bitwise
+    equal to ``fat_line_update`` fed the same update in slot space."""
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as tkr
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    lay, fat, lines, ul, rl, rs, g_u = _routed_operands(kind, d)
+    corr = torch.tensor([0.1, 0.001], device="cuda")
+    kw = dict(layout=lay, lr=0.05, weight_decay=1e-2)
+    a, k, f = fat.clone(), fat.clone(), fat.clone()
+    tkr.fat_line_update_routed_plain(a, lines, ul, rl, rs, g_u, corr, **kw)
+    launches = tkr.fat_line_update_routed.launches
+    tkr.fat_line_update_routed(k, lines, ul, rl, rs, g_u, corr, **kw)
+    torch.cuda.synchronize()
+    assert tkr.fat_line_update_routed.launches == launches + 1
+    rtol, atol = TOL["optimizer"]
+    torch.testing.assert_close(k, a, rtol=rtol, atol=atol)
+    g_slots, touched = tkr.routed_to_slots(ul, rl, rs, g_u, lay)
+    tk.fat_line_update(f, ul, g_slots, touched, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), f.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_fat_line_update_routed_refuses_mixed_devices():
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as tkr
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    lay, fat, lines, ul, rl, rs, g_u = _routed_operands("rowwise_adagrad", 16)
+    with pytest.raises(ValueError, match="row_lidx"):
+        tkr.fat_line_update_routed(fat, lines, ul, rl.cpu(), rs, g_u,
+                                   torch.ones(2, device="cuda"), layout=lay, lr=0.1)
 
 
 # ------------------------------------------------------------ flash attention

@@ -126,18 +126,18 @@ def test_tier_dispatch():
     g = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
     small = torch.from_numpy(rng.standard_normal((100, d)).astype(np.float32))
     fat = tfl.fat_pack(small, kind="adam")
-    before = tk.fat_line_update.launches
+    before = tk.fat_line_update.plain_runs
     got, slots = opt.update(small.clone(), opt.init(small), ids, g)
     want = tsp.dense_lazy_adam(small.clone(), *opt.init(small), ids, g,
                                lr=0.05, weight_decay=1e-2)
     assert len(slots) == 3 and torch.equal(got, want[0])
-    assert tk.fat_line_update.launches == before
+    assert tk.fat_line_update.plain_runs == before
     got, slots = opt.update(fat.clone(), opt.init(fat), ids, g, embedding_dim=d)
     want, _ = tsp.fat_update(fat.clone(), (torch.tensor(0, dtype=torch.int32),),
                              ids, g, embedding_dim=d, kind="adam", lr=0.05,
                              weight_decay=1e-2)
     assert len(slots) == 1 and int(slots[0]) == 1 and torch.equal(got, want)
-    assert tk.fat_line_update.launches == before + 2
+    assert tk.fat_line_update.plain_runs == before + 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsp.SparseOptimizer(kind="adam", lr=0.1, slot_dtype="bfloat16")
 

@@ -5,11 +5,12 @@ d = 16).  ``metrics.jsonl`` must carry train loss / train AUC and an eval
 AUC in range; the fused update ran through the ``fat_line_update``
 wrapper.  The Bert4Rec journey (``synth | preprocess-seq | train`` with
 ``attn = "flash"``) must log Recall/NDCG and ``test_*`` metrics in range
-through the flash wrappers, and its unported knobs name their item."""
+through the flash wrappers, and its unported knobs name their item.  The
+DLRM-Criteo journey (``synth-criteo | preprocess-criteo | train`` with
+``stack_tables`` and ``dedup_lookup``) runs the routed fat update once per
+step."""
 
 import json
-import subprocess
-import sys
 from pathlib import Path
 
 import jax  # noqa: F401
@@ -20,9 +21,6 @@ import torch
 from tdfo_tpu_torch.core.config import read_configs
 from tdfo_tpu_torch.ops.kernels import fat_line_update as tk
 from tdfo_tpu_torch.train.trainer import Trainer, pad_batch
-
-ROOT = Path(__file__).resolve().parents[1]
-
 
 def _write_config(tmp: Path, **extra) -> Path:
     body = {
@@ -38,22 +36,16 @@ def _write_config(tmp: Path, **extra) -> Path:
     return path
 
 
-def _launch(*args):
-    """``python -m tdfo_tpu_torch.launch`` in a subprocess."""
-    return subprocess.run([sys.executable, "-m", "tdfo_tpu_torch.launch", *args],
-                          cwd=ROOT, capture_output=True, text=True, timeout=300)
-
-
-def test_cli_synth_preprocess_train_cpu(tmp_path):
+def test_cli_synth_preprocess_train_cpu(tmp_path, capsys):
     from tdfo_tpu_torch import launch
 
     cfg = _write_config(tmp_path)
-    for cmd in ("synth", "preprocess-ctr"):  # in-process: same entry point
+    for cmd in ("synth", "preprocess-ctr"):
         assert launch.main([cmd, "--config", str(cfg)]) == 0
-    out = _launch("train", "--config", str(cfg), "--log-dir",
-                  str(tmp_path / "logs"), "--device", "cpu")
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert "__fatstack_16_row" in out.stdout  # every table in one fat stack
+    # in-process: the entry point ``python -m tdfo_tpu_torch.launch`` runs
+    assert launch.main(["train", "--config", str(cfg), "--log-dir",
+                        str(tmp_path / "logs"), "--device", "cpu"]) == 0
+    assert "__fatstack_16_row" in capsys.readouterr().out  # one fat stack
     recs = [json.loads(x) for x in
             (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
     steps = [r for r in recs if "train_loss" in r]
@@ -85,10 +77,10 @@ def test_trainer_in_process_counts_launches(tmp_path):
     cfg = read_configs(_write_config(tmp_path))
     tr = Trainer(cfg, device="cpu")
     assert tr.coll.fat_layout_for("__fatstack_16_row").r == 2
-    before = tk.fat_line_update.launches
+    before = tk.fat_line_update.plain_runs
     loss = tr.train_epoch(0)
     assert np.isfinite(loss)
-    assert tk.fat_line_update.launches - before == tr._logged_steps > 0
+    assert tk.fat_line_update.plain_runs - before == tr._logged_steps > 0
     m = tr.evaluate(0)
     assert 0.0 <= m["auc"] <= 1.0
 
@@ -102,13 +94,51 @@ def test_pad_batch_zero_weights():
 
 @pytest.mark.parametrize("extra", [
     {"model_parallel": False}, {"checkpoint_dir": "ckpt"},
-    {"dedup_lookup": True}, {"steps_per_execution": 2},
+    {"tensorboard": True}, {"steps_per_execution": 2},
     {"mixed_precision": True}, {"lookup_mode": "psum"},
 ])
 def test_unported_knobs_refuse(tmp_path, extra):
     cfg = read_configs(_write_config(tmp_path, **extra))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
         Trainer(cfg, device="cpu")
+
+
+def test_dlrm_criteo_cli_dedup_cpu(tmp_path):
+    """``synth-criteo -> preprocess-criteo -> train --device cpu``
+    in-process with the Criteo schema, ``stack_tables``, ``dedup_lookup``,
+    rowwise_adagrad and a ``fused_table_threshold`` that leaves a fat stack
+    (tables above 20 rows) and a plain stack: eval AUC in [0, 1], and the
+    routed update ran once per training step, ``fat_line_update`` never."""
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.data.criteo_preprocessing import (
+        CRITEO_CATEGORICAL,
+        CRITEO_CONTINUOUS,
+    )
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as tkr
+
+    cfg = _write_config(
+        tmp_path, model="dlrm", categorical_features=list(CRITEO_CATEGORICAL),
+        continuous_features=list(CRITEO_CONTINUOUS), stack_tables=True,
+        dedup_lookup=True, sparse_optimizer="rowwise_adagrad",
+        fused_table_threshold=20, per_device_train_batch_size=1024,
+        per_device_eval_batch_size=1024)
+    for cmd in ("synth-criteo", "preprocess-criteo"):
+        assert launch.main([cmd, "--config", str(cfg)]) == 0
+    counts = lambda: (tk.fat_line_update.plain_runs,  # noqa: E731
+                      tkr.fat_line_update_routed.plain_runs)
+    before = counts()
+    assert launch.main(["train", "--config", str(cfg), "--log-dir",
+                        str(tmp_path / "logs"), "--device", "cpu"]) == 0
+    recs = [json.loads(x) for x in
+            (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
+    steps = sum(r["steps"] for r in recs if "train_loss_epoch" in r)
+    evals = [r for r in recs if "auc" in r]
+    assert steps > 0 and evals and 0.0 <= evals[-1]["auc"] <= 1.0
+    assert np.isfinite(evals[-1]["eval_loss"])
+    fat, routed = (a - b for a, b in zip(counts(), before))
+    assert (fat, routed) == (0, steps)
+    size_map = json.loads((tmp_path / "data" / "size_map.json").read_text())
+    assert min(size_map.values()) <= 20 < max(size_map.values())
 
 
 def test_bert4rec_flash_fit_cpu(tmp_path):
@@ -125,8 +155,8 @@ def test_bert4rec_flash_fit_cpu(tmp_path):
                         per_device_eval_batch_size=32)
     for cmd in ("synth", "preprocess-seq"):
         assert launch.main([cmd, "--config", str(cfg)]) == 0
-    counts = lambda: (tk.fat_line_update.launches, fa.flash_fwd.launches,  # noqa: E731
-                      fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    counts = lambda: (tk.fat_line_update.plain_runs, fa.flash_fwd.plain_runs,  # noqa: E731
+                      fa.flash_bwd_dq.plain_runs, fa.flash_bwd_dkv.plain_runs)
     before = counts()
     assert launch.main(["train", "--config", str(cfg), "--log-dir",
                         str(tmp_path / "logs"), "--device", "cpu"]) == 0
