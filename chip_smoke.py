@@ -15,11 +15,13 @@ Phases (each prints its lines; any failure raises, so the script never exits
    row form on a 500,000-row table with ~8,192 lines, d=16 packed form},
    plus sentinel / out-of-range lines and untouched shared-line slots.
    Touched rows within rtol 1e-6 / atol 1e-7; every other element of the
-   table bitwise unchanged.  Then CUDA-event times of the kernel and the
-   plain version at the main path's shape, with L2 flushed before each
-   launch, beside the bound (the larger of bytes / HBM rate and f32
-   operations / peak f32 rate), after holding the kernel against the plain
-   version on those same operands.
+   table bitwise unchanged.  Then (phase ``timing``) CUDA-event times of the
+   kernel and the plain version at the main path's shape, with L2 flushed
+   before each launch, the kernel's ``torch.profiler`` device duration
+   (CUPTI's kernel start to end) and the floor of both (an empty kernel),
+   beside the bound (the larger of bytes / HBM rate and f32 operations /
+   peak f32 rate), after holding the kernel against the plain version on
+   those same operands.
 3. main path — the library flow of ``bench.py::build_sparse_train_bench``
    at full width (SIZE_MAP of ``bench.py:56-59``, B = 8192, d = 64, sparse
    adam + dense AdamW at lr 3e-4, wd 1e-4, random batches as
@@ -34,16 +36,21 @@ Phases (each prints its lines; any failure raises, so the script never exits
    ``n_epochs = 1``; ``metrics.jsonl`` must hold eval AUC.
 5. flash_oracle — the three flash-attention kernels (forward, dQ, dK/dV)
    against their plain versions on the card, f32 and bf16, T in {20, 100,
-   4096}, Dh in {32, 64}, with key padding (a whole first key tile masked at
-   T >= 80), a fully masked batch row (output 0, lse = +inf, zero
-   gradients) and ragged last tiles.  f32: forward and lse within
+   4096} (B = H = 2) and the dK/dV tile edges T in {1, 31, 33, 257} (B = H
+   = 3: 9 heads, not a multiple of the heads a block packs), Dh in {32,
+   64}, with key padding (a whole first key tile masked at T >= 80), a fully
+   masked batch row (output 0, lse = +inf, zero gradients) and ragged last
+   tiles.  f32: forward and lse within
    rtol/atol 2e-5, gradients within 1e-4 (summation order only, the JAX
    tests' own bounds).  bf16: compared in bf16, within 2e-2 relative plus
    2e-2 of the largest |value| (the kernel and its plain version round p,
    ds and the result to bf16 at the same places, so a different f32
-   summation order can move a rounding by one bf16 ulp, 2^-8).
-6. flash_timing — CUDA-event times of each flash kernel, its plain version
-   and ``torch.nn.functional.scaled_dot_product_attention`` with the same
+   summation order can move a rounding by one bf16 ulp, 2^-8); the tile-edge
+   cases add 1e-6 absolute, as the card tests do, since at T = 1 dQ is 0
+   up to the rounding of dp - delta.
+6. flash_timing — CUDA-event times and profiler device durations of each
+   flash kernel (and the empty-kernel floor), CUDA-event times of its plain
+   version and ``torch.nn.functional.scaled_dot_product_attention`` with the same
    boolean mask (the yardstick, timed only; the backward kernels' yardstick
    is SDPA's whole backward), L2 flushed before each launch, beside the
    bound (the larger of bytes / HBM rate and 4, 6 or 8 B H T^2 Dh flops /
@@ -71,12 +78,15 @@ Phases (each prints its lines; any failure raises, so the script never exits
    rowwise_adagrad on the full 4.32 GB Criteo fat stack; rowwise_adagrad at
    d = 8 (R = 8); adam at d = 64 (R = 1, two tiles); with negative ids (the
    sentinel row and line), capacity padding rows and distinct rows sharing
-   a line.  Touched rows within rtol 1e-6 / atol 1e-7, every other element
+   a line; then every line of a case holding R touched rows (rowwise d = 16,
+   adam d = 32, sgd d = 8; 100,000-640,000 rows, more than the resident
+   grid updates in one pass and a multiple of no row group).  Touched rows within rtol 1e-6 / atol 1e-7, every other element
    bitwise unchanged, and the kernel bitwise equal to ``fat_line_update``
    fed the same update in slot space.
 10. routed_timing — CUDA-event times of the routed kernel and its plain
    version at the DLRM main path's shape (the 8 fat tables' 65,536 ids of
    one B = 8192 step on the 4.32 GB stack), L2 flushed before each launch,
+   the kernel's profiler device duration and the empty-kernel floor,
    beside the byte bound.
 11. dlrm_main — DLRM-Criteo sparse training at full width, the library flow
    of ``bench.py::build_criteo_train_bench`` as the planner bench's
@@ -101,7 +111,10 @@ Phases (each prints its lines; any failure raises, so the script never exits
 default run) add a ``torch.profiler`` breakdown of steady TwoTower /
 Bert4Rec / DLRM-Criteo main-path steps.
 
-Output: a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
+Output: the empty-kernel floor of each timing phase, a ``{"kernels":
+[...]}`` JSON line (``ms``: CUDA events, ``device_ms``: profiler, the
+median over ``device_records`` launches, every one recorded), the
+``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``.  Exits non-zero without a result when CUDA is absent or
 the script stands outside the repository.
@@ -331,6 +344,100 @@ def timed_ms(torch, fn, n, flush):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / n
 
 
+def device_ms(torch, fn, n, flush, key=None, tries=4):
+    """Median device duration per launch under ``torch.profiler`` (CUPTI's
+    kernel start and end, no launch or event overhead) of the one kernel
+    that each call of ``fn`` launches, whose name holds ``key`` (``None``:
+    whatever ``fn`` launches), the L2 flushed before each call as in
+    :func:`timed_ms`.  The ``n`` calls lie between two 4-byte host-to-device
+    copies (markers on the device timeline), with one call more before and
+    after them: the tracer has been seen to drop a kernel's record, and a
+    record at the window's edge may go.  Every one of the ``n`` calls
+    between the markers must have its record; a profile that lost any is
+    taken again, up to ``tries`` times, and then the reading fails.  20 ms
+    of host time pad the window at both ends.  Returns ``(ms, records)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mark, one = torch.zeros(1, device="cuda"), torch.ones(1)
+
+    def call():
+        flush.zero_()
+        fn()
+
+    misses = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            call()
+            mark.copy_(one)
+            for _ in range(n):
+                call()
+            mark.copy_(one)
+            call()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        dev = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        marks = sorted(e.time_range.start for e in dev
+                       if "Memcpy" in e.name and "HtoD" in e.name)
+        ks = [e for e in dev if "FillFunctor" not in e.name
+              and "Memcpy" not in e.name and (key is None or key in e.name)]
+        inside = [e.time_range.elapsed_us() for e in ks if len(marks) == 2
+                  and marks[0] < e.time_range.start < marks[1]]
+        if len(inside) > n:  # one kernel per call
+            raise AssertionError(f"device_ms: {len(inside)} kernels matching "
+                                 f"{key!r} in {n} calls")
+        if len(inside) == n:
+            return float(np.median(inside)) / 1e3, n
+        misses.append(f"{len(inside)} between {len(marks)} markers, "
+                      f"{len(ks)} of {n + 2} in all")
+    raise AssertionError(f"device_ms: records of the {n} calls of {key!r} "
+                         f"missing in {tries} profiles: {misses}")
+
+
+def device_readings(torch, fn, n, flush, key=None, most=4):
+    """:func:`device_ms` readings, taken until the last two agree within
+    25% (at most ``most``; a reading far off its neighbour has been seen
+    once); fails if none do.  Returns ``(readings, records per reading)``:
+    the value reported is the mean of the last two."""
+    reads = [device_ms(torch, fn, n, flush, key)[0] for _ in range(2)]
+    while max(reads[-2:]) > 1.25 * min(reads[-2:]):
+        if len(reads) == most:
+            raise AssertionError(f"device_ms of {key!r}: no two consecutive "
+                                 f"readings agree within 25%: {reads} ms")
+        reads.append(device_ms(torch, fn, n, flush, key)[0])
+    return reads, n
+
+
+def launch_floor(torch, flush, n=50) -> dict:
+    """The harness's floor: an empty kernel (``torch.cuda._sleep(0)``, a
+    spin kernel of zero cycles) under :func:`timed_ms` and
+    :func:`device_ms`."""
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    empty()
+    dev, rec = device_ms(torch, empty, n, flush)
+    floor = {"ms": timed_ms(torch, empty, n, flush), "device_ms": dev}
+    say(f"  launch floor: empty kernel {floor['ms']:.6f} ms (CUDA events), "
+        f"{dev:.6f} ms (profiler device duration, median of {rec}/{n} "
+        f"records)")
+    return floor
+
+
+def time_in_turns(torch, run_k, run_p, n_k, n_p, flush, key):
+    """Kernel and plain version in turns (kernel, plain, kernel, plain) with
+    CUDA events, then the kernel's profiler device durations
+    (:func:`device_readings`): ``(kernel ms list, plain ms list, device ms
+    list, records per device reading)``."""
+    ks, ps = [], []
+    for _ in range(2):
+        ks.append(timed_ms(torch, run_k, n_k, flush))
+        ps.append(timed_ms(torch, run_p, n_p, flush))
+    ds, rec = device_readings(torch, run_k, n_k, flush, key)
+    return ks, ps, ds, rec
+
+
 def phase_timing(torch, rng) -> dict:
     """Kernel and plain version at the main path's shape: the stacked
     user+item fat array (700,000 rows, d = 64 adam, R = 1) and one batch's
@@ -358,10 +465,9 @@ def phase_timing(torch, rng) -> dict:
     for _ in range(3):
         run_k()
         run_p()
-    ks, ps = [], []
-    for _ in range(2):  # in turns: kernel, plain, kernel, plain
-        ks.append(timed_ms(torch, run_k, 50, flush))
-        ps.append(timed_ms(torch, run_p, 20, flush))
+    floor = launch_floor(torch, flush)
+    ks, ps, ds, rec = time_in_turns(torch, run_k, run_p, 50, 20, flush,
+                                    "fat_line_update_kernel")
     u_real = int(valid.sum())
     nbytes = u_real * (2 * 3 * DIM + DIM) * 4 + ul.shape[0] * 4 + 8
     flops = u_real * DIM * ADAM_FLOP_PER_ELEMENT
@@ -372,11 +478,14 @@ def phase_timing(torch, rng) -> dict:
     ms, plain_ms = sum(ks) / len(ks), sum(ps) / len(ps)
     say(f"timing: fat_line_update at the main path's shape (adam d={DIM}, "
         f"{rows} rows, {u_real} touched lines of {ul.shape[0]} slots): "
-        f"kernel {ks} ms, plain {ps} ms; bound {bound:.6f} ms by {bound_by} "
+        f"kernel {ks} ms (profiler device {ds} ms, medians of {rec}/50 "
+        f"records), plain {ps} ms; bound "
+        f"{bound:.6f} ms by {bound_by} "
         f"({nbytes} B at {HBM_BYTES_PER_S / 1e12} TB/s = {bytes_ms:.6f} ms; "
         f"{flops} f32 flop at {F32_FLOP_PER_S / 1e12} TFLOP/s = {ops_ms:.6f} ms)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "max_abs_err": err}
+    return {"ms": ms, "plain_ms": plain_ms, "device_ms": sum(ds[-2:]) / 2,
+            "device_records": rec, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": err, "floor": floor}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -589,10 +698,13 @@ def flash_inputs(torch, dtype, b, h, t, dh, gen, masked_row=True):
     return q, k, v, do, kv
 
 
-def flash_tol(torch, dtype, ref, f32_tol):
+def flash_tol(torch, dtype, ref, f32_tol, floor=0.0):
+    """``floor``: an absolute bf16 tolerance below the max-relative one, for
+    cases whose exact result is 0 (a single key per row: dQ = 0 up to the
+    rounding of ``dp - delta``), as the card tests' ``_flash_tol``."""
     if dtype == torch.float32:
         return dict(rtol=f32_tol, atol=f32_tol)
-    return dict(rtol=2e-2, atol=2e-2 * float(ref.float().abs().max()))
+    return dict(rtol=2e-2, atol=2e-2 * float(ref.float().abs().max()) + floor)
 
 
 def flash_check(torch, what, got, want, tol) -> float:
@@ -604,10 +716,11 @@ def flash_check(torch, what, got, want, tol) -> float:
     return float((got.float()[fin] - want.float()[fin]).abs().max()) if fin.any() else 0.0
 
 
-def flash_against_plain(torch, fa, name, q, k, v, do, kv, masked_row) -> dict:
+def flash_against_plain(torch, fa, name, q, k, v, do, kv, masked_row,
+                        floor=0.0) -> dict:
     """Each flash kernel against its plain version on the same operands
     (the backward pair gets the plain forward's lse and delta); returns the
-    max |err| per kernel."""
+    max |err| per kernel.  ``floor``: see :func:`flash_tol`."""
     f32 = q.dtype == torch.float32
     out, lse = fa.flash_fwd(q, k, v, kv)
     torch.cuda.synchronize()
@@ -630,12 +743,12 @@ def flash_against_plain(torch, fa, name, q, k, v, do, kv, masked_row) -> dict:
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, kv, lse_p, delta)
     torch.cuda.synchronize()
     err["flash_bwd_dq"] = flash_check(torch, f"{name} dq", dq, dq_p,
-                                      flash_tol(torch, q.dtype, dq_p, 1e-4))
+                                      flash_tol(torch, q.dtype, dq_p, 1e-4, floor))
     err["flash_bwd_dkv"] = max(
         flash_check(torch, f"{name} dk", dk, dk_p,
-                    flash_tol(torch, q.dtype, dk_p, 1e-4)),
+                    flash_tol(torch, q.dtype, dk_p, 1e-4, floor)),
         flash_check(torch, f"{name} dv", dv, dv_p,
-                    flash_tol(torch, q.dtype, dv_p, 1e-4)))
+                    flash_tol(torch, q.dtype, dv_p, 1e-4, floor)))
     if masked_row and not (bool((out[-1] == 0).all())
                            and bool(torch.isinf(lse[-1]).all())
                            and all(bool((x[-1] == 0).all()) for x in (dq, dk, dv))):
@@ -651,14 +764,18 @@ def phase_flash_oracle(torch) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {dt: dict.fromkeys(FLASH_KERNELS, 0.0) for dt in ("f32", "bf16")}
+    # B = 3, H = 3 at the dK/dV tile edges (T = 1, 31, 33, 257): 9 heads, not
+    # a multiple of the heads one block packs; their gradients may be exactly
+    # 0 (T = 1), so bf16 takes the card tests' absolute floor of 1e-6
+    cases = [(2, 2, t, dh, 0.0) for t in (20, 100, 4096) for dh in (32, 64)]
+    cases += [(3, 3, t, dh, 1e-6) for t in (1, 31, 33, 257) for dh in (32, 64)]
     for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        for t in (20, 100, 4096):
-            for dh in (32, 64):
-                ops = flash_inputs(torch, dtype, 2, 2, t, dh, gen)
-                err = flash_against_plain(torch, fa, f"{dt} B=2 H=2 T={t} Dh={dh}",
-                                          *ops, masked_row=True)
-                for k, e in err.items():
-                    worst[dt][k] = max(worst[dt][k], e)
+        for b, h, t, dh, floor in cases:
+            ops = flash_inputs(torch, dtype, b, h, t, dh, gen)
+            err = flash_against_plain(torch, fa, f"{dt} B={b} H={h} T={t} Dh={dh}",
+                                      *ops, masked_row=True, floor=floor)
+            for k, e in err.items():
+                worst[dt][k] = max(worst[dt][k], e)
     say(f"flash_oracle: passed, worst max_abs_err {worst}")
     return worst
 
@@ -717,7 +834,7 @@ def flash_timing_shape(torch, fa, label, b, h, t, dh, dtype, gen, n_k, n_p,
     fns["flash_fwd"][2]()
     lib_bwd()
     lib_bwd_ms = [timed_ms(torch, lib_bwd, n_p, flush) for _ in range(2)]
-    res = {}
+    res = {"floor": launch_floor(torch, flush)}
     for name, (run_k, run_p, run_l) in fns.items():
         ks_, ps_, ls_ = [], [], []
         for _ in range(2):  # in turns: kernel, plain, library, kernel, ...
@@ -725,12 +842,16 @@ def flash_timing_shape(torch, fa, label, b, h, t, dh, dtype, gen, n_k, n_p,
             ps_.append(timed_ms(torch, run_p, n_p, flush))
             if run_l is not None:
                 ls_.append(timed_ms(torch, run_l, n_k, flush))
+        ds_, rec = device_readings(torch, run_k, n_k, flush, name)
         bound, by = flash_bound(torch, name, b, h, t, dh, dtype)
         lib = ls_ if run_l is not None else lib_bwd_ms
         res[name] = {"ms": sum(ks_) / 2, "plain_ms": sum(ps_) / 2,
-                     "library_ms": sum(lib) / 2, "bound_ms": bound,
-                     "bound_by": by, "max_abs_err": err[name]}
-        say(f"flash_timing {label}: {name} kernel {ks_} ms, plain {ps_} ms, "
+                     "device_ms": sum(ds_[-2:]) / 2, "device_records": rec,
+                     "library_ms": sum(lib) / 2,
+                     "bound_ms": bound, "bound_by": by,
+                     "max_abs_err": err[name]}
+        say(f"flash_timing {label}: {name} kernel {ks_} ms (profiler device "
+            f"{ds_} ms, medians of {rec}/{n_k} records), plain {ps_} ms, "
             f"library {lib} ms "
             f"({'SDPA forward' if run_l is not None else 'SDPA backward, dQ+dK+dV'}); "
             f"bound {bound:.6f} ms by {by} ({FLASH_FLOPS[name]} B H T^2 Dh = "
@@ -1065,6 +1186,20 @@ def phase_routed_oracle(torch, rng) -> dict:
             rl, rs, g_u, corr))
         del fat, lines
         torch.cuda.empty_cache()
+    # every touched line holding R touched rows (all slots of n lines), row
+    # counts ragged against the rows per warp and the resident grid's rows
+    # per pass (several passes), plus 5 padding rows
+    for kind, d, n_lines in (("rowwise_adagrad", 16, 150_001),
+                             ("adam", 32, 100_003), ("sgd", 8, 40_001)):
+        lay = line_layout(d, kind)
+        rows = (n_lines + 9) * lay.r
+        ids = torch.from_numpy(rng.permutation(n_lines * lay.r)).cuda()
+        fat, lines, ul, rl, rs, g_u = routed_operands(torch, lay, rows, ids, gen,
+                                                      pad_rows=5)
+        worst = max(worst, routed_case(
+            torch, f"{kind} d={d} R={lay.r} full lines, {rl.shape[0]} row slots",
+            lay, fat, lines, ul, rl, rs, g_u, corr))
+        del fat, lines
     # hand-made edges: sentinel lines, a line past the table, padding rows
     lay = line_layout(16, "rowwise_adagrad")
     fat = random_fat(torch, lay, 64 * lay.r, gen)
@@ -1113,10 +1248,9 @@ def phase_routed_timing(torch, rng) -> dict:
     for _ in range(3):
         run_k()
         run_p()
-    ks, ps = [], []
-    for _ in range(2):  # in turns: kernel, plain, kernel, plain
-        ks.append(timed_ms(torch, run_k, 50, flush))
-        ps.append(timed_ms(torch, run_p, 20, flush))
+    floor = launch_floor(torch, flush)
+    ks, ps, ds, rec = time_in_turns(torch, run_k, run_p, 50, 20, flush,
+                                    "fat_line_update_routed")
     c = ul.shape[0]
     lidx = rl.to(torch.int64)
     line_of = torch.where(lidx < c, ul.to(torch.int64)[lidx.clamp(max=c - 1)], OOB)
@@ -1136,12 +1270,15 @@ def phase_routed_timing(torch, rng) -> dict:
     say(f"routed_timing: fat_line_update_routed at the DLRM main path's shape "
         f"(rowwise_adagrad d={CRITEO_DIM} R={lay.r}, {rows} rows in "
         f"{fat.shape[0]} lines, {n_rows} updated rows of {cr} row slots, "
-        f"{c} line slots): kernel {ks} ms, plain {ps} ms; bound {bound:.6f} ms "
+        f"{c} line slots): kernel {ks} ms (profiler device {ds} ms, medians "
+        f"of {rec}/50 records), plain "
+        f"{ps} ms; bound {bound:.6f} ms "
         f"by {bound_by} ({per_row} B per row, {nbytes} B at "
         f"{HBM_BYTES_PER_S / 1e12} TB/s = {bytes_ms:.6f} ms; {flops} f32 flop "
         f"at {F32_FLOP_PER_S / 1e12} TFLOP/s = {ops_ms:.6f} ms)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "max_abs_err": err}
+    return {"ms": ms, "plain_ms": plain_ms, "device_ms": sum(ds[-2:]) / 2,
+            "device_records": rec, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": err, "floor": floor}
 
 
 # ------------------------------------------------------------ phases 11, 12
@@ -1388,16 +1525,19 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     recs = {name: {"name": name, "route": "cuda", "source": source,
                    "replaces": replaces, "launches": None, "max_abs_err": None,
-                   "ms": None, "plain_ms": None, "bound_ms": None,
-                   "bound_by": None, "library_ms": None}
+                   "ms": None, "device_ms": None, "device_records": None,
+                   "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
             for name, source, replaces in KERNEL_TABLE}
     fat, routed = recs["fat_line_update"], recs["fat_line_update_routed"]
+    floors = {}  # the empty-kernel launch floor of each timing phase
     if "oracle" in phases:
         fat.update(phase_oracle(torch, rng))
     if "timing" in phases:
         t = phase_timing(torch, rng)
-        fat.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                   bound_by=t["bound_by"],
+        floors["timing"] = t["floor"]
+        fat.update(ms=t["ms"], device_ms=t["device_ms"],
+                   device_records=t["device_records"], plain_ms=t["plain_ms"],
+                   bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                    max_abs_err=max(fat["max_abs_err"] or 0.0, t["max_abs_err"]))
     if "main" in phases:
         fat["launches"] = phase_main_path(torch, smi)["launches"]
@@ -1409,7 +1549,9 @@ def main(argv=None) -> int:
             recs[k].update(max_abs_err=worst["f32"][k],
                            max_abs_err_bf16=worst["bf16"][k])
     if "flash_timing" in phases:
-        for k, t in phase_flash_timing(torch).items():
+        main = phase_flash_timing(torch)
+        floors["flash_timing"] = main.pop("floor")
+        for k, t in main.items():
             err = t.pop("max_abs_err")
             recs[k].update(t, max_abs_err=max(recs[k]["max_abs_err"] or 0.0, err))
     if "b4r_main" in phases:
@@ -1422,6 +1564,7 @@ def main(argv=None) -> int:
         routed.update(phase_routed_oracle(torch, rng))
     if "routed_timing" in phases:
         t = phase_routed_timing(torch, rng)
+        floors["routed_timing"] = t.pop("floor")
         err = t.pop("max_abs_err")
         routed.update(t, max_abs_err=max(routed["max_abs_err"] or 0.0, err))
     if "dlrm_main" in phases:
@@ -1435,6 +1578,8 @@ def main(argv=None) -> int:
         phase_profile_b4r(torch)
     if "profile_dlrm" in phases:
         phase_profile_dlrm(torch)
+    if floors:
+        say(f"launch floor (empty kernel, ms): {json.dumps(floors)}")
     say(json.dumps({"kernels": list(recs.values())}))
     say(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

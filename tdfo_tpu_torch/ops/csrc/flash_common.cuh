@@ -2,13 +2,13 @@
 // flash_attn_bwd.cu): tile geometry, operand conversion, and the float4
 // dot/axpy over one thread's share of a head row.
 //
-// Thread layout (all three kernels): a block of THREADS threads owns ROWS
-// rows of one (batch, head) -- query rows in the forward and dQ kernels, key
-// rows in the dK/dV kernel.  TPR = 4 consecutive threads share a row; the
-// thread with sub-lane `sub` holds head dims 16*c + 4*sub .. +3 for c in
-// [0, DHMAX/16), so a row lives in NCH = DHMAX/16 float4 chunks per thread
-// and a dot product over the row is a per-thread partial plus two
-// __shfl_xor steps.  The streamed operand (keys/values, or queries/dO) is
+// Thread layout (the forward and dQ kernels; the dK/dV kernels of
+// flash_attn_bwd.cu use tile products instead): a block of THREADS threads
+// owns ROWS query rows of one (batch, head).  TPR = 4 consecutive threads
+// share a row; the thread with sub-lane `sub` holds head dims 16*c + 4*sub
+// .. +3 for c in [0, DHMAX/16), so a row lives in NCH = DHMAX/16 float4
+// chunks per thread and a dot product over the row is a per-thread partial
+// plus two __shfl_xor steps.  The streamed operand (keys and values) is
 // staged in shared memory as f32, [tile][DHMAX]; the 4 sub-lanes of a row
 // read 64 contiguous bytes and the 8 rows of a warp read the same tile row,
 // so every shared read is one conflict-free broadcast wavefront.

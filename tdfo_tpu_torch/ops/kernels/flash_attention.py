@@ -176,6 +176,12 @@ def _launch(sym, lib_name, q, ptrs, key):
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {err}")
 
 
+def _aligned16(x):
+    """``x``, or a copy of it where its data does not start on 16 bytes (the
+    dK/dV kernels stage and store with 16-byte accesses)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _device_kind(q, what):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {q.device}")
@@ -230,6 +236,7 @@ def flash_bwd_dkv(q, k, v, do, key_valid, lse, delta):
         return flash_bwd_dkv_plain(q, k, v, do, key_valid, lse, delta)
     q, k, v, do, key_valid, lse, delta = (
         x.contiguous() for x in (q, k, v, do, key_valid, lse, delta))
+    q, k, v, do = (_aligned16(x) for x in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attn_bwd_dkv", "flash_attn_bwd", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

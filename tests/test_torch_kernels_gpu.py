@@ -93,7 +93,7 @@ def _routed_operands(kind, d, v=4000, b=512, seed=10):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("d", [8, 16, 64])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
 def test_fat_line_update_routed_matches_plain_on_card(kind, d):
     """Kernel vs plain version within the optimizer tolerance, and bitwise
     equal to ``fat_line_update`` fed the same update in slot space."""
@@ -110,6 +110,93 @@ def test_fat_line_update_routed_matches_plain_on_card(kind, d):
     tkr.fat_line_update_routed(k, lines, ul, rl, rs, g_u, corr, **kw)
     torch.cuda.synchronize()
     assert tkr.fat_line_update_routed.launches == launches + 1
+    rtol, atol = TOL["optimizer"]
+    torch.testing.assert_close(k, a, rtol=rtol, atol=atol)
+    g_slots, touched = tkr.routed_to_slots(ul, rl, rs, g_u, lay)
+    tk.fat_line_update(f, ul, g_slots, touched, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), f.view(torch.int32))
+
+
+def _full_line_operands(kind, d, n_lines, pad_rows, seed=11):
+    """Routing where every touched line holds R touched rows (all slots of
+    ``n_lines`` lines, shuffled) plus ``pad_rows`` capacity padding rows, so
+    the row count is a multiple of neither the rows per warp nor the
+    resident grid's rows per pass."""
+    from tdfo_tpu_torch.parallel.embedding import take_fill
+
+    rng = np.random.default_rng(seed)
+    lay = tfl.line_layout(d, kind)
+    v = (n_lines + 7) * lay.r
+    fat = tfl.fat_pack(torch.randn(v, d), kind=kind).cuda()
+    view = fat.view(-1, lay.w)
+    view[:, d:lay.need] = view[:, d:lay.need].abs() + 0.1
+    ids = torch.from_numpy(rng.permutation(n_lines * lay.r)).cuda()
+    b = ids.shape[0]
+    seg, ul, rl, rs = tsp.dedupe_rows_and_lines(
+        ids, capacity_rows=b + pad_rows, capacity_lines=b, rows_per_line=lay.r)
+    lines = take_fill(fat, torch.where(ul < 2**31 - 1, ul, 0))
+    g_u = torch.randn(b + pad_rows, d, device="cuda")
+    return lay, fat, lines, ul, rl, rs, g_u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,d,n_lines", [
+    ("rowwise_adagrad", 16, 50_001), ("rowwise_adagrad", 8, 3_001),
+    ("adam", 32, 77_777), ("sgd", 64, 1_001), ("adagrad", 16, 20_003)])
+def test_fat_line_update_routed_full_lines_ragged_rows_on_card(kind, d, n_lines):
+    """Every touched line holds R touched rows; row counts ragged against
+    the kernel's rows per warp and its resident grid (several passes)."""
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as tkr
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    lay, fat, lines, ul, rl, rs, g_u = _full_line_operands(kind, d, n_lines, 5)
+    corr = torch.tensor([0.1, 0.001], device="cuda")
+    kw = dict(layout=lay, lr=0.05, weight_decay=1e-2)
+    a, k, f = fat.clone(), fat.clone(), fat.clone()
+    tkr.fat_line_update_routed_plain(a, lines, ul, rl, rs, g_u, corr, **kw)
+    tkr.fat_line_update_routed(k, lines, ul, rl, rs, g_u, corr, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = TOL["optimizer"]
+    torch.testing.assert_close(k, a, rtol=rtol, atol=atol)
+    g_slots, touched = tkr.routed_to_slots(ul, rl, rs, g_u, lay)
+    assert int(touched.sum()) == n_lines * lay.r
+    tk.fat_line_update(f, ul, g_slots, touched, corr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), f.view(torch.int32))
+
+
+def _offset_copy(x):
+    """A contiguous copy of ``x`` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,d", [("rowwise_adagrad", 16), ("adam", 32),
+                                    ("sgd", 8)])
+def test_fat_line_update_routed_unaligned_operands_on_card(kind, d):
+    """``fat``, ``lines`` and ``g_u`` one element off 16 bytes (the narrow
+    rows' 16-byte loads cannot serve them; a warp per row does): the same
+    result as the plain version and as ``fat_line_update``."""
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as tkr
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    lay, fat, lines, ul, rl, rs, g_u = _routed_operands(kind, d, seed=12)
+    corr = torch.tensor([0.1, 0.001], device="cuda")
+    kw = dict(layout=lay, lr=0.05, weight_decay=1e-2)
+    a, f = fat.clone(), fat.clone()
+    k = _offset_copy(fat)
+    tkr.fat_line_update_routed_plain(a, lines, ul, rl, rs, g_u, corr, **kw)
+    tkr.fat_line_update_routed(k, _offset_copy(lines), ul, rl, rs,
+                               _offset_copy(g_u), corr, **kw)
+    torch.cuda.synchronize()
     rtol, atol = TOL["optimizer"]
     torch.testing.assert_close(k, a, rtol=rtol, atol=atol)
     g_slots, touched = tkr.routed_to_slots(ul, rl, rs, g_u, lay)
@@ -181,6 +268,59 @@ def test_flash_kernels_match_plain_on_card(dtype, t, dh):
                else _flash_tol(dtype, want))
         torch.testing.assert_close(got.float(), want.float(), **tol)
     assert (dq[-1] == 0).all() and (dk[-1] == 0).all() and (dv[-1] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [8, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 20, 31, 33, 100, 257])
+def test_flash_bwd_dkv_tile_edges_on_card(dtype, dh, t):
+    """dK/dV against its plain version at the tile geometry's edges: T
+    below, at and past the key tiles (1, 31, 33, 257), B*H = 9 heads (not a
+    multiple of the heads per block), a masked first key tile in batch row 0
+    and a fully masked batch row (zero gradients)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, do, kv = _flash_inputs(dtype, b=3, h=3, t=t, dh=dh, seed=t + dh)
+    kv[:, -1] = True
+    kv[0, :min(40, t // 2)] = False  # a whole first key tile at T >= 80
+    kv[-1] = False                   # every key of the last batch row masked
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, kv)
+    delta = (do.float() * out_p.float()).sum(-1)
+    launches = fa.flash_bwd_dkv.launches
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, kv, lse_p, delta)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, kv, lse_p, delta)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dkv.launches == launches + 1
+    for got, want in ((dk, dk_p), (dv, dv_p)):
+        tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+               else _flash_tol(dtype, want))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert (dk[-1] == 0).all() and (dv[-1] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_dkv_unaligned_operands_on_card(dtype):
+    """q, k, v and dO one element off 16 bytes: the wrapper copies them for
+    the kernel's 16-byte accesses, and the result is the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, do, kv = _flash_inputs(dtype, b=3, h=2, t=20, dh=32, seed=5)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, kv)
+    delta = (do.float() * out_p.float()).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(*(_offset_copy(x) for x in (q, k, v, do)), kv,
+                              lse_p, delta)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, kv, lse_p, delta)
+    torch.cuda.synchronize()
+    for got, want in ((dk, dk_p), (dv, dv_p)):
+        tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+               else _flash_tol(dtype, want))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.gpu
