@@ -36,8 +36,9 @@ Phases (each prints its lines; any failure raises, so the script never exits
    ``n_epochs = 1``; ``metrics.jsonl`` must hold eval AUC.
 5. flash_oracle — the three flash-attention kernels (forward, dQ, dK/dV)
    against their plain versions on the card, f32 and bf16, T in {20, 100,
-   4096} (B = H = 2) and the dK/dV tile edges T in {1, 31, 33, 257} (B = H
-   = 3: 9 heads, not a multiple of the heads a block packs), Dh in {32,
+   4096} (B = H = 2) and the kernels' tile edges T in {1, 15, 16, 17, 24,
+   25, 31, 33, 63, 64, 65, 127, 128, 257} (B = H = 3: 9 heads, not a
+   multiple of the heads a block packs), Dh in {32,
    64}, with key padding (a whole first key tile masked at T >= 80), a fully
    masked batch row (output 0, lse = +inf, zero gradients) and ragged last
    tiles.  f32: forward and lse within
@@ -50,9 +51,11 @@ Phases (each prints its lines; any failure raises, so the script never exits
    up to the rounding of dp - delta.
 6. flash_timing — CUDA-event times and profiler device durations of each
    flash kernel (and the empty-kernel floor), CUDA-event times of its plain
-   version and ``torch.nn.functional.scaled_dot_product_attention`` with the same
-   boolean mask (the yardstick, timed only; the backward kernels' yardstick
-   is SDPA's whole backward), L2 flushed before each launch, beside the
+   version, and CUDA-event times and profiler device durations (every kernel
+   of one call, summed) of ``torch.nn.functional.scaled_dot_product_attention``
+   with the same boolean mask (the yardstick, timed only; the backward
+   kernels' yardstick is SDPA's whole backward), L2 flushed before each
+   launch, beside the
    bound (the larger of bytes / HBM rate and 4, 6 or 8 B H T^2 Dh flops /
    peak rate for the operand type), at the Bert4Rec main path's shape (B =
    256, H = 2, T = 20, Dh = 32, f32) and at ``bench_kernels.py:23``'s (B =
@@ -113,7 +116,8 @@ Bert4Rec / DLRM-Criteo main-path steps.
 
 Output: the empty-kernel floor of each timing phase, a ``{"kernels":
 [...]}`` JSON line (``ms``: CUDA events, ``device_ms``: profiler, the
-median over ``device_records`` launches, every one recorded), the
+median over ``device_records`` launches, every one recorded;
+``library_device_ms``: the same for the library call), the
 ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``.  Exits non-zero without a result when CUDA is absent or
@@ -344,7 +348,7 @@ def timed_ms(torch, fn, n, flush):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / n
 
 
-def device_ms(torch, fn, n, flush, key=None, tries=4):
+def device_ms(torch, fn, n, flush, key=None, tries=4, per_call=False):
     """Median device duration per launch under ``torch.profiler`` (CUPTI's
     kernel start and end, no launch or event overhead) of the one kernel
     that each call of ``fn`` launches, whose name holds ``key`` (``None``:
@@ -355,7 +359,12 @@ def device_ms(torch, fn, n, flush, key=None, tries=4):
     record at the window's edge may go.  Every one of the ``n`` calls
     between the markers must have its record; a profile that lost any is
     taken again, up to ``tries`` times, and then the reading fails.  20 ms
-    of host time pad the window at both ends.  Returns ``(ms, records)``."""
+    of host time pad the window at both ends.  With ``per_call`` (a library
+    call that launches kernels of its own choosing) a marker precedes each
+    call's flush instead, and a call's duration is the sum over every device
+    operation between its marker and the next but the first, its flush;
+    every call must show the same number of them.  Returns ``(ms,
+    records)``."""
     from torch.profiler import ProfilerActivity, profile
 
     mark, one = torch.zeros(1, device="cuda"), torch.ones(1)
@@ -364,6 +373,8 @@ def device_ms(torch, fn, n, flush, key=None, tries=4):
         flush.zero_()
         fn()
 
+    if per_call:
+        return _device_ms_per_call(torch, call, n, mark, one, tries)
     misses = []
     for _ in range(tries):
         torch.cuda.synchronize()
@@ -397,17 +408,57 @@ def device_ms(torch, fn, n, flush, key=None, tries=4):
                          f"missing in {tries} profiles: {misses}")
 
 
-def device_readings(torch, fn, n, flush, key=None, most=4):
+def _device_ms_per_call(torch, call, n, mark, one, tries):
+    """:func:`device_ms` with ``per_call``: ``(median per-call ms, n)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    misses = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            call()
+            for _ in range(n):
+                mark.copy_(one)
+                call()
+            mark.copy_(one)
+            call()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        dev = sorted((e for e in prof.events()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        marks = [e.time_range.start for e in dev
+                 if "Memcpy" in e.name and "HtoD" in e.name]
+        ops = [e for e in dev if not ("Memcpy" in e.name and "HtoD" in e.name)]
+        calls = [[e for e in ops if a < e.time_range.start < b]
+                 for a, b in zip(marks, marks[1:])]
+        counts = {len(c) for c in calls}
+        if (len(calls) == n and len(counts) == 1 and min(counts) > 1
+                and all("FillFunctor" in c[0].name for c in calls)):
+            return float(np.median([sum(e.time_range.elapsed_us() for e in c[1:])
+                                    for c in calls])) / 1e3, n
+        misses.append(f"{len(calls)} calls between {len(marks)} markers, "
+                      f"device operations per call {sorted(counts)}")
+    raise AssertionError(f"device_ms per call: {n} calls not all recorded "
+                         f"alike in {tries} profiles: {misses}")
+
+
+def device_readings(torch, fn, n, flush, key=None, most=4, per_call=False):
     """:func:`device_ms` readings, taken until the last two agree within
     25% (at most ``most``; a reading far off its neighbour has been seen
     once); fails if none do.  Returns ``(readings, records per reading)``:
     the value reported is the mean of the last two."""
-    reads = [device_ms(torch, fn, n, flush, key)[0] for _ in range(2)]
+    def read():
+        return device_ms(torch, fn, n, flush, key, per_call=per_call)[0]
+
+    reads = [read() for _ in range(2)]
     while max(reads[-2:]) > 1.25 * min(reads[-2:]):
         if len(reads) == most:
             raise AssertionError(f"device_ms of {key!r}: no two consecutive "
                                  f"readings agree within 25%: {reads} ms")
-        reads.append(device_ms(torch, fn, n, flush, key)[0])
+        reads.append(read())
     return reads, n
 
 
@@ -764,11 +815,14 @@ def phase_flash_oracle(torch) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {dt: dict.fromkeys(FLASH_KERNELS, 0.0) for dt in ("f32", "bf16")}
-    # B = 3, H = 3 at the dK/dV tile edges (T = 1, 31, 33, 257): 9 heads, not
-    # a multiple of the heads one block packs; their gradients may be exactly
-    # 0 (T = 1), so bf16 takes the card tests' absolute floor of 1e-6
+    # B = 3, H = 3 at the tile edges of the three kernels (T = 1, 15-17,
+    # 24, 25, 31, 33, 63-65, 127, 128, 257): 9 heads, not a multiple of the
+    # heads one block packs; their gradients may be exactly 0 (T = 1), so
+    # bf16 takes the card tests' absolute floor of 1e-6
     cases = [(2, 2, t, dh, 0.0) for t in (20, 100, 4096) for dh in (32, 64)]
-    cases += [(3, 3, t, dh, 1e-6) for t in (1, 31, 33, 257) for dh in (32, 64)]
+    cases += [(3, 3, t, dh, 1e-6)
+              for t in (1, 15, 16, 17, 24, 25, 31, 33, 63, 64, 65, 127, 128, 257)
+              for dh in (32, 64)]
     for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for b, h, t, dh, floor in cases:
             ops = flash_inputs(torch, dtype, b, h, t, dh, gen)
@@ -834,6 +888,9 @@ def flash_timing_shape(torch, fa, label, b, h, t, dh, dtype, gen, n_k, n_p,
     fns["flash_fwd"][2]()
     lib_bwd()
     lib_bwd_ms = [timed_ms(torch, lib_bwd, n_p, flush) for _ in range(2)]
+    lib_dev = {"fwd": device_readings(torch, fns["flash_fwd"][2], n_k, flush,
+                                      per_call=True)[0],
+               "bwd": device_readings(torch, lib_bwd, n_k, flush, per_call=True)[0]}
     res = {"floor": launch_floor(torch, flush)}
     for name, (run_k, run_p, run_l) in fns.items():
         ks_, ps_, ls_ = [], [], []
@@ -845,14 +902,17 @@ def flash_timing_shape(torch, fa, label, b, h, t, dh, dtype, gen, n_k, n_p,
         ds_, rec = device_readings(torch, run_k, n_k, flush, name)
         bound, by = flash_bound(torch, name, b, h, t, dh, dtype)
         lib = ls_ if run_l is not None else lib_bwd_ms
+        lds = lib_dev["fwd" if run_l is not None else "bwd"]
         res[name] = {"ms": sum(ks_) / 2, "plain_ms": sum(ps_) / 2,
                      "device_ms": sum(ds_[-2:]) / 2, "device_records": rec,
                      "library_ms": sum(lib) / 2,
+                     "library_device_ms": sum(lds[-2:]) / 2,
                      "bound_ms": bound, "bound_by": by,
                      "max_abs_err": err[name]}
         say(f"flash_timing {label}: {name} kernel {ks_} ms (profiler device "
             f"{ds_} ms, medians of {rec}/{n_k} records), plain {ps_} ms, "
-            f"library {lib} ms "
+            f"library {lib} ms (profiler device {lds} ms, medians of "
+            f"{n_k} calls' summed kernels) "
             f"({'SDPA forward' if run_l is not None else 'SDPA backward, dQ+dK+dV'}); "
             f"bound {bound:.6f} ms by {by} ({FLASH_FLOPS[name]} B H T^2 Dh = "
             f"{FLASH_FLOPS[name] * b * h * t * t * dh} flop)")
@@ -1526,7 +1586,8 @@ def main(argv=None) -> int:
     recs = {name: {"name": name, "route": "cuda", "source": source,
                    "replaces": replaces, "launches": None, "max_abs_err": None,
                    "ms": None, "device_ms": None, "device_records": None,
-                   "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None}
+                   "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
+                   "library_device_ms": None}
             for name, source, replaces in KERNEL_TABLE}
     fat, routed = recs["fat_line_update"], recs["fat_line_update_routed"]
     floors = {}  # the empty-kernel launch floor of each timing phase

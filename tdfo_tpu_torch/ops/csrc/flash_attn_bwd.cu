@@ -18,20 +18,40 @@
 // Bound on the H100: operations at long T, bytes and latency at short T.
 // dQ does 6*T^2*Dh flops per (b, h) and dK/dV 8*T^2*Dh (they recompute p)
 // against O(T*Dh) bytes; in f32 the bound is the 67 TFLOP/s of the CUDA
-// cores, in bf16 the 989 TFLOP/s of the tensor cores.  At the Bert4Rec
-// shape (T = 20, Dh = 32) the work is ~8 MB of operands and a few us of
-// launch and DRAM latency.
+// cores (TF32 would miss the 1e-4 gradient gate), in bf16 the 989 TFLOP/s
+// of the tensor cores: for dQ at T = 4096, Dh = 64, B = 1, H = 8, 0.769 ms
+// in f32 and 0.0521 ms in bf16.  At the Bert4Rec shape (B = 256, H = 2,
+// T = 20, Dh = 32, f32) both are bound by bytes (dQ 0.00198 ms, ~8 MB of
+// operands): one tile per head, so a block's time is its operands' DRAM
+// round trip and then a short chain of dependent shared-memory phases.
 //
-// dQ (one block per (b, h, 32-query tile), streaming key/value tiles) keeps
-// the first design: four threads per owned row, the row's operands and
-// accumulator in registers, the streamed tile in shared memory as f32
-// (flash_common.cuh).
+// dQ streams key tiles past a query tile: S = Q K^T and dP = dO V^T, then
+// dS = p (dp - delta) elementwise, then dQ += dS K in registers.
+//   * f32 (flash_bwd_dq_simt_kernel, CUDA cores): register micro-tiles
+//     (QTile, flash_common.cuh).  Each thread forms MQ x MK micro-tiles of
+//     S and dP from float4 shared reads as independent FMAs (no per-key
+//     shuffle chain: lse and delta are given, so there is no row reduction
+//     at all), writes dS to a [query][key] shared tile read back only by the
+//     8 lanes sharing its rows (a __syncwarp), and runs dS K as a second
+//     micro-tile product.  Only the live part is computed: row groups past T
+//     idle, the key loop stops at T, dS K stops at the tile's last key
+//     rounded up to 4, and rows past T are never staged.  The tile is 16
+//     rows (4 heads a block) at T <= 16, 24 at T <= 24, else 32.
+//   * bf16 (flash_bwd_dq_mma_kernel, tensor cores): four warps (eight from
+//     T = 128) own 16 query rows each, whose Q and dO fragments are loaded
+//     once by ldmatrix and stay in registers; S and dP are
+//     mma.sync.m16n8k16 bf16 -> f32 with K and V by ldmatrix; dS is packed
+//     to bf16 straight from the accumulators into A fragments (the
+//     reference's rounding point) and dS K takes K by ldmatrix.trans.
+//   * Both stage with 16-byte cp.async, key/value tiles into two buffers so
+//     tile i + 1 loads while tile i computes; the key-mask load is issued
+//     before the copies and stored after them.
 //
 // dK/dV is built from tile products.  Over each streamed query tile a block
 // forms S^T = K Q^T and dP^T = V dO^T, then P and dS elementwise, then
 // accumulates dV += round(P)^T dO and dK += dS^T Q in registers:
-//   * f32 (flash_bwd_dkv_simt_kernel, CUDA cores; TF32 would miss the 1e-4
-//     gradient gate): a slot of 4*TILE threads owns TILE keys of one head.
+//   * f32 (flash_bwd_dkv_simt_kernel, CUDA cores): a slot of 4*TILE threads
+//     owns TILE keys of one head.
 //     Each thread holds an MK x MQ micro-tile of S^T and dP^T (independent
 //     FMAs from float4 shared reads, no per-key shuffle chain) and K3 keys
 //     x 4 dims of dK and dV.  TILE follows T (16, 32 or 64 rows); at T <= 16
@@ -51,10 +71,11 @@
 //   * Both stage the query and dO tiles (and lse, delta) with 16-byte
 //     cp.async into two shared buffers, so tile i + 1 loads while tile i
 //     computes; the key mask, a plain load, is issued after the copies.
-//     Every [B, H, T, Dh] operand must be 16-byte aligned (the wrapper
-//     copies one that is not); an unaligned one is refused.
+// Every [B, H, T, Dh] operand of all four kernels must be 16-byte aligned
+// (the wrapper copies one that is not); an unaligned one is refused.
 // Later work, for long T: wgmma on 64-row warpgroup tiles, TMA staging, and
-// head packing in the bf16 kernel (it runs 64-key blocks at any T).
+// head packing in the bf16 kernels (they run blocks of 64 rows or more at
+// any T).
 //
 // Operands: q, k, v, dO, dQ, dK, dV contiguous [B, H, T, Dh] of one type
 // (f32 or bf16); valid [B, T] uint8; lse, delta [B, H, T] f32.
@@ -78,117 +99,285 @@ struct BwdParams {
   void* dv;
   int t, dh;
   float scale;
-  int h;  // heads (dK/dV kernels: bh -> batch row)
+  int h;  // heads (the f32 kernels: bh -> batch row)
 };
 
-template <typename T, int DHMAX>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(BwdParams p) {
-  constexpr int NCH = DHMAX / 16;
-  __shared__ __align__(16) float ks[TILE][DHMAX];
-  __shared__ __align__(16) float vs[TILE][DHMAX];
-  __shared__ float kval[TILE];
+// ------------------------------------------------------------ dQ
+
+// ---- f32: CUDA-core micro-tiles (QTile, flash_common.cuh)
+
+template <int DHMAX, int TILE>
+__host__ __device__ constexpr int dq_slot_floats(int nbuf) {
+  using G = QTile<DHMAX, TILE>;
+  return 2 * TILE * G::LD + nbuf * (2 * TILE * G::LD + TILE) + TILE * G::PLD;
+}
+
+template <int DHMAX, int TILE>
+__global__ void __launch_bounds__(QTile<DHMAX, TILE>::NT * QTile<DHMAX, TILE>::HPB,
+                                  QTile<DHMAX, TILE>::MINB)
+    flash_bwd_dq_simt_kernel(BwdParams p, int nbh, int nbuf) {
+  using G = QTile<DHMAX, TILE>;
+  constexpr int NT = G::NT, TPG = G::TPG, MQ = G::MQ, MK = G::MK, NCH = G::NCH;
+  constexpr int LD = G::LD, PLD = G::PLD;
+  extern __shared__ __align__(16) float smem[];
 
   const int t = p.t, dh = p.dh;
-  const int64_t bh = (int64_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const int sub = threadIdx.x & (TPR - 1);
-  const int row = blockIdx.x * ROWS + threadIdx.x / TPR;
-  const bool live = row < t;
+  const int sl = threadIdx.x / NT, ts = threadIdx.x % NT;
+  const int nqt = (t + TILE - 1) / TILE;
+  const int64_t w = (int64_t)blockIdx.x * G::HPB + sl;  // this slot's query tile
+  const bool slot_live = w < (int64_t)nbh * nqt;
+  const int64_t bh = slot_live ? w / nqt : 0;
+  const int q0 = slot_live ? (int)(w % nqt) * TILE : 0;
+  const int tl = slot_live ? t : 0;  // an idle slot stages and stores nothing
   const int64_t off = bh * t * dh;
-  const T* k = static_cast<const T*>(p.k) + off;
-  const T* v = static_cast<const T*>(p.v) + off;
-  const uint8_t* valid = p.valid + (int64_t)blockIdx.z * t;
+  const float* q = static_cast<const float*>(p.q) + off;
+  const float* k = static_cast<const float*>(p.k) + off;
+  const float* v = static_cast<const float*>(p.v) + off;
+  const float* dout = static_cast<const float*>(p.dout) + off;
+  const uint8_t* valid = p.valid + (bh / p.h) * t;
 
-  float qr[NCH][4], dor[NCH][4], acc[NCH][4];
-  load_row<T, NCH>(qr, static_cast<const T*>(p.q) + off + (int64_t)row * dh,
-                   live, sub, dh);
-  load_row<T, NCH>(dor, static_cast<const T*>(p.dout) + off + (int64_t)row * dh,
-                   live, sub, dh);
-#pragma unroll
-  for (int c = 0; c < NCH; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
-  // rows past T behave as fully masked rows: lse = +inf gives p = 0
-  const float lse = live ? p.lse[bh * t + row] : INFINITY;
-  const float delta = live ? p.delta[bh * t + row] : 0.0f;
+  float* Qs = smem + sl * dq_slot_floats<DHMAX, TILE>(nbuf);
+  float* Os = Qs + TILE * LD;            // dO rows
+  float* Ks = Os + TILE * LD;            // [nbuf][TILE][LD]
+  float* Vs = Ks + nbuf * TILE * LD;     // [nbuf][TILE][LD]
+  float* kv_s = Vs + nbuf * TILE * LD;   // [nbuf][TILE]
+  float* Ds = kv_s + nbuf * TILE;        // [TILE queries][PLD]
 
-  for (int k0 = 0; k0 < t; k0 += TILE) {
+  // Key tile k1 into buffer nb: K (across DHMAX columns, zeros past dh:
+  // dS K runs over every chunk), V and the key mask, whose load is issued
+  // before the copies and stored after them.
+  auto stage_keys = [&](int k1, int nb) {
+    const bool kvj = ts < TILE && k1 + ts < tl && valid[k1 + ts];
+    stage_rows<float, TILE, LD, NT, false>(Ks + nb * TILE * LD, k, k1, tl, dh, DHMAX, ts);
+    stage_rows<float, TILE, LD, NT, false>(Vs + nb * TILE * LD, v, k1, tl, dh, dh, ts);
+    if (ts < TILE) kv_s[nb * TILE + ts] = kvj ? 1.0f : 0.0f;
+    const int nk = max(0, min(TILE, tl - k1));
+    zero_rows<LD, NT>(Ks + nb * TILE * LD, nk, min(TILE, (nk + 3) & ~3), DHMAX, ts);
+  };
+  const int nkt = (t + TILE - 1) / TILE;
+  stage_rows<float, TILE, LD, NT, false>(Qs, q, q0, tl, dh, dh, ts);
+  stage_rows<float, TILE, LD, NT, false>(Os, dout, q0, tl, dh, dh, ts);
+  stage_keys(0, 0);
+  cp_commit();
+
+  const int qg = ts / TPG, r = ts % TPG, qb = qg * MQ;
+  const int nrow = max(0, min(TILE, tl - q0));  // live query rows
+  const bool glive = qb < nrow;
+  const unsigned gm = 0xffu << (threadIdx.x & 24);  // this group's 8 lanes
+  float lse[MQ], delta[MQ], acc[MQ][NCH][4];
+#pragma unroll
+  for (int n = 0; n < MQ; ++n) {
+    const bool in = qb + n < nrow;
+    lse[n] = in ? p.lse[bh * t + q0 + qb + n] : INFINITY;
+    delta[n] = in ? p.delta[bh * t + q0 + qb + n] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < NCH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][i][e] = 0.0f;
+  }
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int buf = kt & (nbuf - 1);
+    const int k0 = kt * TILE;
+    // the next tile loads while this one computes
+    if (kt + 1 < nkt) stage_keys(k0 + TILE, (kt + 1) & (nbuf - 1));
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    stage_tile<T, DHMAX>(ks, k, k0, t, dh);
-    stage_tile<T, DHMAX>(vs, v, k0, t, dh);
-    for (int j = threadIdx.x; j < TILE; j += THREADS)
-      kval[j] = (k0 + j < t && valid[k0 + j]) ? 1.0f : 0.0f;
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < TILE; ++j) {
-      const float s = p.scale * row_dot<NCH>(qr, ks[j], sub, dh);
-      const float dp = row_dot<NCH>(dor, vs[j], sub, dh);
-      const float pj = expf((kval[j] > 0.0f ? s : NEG_INF) - lse);
-      const float ds = round_as<T>(pj * (dp - delta));
-      row_axpy<NCH>(acc, ds, ks[j], sub, dh);
+    const float* Kb = Ks + buf * TILE * LD;
+    const float* Vb = Vs + buf * TILE * LD;
+    const float* kvb = kv_s + buf * TILE;
+    if (glive) {
+      // S and dP micro-tiles -> dS, [query][key] in shared memory.  Keys past
+      // T (unstaged V rows) and masked keys give dS = 0, as p = 0 there.
+      float s[MQ][MK], dp[MQ][MK];
+      tile_dots2<MQ, MK, LD>(s, dp, Qs + qb * LD, Os + qb * LD, Kb + r * LD, Vb + r * LD,
+                             TPG * LD, dh);
+#pragma unroll
+      for (int n = 0; n < MQ; ++n)
+#pragma unroll
+        for (int mm = 0; mm < MK; ++mm) {
+          const int j = r + TPG * mm;
+          const bool kv = kvb[j] > 0.0f;
+          const float pj = expf((kv ? p.scale * s[n][mm] : NEG_INF) - lse[n]);
+          Ds[(qb + n) * PLD + j] = kv ? pj * (dp[n][mm] - delta[n]) : 0.0f;  // ds.astype(k.dtype): f32
+        }
+      __syncwarp(gm);
+      const int nk = min(TILE, tl - k0);
+      pv_accum<MQ, NCH, TPG, LD, PLD>(acc, Ds + qb * PLD, Kb + 4 * r,
+                                      min(TILE, (nk + 3) & ~3));
+    }
+    if (kt + 1 < nkt) __syncthreads();  // dS and this buffer are rewritten next
+  }
+
+  if (!glive) return;
+  float* dq = static_cast<float*>(p.dq) + off;
+#pragma unroll
+  for (int n = 0; n < MQ; ++n) {
+    if (qb + n >= nrow) continue;
+    const int qi = q0 + qb + n;
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const int d = 4 * (r + TPG * i);
+      if (d >= dh) continue;
+      *reinterpret_cast<float4*>(dq + (int64_t)qi * dh + d) =
+          make_float4(p.scale * acc[n][i][0], p.scale * acc[n][i][1],
+                      p.scale * acc[n][i][2], p.scale * acc[n][i][3]);
     }
   }
-  store_row<T, NCH>(static_cast<T*>(p.dq) + off + (int64_t)row * dh, acc,
-                    p.scale, live, sub, dh);
 }
 
+// ---- bf16: tensor-core tiles (mma.sync m16n8k16, f32 accumulate)
+
+// NW warps own 16 query rows each: 4 up to T = 128 (64-key tiles, 32 at
+// Dh = 128), then 8 with 32-key tiles, whose S and dP fragments take half
+// the registers (126 against 166 at Dh = 64): a third less time at T = 4096
+// than 4 warps with 64-key tiles.
+template <int DHMAX, int NW>  // NW: warps per block
+struct DqMma {
+  static constexpr int NTHR = 32 * NW;
+  static constexpr int BQ = 16 * NW;                  // query rows per block, 16 per warp
+  static constexpr int BK = NW == 4 && DHMAX < 128 ? 64 : 32;  // keys per streamed tile
+  static constexpr int LDB = DHMAX + 8;               // bf16 row: ldmatrix rows hit distinct banks
+  __host__ __device__ static constexpr int smem_bytes() {
+    return (2 * BQ + 4 * BK) * LDB * 2 + 2 * BK * 4;
+  }
+};
+
+template <int DHMAX, int NW>
+__global__ void __launch_bounds__(DqMma<DHMAX, NW>::NTHR) flash_bwd_dq_mma_kernel(BwdParams p) {
+  using bf16 = __nv_bfloat16;
+  using G = DqMma<DHMAX, NW>;
+  constexpr int BQ = G::BQ, BK = G::BK, LDB = G::LDB, NTHR = G::NTHR;
+  constexpr int NK = DHMAX / 16, NDT = DHMAX / 8, NKT = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [BQ][LDB]
+  bf16* Os = Qs + BQ * LDB;                        // [BQ][LDB]
+  bf16* Ks = Os + BQ * LDB;                        // [2][BK][LDB]
+  bf16* Vs = Ks + 2 * BK * LDB;                    // [2][BK][LDB]
+  float* kv_s = reinterpret_cast<float*>(Vs + 2 * BK * LDB);  // [2][BK]
+
+  const int t = p.t, dh = p.dh, dhp = (dh + 15) & ~15;
+  const int64_t bh = (int64_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t off = bh * t * dh;
+  const bf16* q = static_cast<const bf16*>(p.q) + off;
+  const bf16* k = static_cast<const bf16*>(p.k) + off;
+  const bf16* v = static_cast<const bf16*>(p.v) + off;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + off;
+  const uint8_t* valid = p.valid + (int64_t)blockIdx.z * t;
+
+  // key tile k1 into buffer nb (zeros past T) and its mask, as in the f32 kernel
+  auto stage_keys = [&](int k1, int nb) {
+    const bool kvj = tid < BK && k1 + tid < t && valid[k1 + tid];
+    stage_rows<bf16, BK, LDB, NTHR>(Ks + nb * BK * LDB, k, k1, t, dh, dhp, tid);
+    stage_rows<bf16, BK, LDB, NTHR>(Vs + nb * BK * LDB, v, k1, t, dh, dhp, tid);
+    if (tid < BK) kv_s[nb * BK + tid] = kvj ? 1.0f : 0.0f;
+  };
+  stage_rows<bf16, BQ, LDB, NTHR>(Qs, q, q0, t, dh, dhp, tid);
+  stage_rows<bf16, BQ, LDB, NTHR>(Os, dout, q0, t, dh, dhp, tid);
+  stage_keys(0, 0);
+  cp_commit();
+
+  const int g = lane >> 2, tq = lane & 3, mi = lane >> 3;
+  // rows g and g + 8 of this warp's strip; rows past T behave as fully
+  // masked rows (lse = +inf gives p = 0)
+  float lse[2], delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    lse[h] = qi < t ? p.lse[bh * t + qi] : INFINITY;
+    delta[h] = qi < t ? p.delta[bh * t + qi] : 0.0f;
+  }
+  uint32_t aq[NK][4], ao[NK][4];
+  float acc[NDT][4];
+#pragma unroll
+  for (int n = 0; n < NDT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  const int nkt = (t + BK - 1) / BK;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nkt) stage_keys((kt + 1) * BK, buf ^ 1);  // loads while this tile computes
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    if (kt == 0) {
+      load_a_strip<NK, LDB>(aq, Qs, warp * 16, dhp, lane);
+      load_a_strip<NK, LDB>(ao, Os, warp * 16, dhp, lane);
+    }
+    const bf16* Kb = Ks + buf * BK * LDB;
+    const bf16* Vb = Vs + buf * BK * LDB;
+    const float* kvb = kv_s + buf * BK;
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x BK keys
+    float s[NKT][4], dp[NKT][4];
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      if (kk * 16 >= dhp) break;
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bk[4], bv[4];
+        const int brow = np * 16 + (mi >> 1) * 8 + (lane & 7);
+        const int bcol = kk * 16 + (mi & 1) * 8;
+        ldsm_x4(bk, Kb + brow * LDB + bcol);
+        ldsm_x4(bv, Vb + brow * LDB + bcol);
+        mma_bf16(s[2 * np], aq[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], aq[kk], bk[2], bk[3]);
+        mma_bf16(dp[2 * np], ao[kk], bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], ao[kk], bv[2], bv[3]);
+      }
+    }
+    // dS = p (dp - delta) on the fragments (e < 2: row g, e >= 2: row g + 8)
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool kv = kvb[n * 8 + 2 * tq + (e & 1)] > 0.0f;
+        const float pv = expf((kv ? p.scale * s[n][e] : NEG_INF) - lse[e >> 1]);
+        s[n][e] = pv * (dp[n][e] - delta[e >> 1]);
+      }
+    // dQ += dS K: dS packed to bf16 (ds.astype(k.dtype)) as A fragments, K
+    // by transposing ldmatrix
+#pragma unroll
+    for (int kq = 0; kq < BK / 16; ++kq) {
+      const uint32_t ad[4] = {pack_bf16(s[2 * kq][0], s[2 * kq][1]),
+                              pack_bf16(s[2 * kq][2], s[2 * kq][3]),
+                              pack_bf16(s[2 * kq + 1][0], s[2 * kq + 1][1]),
+                              pack_bf16(s[2 * kq + 1][2], s[2 * kq + 1][3])};
+#pragma unroll
+      for (int np = 0; np < DHMAX / 16; ++np) {
+        if (np * 16 >= dhp) break;
+        uint32_t bk[4];
+        ldsm_x4_t(bk, Kb + (kq * 16 + (mi & 1) * 8 + (lane & 7)) * LDB + np * 16 + (mi >> 1) * 8);
+        mma_bf16(acc[2 * np], ad, bk[0], bk[1]);
+        mma_bf16(acc[2 * np + 1], ad, bk[2], bk[3]);
+      }
+    }
+    if (kt + 1 < nkt) __syncthreads();  // this buffer is rewritten next
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dq) + off;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    if (qi >= t) continue;
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) {
+      if (n * 8 >= dh) break;
+      *reinterpret_cast<uint32_t*>(dq + (int64_t)qi * dh + n * 8 + 2 * tq) =
+          pack_bf16(p.scale * acc[n][2 * h], p.scale * acc[n][2 * h + 1]);
+    }
+  }
+}
 
 // ------------------------------------------------------------ dK / dV
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; `live` false writes
-// zeros and reads nothing (`src` must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(live ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(live ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stage rows [r0, r0 + ROWS) of a [t, dh] head slice (element type E) into
-// shared rows of LD elements, columns [0, cols): 16-byte copies, zeros for
-// columns >= dh (cols and dh are multiples of 16 bytes' worth of elements)
-// and, with FILL, for rows >= t; without FILL those rows are left as they
-// are (the caller never lets them reach a live result).
-template <typename E, int ROWS, int LD, int NTHR, bool FILL = true>
-__device__ __forceinline__ void stage_rows(E* dst, const E* src, int r0, int t,
-                                           int dh, int cols, int tid) {
-  constexpr int EPC = 16 / sizeof(E);
-  const int cpr = cols / EPC;
-  const int rows = FILL ? ROWS : max(0, min(ROWS, t - r0));
-  for (int c = tid; c < rows * cpr; c += NTHR) {
-    const int j = c / cpr;
-    const int k = (c - j * cpr) * EPC;
-    const int r = r0 + j;
-    const bool live = r < t && k < dh;
-    cp_async16(dst + j * LD + k, src + (live ? (int64_t)r * dh + k : 0), live);
-  }
-}
-
-// Per-row statistics (lse or delta) of query rows [q0, q0 + ROWS): zeros
-// past t (the kernels treat those rows as fully masked).
-template <int ROWS, int NTHR>
-__device__ __forceinline__ void stage_stat(float* dst, const float* src, int q0, int t,
-                                           int tid) {
-  for (int j = tid; j < ROWS; j += NTHR) {
-    const bool in = q0 + j < t;
-    cp_async4(dst + j, src + (in ? q0 + j : 0), in);
-  }
-}
 
 // ---- f32: CUDA-core tile products
 
@@ -235,48 +424,6 @@ __device__ __forceinline__ void lds_vec(float (&a)[N], const float* s) {
       a[i] = v.x;
       a[i + 1] = v.y;
     }
-  }
-}
-
-__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  acc = fmaf(a.w, b.w, acc);
-}
-
-// s[m][n] = a_m . b_n and d[m][n] = c_m . e_n over dh dims, for MK rows
-// a_m = a + m*LD (c likewise) and MQ rows b_n = b + n*bstride (e likewise)
-// of shared memory: float4 reads, 2 x MK x MQ independent chains
-template <int MK, int MQ, int LD>
-__device__ __forceinline__ void tile_dots2(float (&s)[MK][MQ], float (&d)[MK][MQ],
-                                           const float* a, const float* c,
-                                           const float* b, const float* e,
-                                           int bstride, int dh) {
-#pragma unroll
-  for (int m = 0; m < MK; ++m)
-#pragma unroll
-    for (int n = 0; n < MQ; ++n) s[m][n] = d[m][n] = 0.0f;
-#pragma unroll 2
-  for (int k = 0; k < dh; k += 4) {
-    float4 af[MK], cf[MK], bf[MQ], ef[MQ];
-#pragma unroll
-    for (int m = 0; m < MK; ++m) {
-      af[m] = *reinterpret_cast<const float4*>(a + m * LD + k);
-      cf[m] = *reinterpret_cast<const float4*>(c + m * LD + k);
-    }
-#pragma unroll
-    for (int n = 0; n < MQ; ++n) {
-      bf[n] = *reinterpret_cast<const float4*>(b + n * bstride + k);
-      ef[n] = *reinterpret_cast<const float4*>(e + n * bstride + k);
-    }
-#pragma unroll
-    for (int m = 0; m < MK; ++m)
-#pragma unroll
-      for (int n = 0; n < MQ; ++n) {
-        fma4(s[m][n], af[m], bf[n]);
-        fma4(d[m][n], cf[m], ef[n]);
-      }
   }
 }
 
@@ -428,34 +575,6 @@ __global__ void __launch_bounds__(Simt<DHMAX, TILE>::NT * Simt<DHMAX, TILE>::HPB
 }
 
 // ---- bf16: tensor-core tile products (mma.sync m16n8k16, f32 accumulate)
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* ptr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(ptr)));
-}
-
-// c += a (16x16, row) * b (16x8, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16, `lo` in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int DHMAX>
 struct Mma {
@@ -619,16 +738,41 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_mma_kernel(BwdParams p) {
 
 // ------------------------------------------------------------ launchers
 
-template <typename T, int DHMAX>
-void launch_dq(const BwdParams& p, int b, int h, cudaStream_t stream) {
-  const dim3 grid((p.t + ROWS - 1) / ROWS, h, b);
-  flash_bwd_dq_kernel<T, DHMAX><<<grid, THREADS, 0, stream>>>(p);
+template <int DHMAX, int TILE>
+void launch_dq_simt(const BwdParams& p, int b, int h, cudaStream_t stream) {
+  using G = QTile<DHMAX, TILE>;
+  const int nt = (p.t + TILE - 1) / TILE;
+  const int nbuf = nt > 1 ? 2 : 1;
+  const int bytes = G::HPB * dq_slot_floats<DHMAX, TILE>(nbuf) * 4;
+  const int64_t slots = (int64_t)b * h * nt;
+  const int64_t blocks = (slots + G::HPB - 1) / G::HPB;
+  allow_smem(flash_bwd_dq_simt_kernel<DHMAX, TILE>, bytes);
+  flash_bwd_dq_simt_kernel<DHMAX, TILE>
+      <<<(unsigned)blocks, G::NT * G::HPB, bytes, stream>>>(p, b * h, nbuf);
 }
 
-template <typename K>
-void allow_smem(K kernel, int bytes) {
-  if (bytes > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <int DHMAX>
+void launch_dq_f32(const BwdParams& p, int b, int h, cudaStream_t stream) {
+  // the tile height (and so the heads per block) follows T; two products
+  // per micro-tile keep dQ at 32-row tiles above T = 24 (64 ran 10% slower
+  // at T = 4096)
+  if (p.t <= 16) launch_dq_simt<DHMAX, 16>(p, b, h, stream);
+  else if (p.t <= 24) launch_dq_simt<DHMAX, 24>(p, b, h, stream);
+  else launch_dq_simt<DHMAX, 32>(p, b, h, stream);
+}
+
+template <int DHMAX, int NW>
+void launch_dq_mma(const BwdParams& p, int b, int h, cudaStream_t stream) {
+  using G = DqMma<DHMAX, NW>;
+  const dim3 grid((p.t + G::BQ - 1) / G::BQ, h, b);
+  allow_smem(flash_bwd_dq_mma_kernel<DHMAX, NW>, G::smem_bytes());
+  flash_bwd_dq_mma_kernel<DHMAX, NW><<<grid, G::NTHR, G::smem_bytes(), stream>>>(p);
+}
+
+template <int DHMAX>
+void launch_dq_bf16(const BwdParams& p, int b, int h, cudaStream_t stream) {
+  if (p.t < 128) launch_dq_mma<DHMAX, 4>(p, b, h, stream);
+  else launch_dq_mma<DHMAX, 8>(p, b, h, stream);
 }
 
 template <int DHMAX, int TILE>
@@ -663,10 +807,14 @@ void launch_dkv_bf16(const BwdParams& p, int b, int h, cudaStream_t stream) {
 template <typename T>
 void launch_dh(const BwdParams& p, int b, int h, bool dq, cudaStream_t stream) {
   constexpr bool F32 = sizeof(T) == 4;
-  if (dq) {
-    if (p.dh <= 32) launch_dq<T, 32>(p, b, h, stream);
-    else if (p.dh <= 64) launch_dq<T, 64>(p, b, h, stream);
-    else launch_dq<T, 128>(p, b, h, stream);
+  if (dq && F32) {
+    if (p.dh <= 32) launch_dq_f32<32>(p, b, h, stream);
+    else if (p.dh <= 64) launch_dq_f32<64>(p, b, h, stream);
+    else launch_dq_f32<128>(p, b, h, stream);
+  } else if (dq) {
+    if (p.dh <= 32) launch_dq_bf16<32>(p, b, h, stream);
+    else if (p.dh <= 64) launch_dq_bf16<64>(p, b, h, stream);
+    else launch_dq_bf16<128>(p, b, h, stream);
   } else if (F32) {
     if (p.dh <= 32) launch_dkv_f32<32>(p, b, h, stream);
     else if (p.dh <= 64) launch_dkv_f32<64>(p, b, h, stream);
@@ -678,16 +826,16 @@ void launch_dh(const BwdParams& p, int b, int h, bool dq, cudaStream_t stream) {
   }
 }
 
-bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
-
 int run(int dtype, BwdParams p, int b, int h, bool dq, void* stream) {
   if (p.dh <= 0 || p.dh > 128 || p.dh % 8 != 0 || p.t <= 0 || b <= 0 ||
       h <= 0 || b > 65535 || h > 65535)
     return (int)cudaErrorInvalidValue;
   p.h = h;
-  // the dK/dV kernels stage and store with 16-byte accesses
-  if (!dq && !(aligned16(p.q) && aligned16(p.k) && aligned16(p.v) && aligned16(p.dout) &&
-               aligned16(p.dk) && aligned16(p.dv)))
+  // the kernels stage and store with 16-byte accesses
+  void* out0 = dq ? p.dq : p.dk;
+  void* out1 = dq ? p.dq : p.dv;
+  if (!(aligned16(p.q) && aligned16(p.k) && aligned16(p.v) && aligned16(p.dout) &&
+        aligned16(out0) && aligned16(out1)))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32) launch_dh<float>(p, b, h, dq, s);

@@ -178,7 +178,7 @@ def _launch(sym, lib_name, q, ptrs, key):
 
 def _aligned16(x):
     """``x``, or a copy of it where its data does not start on 16 bytes (the
-    dK/dV kernels stage and store with 16-byte accesses)."""
+    kernels stage and store with 16-byte accesses)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
@@ -196,6 +196,7 @@ def flash_fwd(q, k, v, key_valid, with_lse: bool = True):
         flash_fwd.plain_runs += 1
         return flash_fwd_plain(q, k, v, key_valid, with_lse)
     q, k, v, key_valid = (x.contiguous() for x in (q, k, v, key_valid))
+    q, k, v = (_aligned16(x) for x in (q, k, v))
     out = torch.empty_like(q)
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -217,6 +218,7 @@ def flash_bwd_dq(q, k, v, do, key_valid, lse, delta):
         return flash_bwd_dq_plain(q, k, v, do, key_valid, lse, delta)
     q, k, v, do, key_valid, lse, delta = (
         x.contiguous() for x in (q, k, v, do, key_valid, lse, delta))
+    q, k, v, do = (_aligned16(x) for x in (q, k, v, do))
     dq = torch.empty_like(q)
     _launch("flash_attn_bwd_dq", "flash_attn_bwd", q,
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

@@ -270,6 +270,74 @@ def test_flash_kernels_match_plain_on_card(dtype, t, dh):
     assert (dq[-1] == 0).all() and (dk[-1] == 0).all() and (dv[-1] == 0).all()
 
 
+def _edge_inputs(dtype, t, dh):
+    """B = H = 3 (9 heads, not a multiple of any heads-per-block packing), a
+    masked first key tile in batch row 0 and a fully masked last batch row."""
+    q, k, v, do, kv = _flash_inputs(dtype, b=3, h=3, t=t, dh=dh, seed=t + dh)
+    kv[:, -1] = True
+    kv[0, :min(40, t // 2)] = False  # a whole first key tile at T >= 80
+    kv[-1] = False                   # every key of the last batch row masked
+    return q, k, v, do, kv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [8, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 20, 24, 25, 31, 33, 63, 64, 65, 127, 128,
+                               257])
+def test_flash_fwd_dq_tile_edges_on_card(dtype, dh, t):
+    """The forward (with and without lse) and dQ against their plain
+    versions at the edges of their tilings: T below, at and past the 16-,
+    24-, 32- and 64-row tiles and the 128 rows where the bf16 kernels
+    switch from four warps to eight."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, do, kv = _edge_inputs(dtype, t, dh)
+    launches = fa.flash_fwd.launches, fa.flash_bwd_dq.launches
+    out, lse = fa.flash_fwd(q, k, v, kv)
+    inf_out, none = fa.flash_fwd(q, k, v, kv, with_lse=False)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, kv)
+    delta = (do.float() * out_p.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, kv, lse_p, delta)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, kv, lse_p, delta)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches) == (
+        launches[0] + 2, launches[1] + 1)
+    torch.testing.assert_close(out.float(), out_p.float(), **_flash_tol(dtype, out_p))
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    assert none is None and torch.equal(inf_out, out)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else _flash_tol(dtype, dq_p))
+    torch.testing.assert_close(dq.float(), dq_p.float(), **tol)
+    assert torch.isinf(lse[-1]).all() and (out[-1] == 0).all() and (dq[-1] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_dq_unaligned_operands_on_card(dtype):
+    """q, k, v and dO one element off 16 bytes: the wrappers copy them for
+    the kernels' 16-byte accesses, and the results are the plain versions'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, do, kv = _flash_inputs(dtype, b=3, h=2, t=20, dh=32, seed=6)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, kv)
+    delta = (do.float() * out_p.float()).sum(-1)
+    qo, ko, vo, doo = (_offset_copy(x) for x in (q, k, v, do))
+    out, lse = fa.flash_fwd(qo, ko, vo, kv)
+    dq = fa.flash_bwd_dq(qo, ko, vo, doo, kv, lse_p, delta)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, kv, lse_p, delta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), out_p.float(), **_flash_tol(dtype, out_p))
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else _flash_tol(dtype, dq_p))
+    torch.testing.assert_close(dq.float(), dq_p.float(), **tol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [8, 32, 64, 128])
@@ -283,10 +351,7 @@ def test_flash_bwd_dkv_tile_edges_on_card(dtype, dh, t):
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
     from tdfo_tpu_torch.ops.kernels import flash_attention as fa
 
-    q, k, v, do, kv = _flash_inputs(dtype, b=3, h=3, t=t, dh=dh, seed=t + dh)
-    kv[:, -1] = True
-    kv[0, :min(40, t // 2)] = False  # a whole first key tile at T >= 80
-    kv[-1] = False                   # every key of the last batch row masked
+    q, k, v, do, kv = _edge_inputs(dtype, t, dh)
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, kv)
     delta = (do.float() * out_p.float()).sum(-1)
     launches = fa.flash_bwd_dkv.launches
