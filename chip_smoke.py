@@ -21,7 +21,11 @@ Phases (each prints its lines; any failure raises, so the script never exits
    (CUPTI's kernel start to end) and the floor of both (an empty kernel),
    beside the bound (the larger of bytes / HBM rate and f32 operations /
    peak f32 rate), after holding the kernel against the plain version on
-   those same operands.
+   those same operands; then the same at the kernel's other shapes, each
+   on a line of its own with its byte bound: the Bert4Rec item table
+   (200,002 rows, adam d = 64, one ``b4r_batch``'s lines) and config.toml's
+   packed shape (adam d = 16, R = 2 with the touched mask, the 700,000
+   user+item rows, B = 2048).
 3. main path — the library flow of ``bench.py::build_sparse_train_bench``
    at full width (SIZE_MAP of ``bench.py:56-59``, B = 8192, d = 64, sparse
    adam + dense AdamW at lr 3e-4, wd 1e-4, random batches as
@@ -182,6 +186,9 @@ SIZE_MAP = {
     "format": 16, "publisher": 5_000, "pub_decade": 16,
 }
 BATCH, DIM, LR, WD = 8192, 64, 3e-4, 1e-4
+# config.toml's TwoTower quickstart: embed_dim 16 (adam: two rows a line),
+# per_device_train_batch_size 2048
+CONFIG_DIM, CONFIG_BATCH = 16, 2048
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 outside the tensor cores, same sheet
 BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense, same sheet
@@ -587,9 +594,66 @@ def phase_timing(torch, rng) -> dict:
         f"{bound:.6f} ms by {bound_by} "
         f"({nbytes} B at {HBM_BYTES_PER_S / 1e12} TB/s = {bytes_ms:.6f} ms; "
         f"{flops} f32 flop at {F32_FLOP_PER_S / 1e12} TFLOP/s = {ops_ms:.6f} ms)")
+    del fat
+    torch.cuda.empty_cache()
+    # the other shapes the kernel serves, from a stream of their own (the
+    # shared one feeds the later phases)
+    srng = np.random.default_rng(7)
+    shapes = {"bert4rec": fat_timing_shape(
+        torch, kl, f"timing: fat_line_update at the Bert4Rec shape (adam d={DIM}, "
+        f"{B4R['n_items'] + 2} rows, one b4r_batch's lines)", lay,
+        B4R["n_items"] + 2, b4r_batch(srng)["item"].reshape(-1), gen, flush, corr)}
+    host = make_host_batch(srng, CONFIG_BATCH)
+    ids = np.concatenate([host["user_id"], SIZE_MAP["user"] + host["item_id"]])
+    shapes["config_packed"] = fat_timing_shape(
+        torch, kl, f"timing: fat_line_update at config.toml's packed shape (adam "
+        f"d={CONFIG_DIM} R=2, {rows} rows, B={CONFIG_BATCH})",
+        line_layout(CONFIG_DIM, "adam"), rows, ids, gen, flush, corr)
     return {"ms": ms, "plain_ms": plain_ms, "device_ms": sum(ds[-2:]) / 2,
             "device_records": rec, "bound_ms": bound, "bound_by": bound_by,
-            "max_abs_err": err, "floor": floor}
+            "max_abs_err": err, "floor": floor, "shapes": shapes}
+
+
+def fat_timing_shape(torch, kl, label, lay, rows, ids, gen, flush, corr) -> dict:
+    """``fat_line_update`` (f32 adam) on a ``rows``-row table at one step's
+    deduplicated ``ids`` (the packed form with its touched mask when a line
+    holds several rows): held against the plain version, then timed as at
+    the main path's shape beside its byte bound (each touched slot's table
+    and moments read and written and its grad read; ``ulines`` and the mask
+    read)."""
+    from tdfo_tpu_torch.ops import sparse as sp
+
+    fat = random_fat(torch, lay, rows, gen)
+    idt = torch.from_numpy(ids).cuda()
+    ul, seg, valid = sp.dedupe_ids(idt, vocab=rows, rows_per_line=lay.r)
+    c = ul.shape[0]
+    if lay.r == 1:
+        g = torch.randn((c, lay.d), generator=gen, device="cuda") * 1e-3
+        tl, n_touched = None, int(valid.sum())
+    else:
+        g = sp._segment_sum(torch.randn((idt.shape[0], lay.d), generator=gen,
+                                        device="cuda") * 1e-3,
+                            seg, c * lay.r).view(c, lay.r, lay.d)
+        tl = (sp._segment_sum((idt >= 0).to(torch.float32), seg, c * lay.r)
+              > 0).to(torch.float32).view(c, lay.r)
+        n_touched = int(tl.sum())
+    err = oracle_case(torch, kl, label, fat, ul, g, tl, corr, lay)
+    kw = dict(layout=lay, lr=LR, weight_decay=WD)
+    run_k = lambda: kl.fat_line_update(fat, ul, g, tl, corr, **kw)  # noqa: E731
+    run_p = lambda: kl.fat_line_update_plain(fat, ul, g, tl, corr, **kw)  # noqa: E731
+    for _ in range(3):
+        run_k()
+        run_p()
+    ks, ps, ds, rec = time_in_turns(torch, run_k, run_p, 50, 20, flush,
+                                    "fat_line_update_kernel")
+    per_row = (2 * 3 * lay.d + lay.d) * 4
+    nbytes = n_touched * per_row + c * 4 + (0 if tl is None else c * lay.r * 4) + 8
+    out = _bound_record(f"{label}, {n_touched} touched slots of {c * lay.r}",
+                        ks, ps, ds, rec, nbytes,
+                        n_touched * lay.d * ADAM_FLOP_PER_ELEMENT, per_row, err)
+    del fat
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2245,7 +2309,8 @@ def main(argv=None) -> int:
         fat.update(ms=t["ms"], device_ms=t["device_ms"],
                    device_records=t["device_records"], plain_ms=t["plain_ms"],
                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                   max_abs_err=max(fat["max_abs_err"] or 0.0, t["max_abs_err"]))
+                   max_abs_err=max(fat["max_abs_err"] or 0.0, t["max_abs_err"]),
+                   shapes=t["shapes"])
     if "main" in phases:
         fat["launches"] = phase_main_path(torch, smi)["launches"]
     if "cli" in phases:

@@ -22,21 +22,30 @@
 // written; stochastic rounding is the identity on bf16 values, so that
 // equals the TPU kernel's whole-line writeback.
 //
-// fat_row_step: one warp owns one row slot; lane j strides over the slot's
-// lanes j, j + 32, ... with coalesced 4-byte (f32) or 2-byte (bf16) loads.
-// `src` is where the slot's current [table | state] lanes are read, `dst`
-// where the new ones go; they may be the same row (each lane reads its own
-// lanes before writing them, and the rowwise accumulator is written after a
-// __syncwarp).
+// Two ways to split a row slot over threads:
+//   fat_row_step: one warp owns one row slot; lane j strides over the
+//   slot's lanes j, j + 32, ... with coalesced 4-byte (f32) or 2-byte (bf16)
+//   loads.  `src` is where the slot's current [table | state] lanes are
+//   read, `dst` where the new ones go; they may be the same row (each lane
+//   reads its own lanes before writing them, and the rowwise accumulator is
+//   written after a __syncwarp).
+//   fat_row_group_step: G threads (a G-aligned group of the warp, G = 2 ..
+//   32, d <= 4G) own one row; thread t holds lanes 4t .. 4t + 3 of the
+//   grad, the table and each per-element state, each one 16-byte (f32) or
+//   8-byte (bf16) load; a warp updates 32 / G rows at once.
 //
 // The rowwise mean's tree (warp_sum): lane L's partial p_L sums the squared
 // grads of lanes L, L + 32, ... in that order from 0.0f, then __shfl_xor
-// levels 16, 8, 4, 2, 1 add p_L + p_{L^off}.  fat_row_group_step (the routed
-// kernel's narrow rows, G threads of 4 lanes each) reproduces that tree: its
-// thread t holds lanes 4t .. 4t + 3 (d <= 4G <= 32, one lane per partial),
-// the shuffles add the levels of the thread bits (G/2 .. 1 = lane bits
-// 4G/2 .. 4) and the last two levels (lane bits 2, 1) are local.  The
-// levels above 4G add the exact zeros of the lanes past d and are skipped.
+// levels 16, 8, 4, 2, 1 add p_L + p_{L^off}.  fat_row_group_step reproduces
+// that tree.  Its thread t holds lanes 4t + e, i.e. warp lane 4 (t % 8) + e
+// of pass t / 8.  Wide groups (G = 16, 32; d > 32) first fold the passes:
+// every thread gathers the values of threads t % 8, t % 8 + 8, ... of its
+// group and adds them in that order, so p_L = ((0 + sq[L]) + sq[L + 32]) +
+// ... on every thread that holds lane L (adding a pass's exact zero where
+// L + 32k >= d changes nothing).  Then the shuffles add the levels of the
+// thread bits below 8 (min(G, 8) / 2 .. 1 = lane bits 16 .. 4) and the last
+// two levels (lane bits 2, 1) are local.  The levels above 4G (G <= 4) add
+// the exact zeros of the lanes past d and are skipped.
 
 #pragma once
 
@@ -206,9 +215,9 @@ __device__ __forceinline__ void fat_row_step(const S* src, S* dst, const float* 
   }
 }
 
-// ------------------------------------------------ narrow rows, G per row
+// ------------------------------------------------------ rows, G per row
 
-// The operands of one narrow row for one thread: lanes 4t .. 4t + 3 of the
+// The operands of one row for one thread: lanes 4t .. 4t + 3 of the
 // grad, the table and the per-element state (s1: adagrad's accumulator or
 // adam's mu, s2: adam's nu), and the row's scalar rowwise accumulator.
 struct RowLanes {
@@ -248,11 +257,11 @@ __device__ __forceinline__ void st4(uint16_t* dst, int off, const float (&a)[4],
   *reinterpret_cast<uint2*>(dst + off) = make_uint2(lo, hi);
 }
 
-// Issue the loads of one narrow row (no arithmetic).  The grad needs only
-// the row index and the slot only its routing, so each has its own
-// predicate and neither waits on the line lookup: `g_live` (the row exists
-// and 4t < d), `src_live` (its slot in `lines` exists and 4t < d),
-// `acc_live` (the slot exists: the rowwise accumulator, one per row).
+// Issue the loads of one row (no arithmetic).  Each operand has its own
+// predicate, so a caller can issue the grad's load before it knows where
+// the row's state lies: `g_live` (the grad row exists and 4t < d),
+// `src_live` (the state row exists and 4t < d), `acc_live` (read the
+// rowwise accumulator, one per row).
 template <int KIND, typename S>
 __device__ __forceinline__ void load_row_lanes(RowLanes& r, const S* src,
                                                const float* g, int t, int d,
@@ -265,11 +274,15 @@ __device__ __forceinline__ void load_row_lanes(RowLanes& r, const S* src,
   if (KIND == KIND_ROWWISE_ADAGRAD) r.acc = acc_live ? widen(src[d]) : 0.0f;
 }
 
-// One optimizer step on one narrow row by its G threads (a G-aligned group
-// of the warp; every lane of the warp calls it, since the rowwise kind
-// shuffles).  Thread t writes lanes 4t .. 4t + 3 where `live`, and thread 0
-// the rowwise accumulator where `row_ok`.  `src` (read by load_row_lanes)
-// and `dst` must not be the same row.
+// One optimizer step on one row by its G threads (a G-aligned group of the
+// warp; every lane of the warp calls it, since the rowwise kind shuffles).
+// Thread t writes lanes 4t .. 4t + 3 where `live`, and thread 0 the rowwise
+// accumulator where `row_ok`; no store reaches past lane d (rowwise) or
+// need.  `dst` may be the row load_row_lanes read (`src`): each thread
+// writes only the lanes it loaded itself, and the rowwise accumulator must
+// then have been read by thread 0 alone and passed to the group by shuffle
+// (an in-place caller's duty: a shuffle does not order another thread's
+// load whose value it has not used yet).
 template <int KIND, int G, typename S>
 __device__ __forceinline__ void fat_row_group_step(RowLanes& r, S* dst, int t,
                                                    int d, bool row_ok, bool live,
@@ -293,8 +306,18 @@ __device__ __forceinline__ void fat_row_group_step(RowLanes& r, S* dst, int t,
       v[e] += g2[e] * g2[e];  // the partial from 0.0f, as warp_sum's lanes
       if (!live) v[e] = 0.0f;
     }
+    if constexpr (G > 8) {  // fold the passes: lanes L, L + 32, ... in order
+      const int base = ((threadIdx.x & 31) & ~(G - 1)) | (t & 7);
 #pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
+      for (int e = 0; e < 4; ++e) {
+        float s = __shfl_sync(0xffffffffu, v[e], base);
+#pragma unroll
+        for (int k = 1; k < G / 8; ++k) s += __shfl_sync(0xffffffffu, v[e], base + 8 * k);
+        v[e] = s;
+      }
+    }
+#pragma unroll
+    for (int off = (G > 8 ? 8 : G) / 2; off > 0; off >>= 1) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] += __shfl_xor_sync(0xffffffffu, v[e], off);
     }

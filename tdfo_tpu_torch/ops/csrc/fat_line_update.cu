@@ -26,14 +26,36 @@
 // the grid position comes from the line's index u in `ulines` and the
 // wrapper's lps, the TPU kernel's lines per grid step).
 //
-// Bound on the H100: memory bytes.  Per touched adam row the table and the
-// two moments are read and written and the grad is read:
-// (2 * 3 * d + d) * 4 B, 1,792 B at d = 64 in f32; 1,024 B in bf16
-// (2 * 3 * d * 2 + d * 4); the arithmetic is a few dozen flops per element.
-// First design: one warp per row slot, lanes striding over the d table
-// lanes with coalesced 4-byte (f32) or 2-byte (bf16) loads, no
-// shared-memory staging.  Making it fast (vector loads, several rows per
-// warp) is later work.
+// Bound on the H100: memory bytes, and before that latency.  Per touched
+// adam row the table and the two moments are read and written and the grad
+// is read: (2 * 3 * d + d) * 4 B, 1,792 B at d = 64 in f32; 1,024 B in bf16
+// (2 * 3 * d * 2 + d * 4); the arithmetic is a few dozen flops per element
+// (three IEEE divisions and a square root for adam; bf16 adds the rounding
+// hash, 13 integer operations per written lane).  Each row slot is a chain
+// of dependent loads (ulines[u] -> where the row lies -> its lanes),
+// scattered 128-768-byte pieces of a table far larger than L2.  The design
+// keeps as many chains in flight as the card holds:
+//   * G = d/4 threads per row (2 .. 32, rounded up to a power of two; d a
+//     multiple of 4, d <= 128), each with one 16-byte (f32) or 8-byte
+//     (bf16) load of the grad, of the table lanes and of each per-element
+//     state, all issued before any arithmetic; a warp updates 32 / G rows
+//     (2 at the TwoTower shape, d = 64, G = 16);
+//   * the grad needs only the slot, so its load does not wait for the line;
+//   * the grid is what the card keeps resident (occupancy x SMs, 64-thread
+//     blocks); each group loops over slots with a stride and loads the next
+//     pass's ulines[u] and touched value during this pass's math, so a pass
+//     after the first costs one round trip, not two;
+//   * in place: each thread writes only the lanes it loaded; rowwise's
+//     accumulator is read by the group's thread 0 alone and shuffled to the
+//     others, so its write cannot overtake another thread's read;
+//   * rows with d % 4 != 0 or d > 128, operands off 16 bytes and steps of
+//     2^30 slots or more take one warp per row slot, lanes striding over
+//     the slot (fat_row_step), chosen inside the launch.
+// No shared memory or TMA: a row is read once and written once, and staging
+// scattered pieces buys nothing.  Design variants are edits of this source
+// in tdfo_tpu_torch/tools/fat_line_variants.py; an 8-lane bf16 thread with
+// 16-byte loads, two passes in flight per group and tighter register caps
+// measured slower (PERF.md).
 
 #include <type_traits>
 
@@ -41,7 +63,15 @@
 
 namespace {
 
-constexpr int WARPS_PER_BLOCK = 8;
+using namespace fat_lines;
+
+// Row groups: 64-thread blocks, at least 20 resident per SM (the register
+// cap this sets, 48, fits every instance without spills); measured against
+// 128- and 256-thread blocks and tighter caps (tools/fat_line_variants.py).
+constexpr int THREADS = 64;
+constexpr int MIN_BLOCKS = 20;
+constexpr int WPB = THREADS / 32;  // warps per block
+constexpr int WIDE_THREADS = 256;  // the warp-per-row kernel
 
 template <typename S>
 struct Params {
@@ -53,32 +83,130 @@ struct Params {
   int64_t n_slots;  // U * R
   int r;
   int w;
-  fat_lines::StepParams step;
-  fat_lines::SrParams sr;  // bf16 storage only
+  StepParams step;
+  SrParams sr;  // bf16 storage only
 };
 
 template <typename S>
-__global__ void fat_line_update_kernel(Params<S> p) {
+__device__ __forceinline__ Narrow narrow_at(const Params<S>& p, int64_t u, int s) {
+  Narrow nw{};
+  if constexpr (std::is_same<S, uint16_t>::value) nw = Narrow::at(p.sr, u, s * p.w);
+  return nw;
+}
+
+// The line of `slot` (-1 past the end) and its touched value (1 in the row
+// form); the two loads are independent.
+template <typename S>
+__device__ __forceinline__ int slot_line(const Params<S>& p, int slot, int n, float& tch) {
+  tch = 1.0f;
+  if (slot >= n) return -1;
+  if (p.touched != nullptr) tch = p.touched[slot];
+  return p.ulines[p.r == 1 ? slot : slot / p.r];
+}
+
+// G threads per row slot, 32 / G slots per warp, over a resident grid (the
+// launch keeps U * R below 2^30, so slot indices are 32-bit).  The loop
+// over passes is warp-uniform (every lane reaches the shuffles).
+template <int KIND, int G, typename S>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fat_line_update_kernel(Params<S> p) {
+  constexpr int RPW = 32 / G;     // row slots per warp
+  constexpr int RPB = RPW * WPB;  // row slots per block and pass
   const int lane = threadIdx.x & 31;
-  const int64_t slot = (int64_t)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int t = lane % G;
+  const int d = p.step.d;
+  const bool tl = 4 * t < d;
+  const int n = (int)p.n_slots;
+  const int stride = (int)gridDim.x * RPB;
+  float c1 = 1.0f, c2 = 1.0f;
+  if (KIND == KIND_ADAM) {
+    c1 = p.step.corr[0];
+    c2 = p.step.corr[1];
+  }
+  int w0 = (int)blockIdx.x * RPB + (threadIdx.x >> 5) * RPW;
+  int slot = w0 + lane / G;
+  float tch;
+  int line = slot_line(p, slot, n, tch);
+  for (; w0 < n; w0 += stride, slot += stride) {
+    const int u = p.r == 1 ? slot : slot / p.r;
+    const int s = slot - u * p.r;
+    // sentinel / out of range / untouched (a NaN mask value is untouched)
+    const bool ok = line >= 0 && line < p.n_lines && tch > 0.0f;
+    S* row = p.fat + ((int64_t)(ok ? line : 0) * p.r + s) * (int64_t)p.w;
+    // the grad needs only the slot: on the first pass its load goes out
+    // before the line arrives
+    RowLanes rl;
+    load_row_lanes<KIND>(rl, row, p.g + (int64_t)slot * d, t, d, slot < n && tl, ok && tl,
+                         ok && t == 0);
+    float tch_n;  // the next pass's slot, in flight during this pass's math
+    const int line_n = slot_line(p, slot + stride, n, tch_n);
+    if (KIND == KIND_ROWWISE_ADAGRAD) rl.acc = __shfl_sync(0xffffffffu, rl.acc, lane & ~(G - 1));
+    fat_row_group_step<KIND, G>(rl, row, t, d, ok, ok && tl, p.step, c1, c2,
+                                narrow_at(p, u, s));
+    line = line_n;
+    tch = tch_n;
+  }
+}
+
+// Rows the groups cannot take (d % 4 != 0, d > 128, operands off 16
+// bytes, 2^30 slots or more): one warp per row slot, lanes striding over
+// it.
+template <typename S>
+__global__ void __launch_bounds__(WIDE_THREADS) fat_line_update_kernel_wide(Params<S> p) {
+  const int lane = threadIdx.x & 31;
+  const int64_t slot = (int64_t)blockIdx.x * (WIDE_THREADS / 32) + (threadIdx.x >> 5);
   if (slot >= p.n_slots) return;
   const int64_t u = slot / p.r;
   const int s = (int)(slot - u * p.r);
   const int64_t line = p.ulines[u];
   if (line < 0 || line >= p.n_lines) return;  // sentinel / out of range
   if (p.touched != nullptr && !(p.touched[slot] > 0.0f)) return;
-
   S* row = p.fat + (line * p.r + s) * (int64_t)p.w;
-  fat_lines::Narrow nw{};
-  if constexpr (std::is_same<S, uint16_t>::value) nw = fat_lines::Narrow::at(p.sr, u, s * p.w);
-  fat_lines::fat_row_step(row, row, p.g + slot * (int64_t)p.step.d, p.step, lane, nw);
+  fat_row_step(row, row, p.g + slot * (int64_t)p.step.d, p.step, lane, narrow_at(p, u, s));
 }
+
+// Blocks the card keeps resident for one kernel instance (occupancy x
+// SMs), cached per instance and device.
+template <int KIND, int G, typename S>
+int resident_blocks() {
+  static int cache[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fat_line_update_kernel<KIND, G, S>,
+                                                  THREADS, 0);
+    cache[dev] = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  }
+  return cache[dev];
+}
+
+template <int KIND, int G, typename S>
+void launch_group(const Params<S>& p, cudaStream_t s) {
+  constexpr int RPB = 32 / G * WPB;
+  const int64_t need = (p.n_slots + RPB - 1) / RPB;
+  const int64_t most = resident_blocks<KIND, G, S>();
+  fat_line_update_kernel<KIND, G, S><<<(unsigned)(need < most ? need : most), THREADS, 0, s>>>(p);
+}
+
+template <int KIND, typename S>
+void launch_kind(const Params<S>& p, cudaStream_t s) {
+  const int d = p.step.d;
+  if (d <= 8) launch_group<KIND, 2>(p, s);
+  else if (d <= 16) launch_group<KIND, 4>(p, s);
+  else if (d <= 32) launch_group<KIND, 8>(p, s);
+  else if (d <= 64) launch_group<KIND, 16>(p, s);
+  else launch_group<KIND, 32>(p, s);
+}
+
+bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
 template <typename S>
 int launch(S* fat, const int32_t* ulines, const float* g, const float* touched,
            const float* corr, int64_t n_lines, int64_t n_ulines, int r, int w, int d,
            int kind, float lr, float b1, float b2, float om_b1, float om_b2,
-           float eps, float wd, fat_lines::SrParams sr, void* stream) {
+           float eps, float wd, SrParams sr, void* stream) {
   Params<S> p;
   p.fat = fat;
   p.ulines = ulines;
@@ -88,12 +216,26 @@ int launch(S* fat, const int32_t* ulines, const float* g, const float* touched,
   p.n_slots = n_ulines * r;
   p.r = r;
   p.w = w;
-  p.step = fat_lines::StepParams{corr, d, kind, lr, b1, b2, om_b1, om_b2, eps, wd};
+  p.step = StepParams{corr, d, kind, lr, b1, b2, om_b1, om_b2, eps, wd};
   p.sr = sr;
-  if (p.n_slots > 0) {
-    const int64_t blocks = (p.n_slots + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-    fat_line_update_kernel<S><<<(unsigned)blocks, WARPS_PER_BLOCK * 32, 0,
-                                (cudaStream_t)stream>>>(p);
+  if (p.n_slots <= 0) return (int)cudaGetLastError();
+  if (kind < KIND_SGD || kind > KIND_ADAM) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // groups take 16-byte (f32) or 8-byte (bf16) loads of 4 lanes: every row
+  // and state offset must be a multiple of 4 lanes from 16-byte-aligned
+  // bases
+  const bool group = d > 0 && d <= 128 && d % 4 == 0 && w % 4 == 0 &&
+                     aligned16(fat) && aligned16(g) && p.n_slots < (1 << 30);
+  if (!group) {
+    const int64_t blocks = (p.n_slots + WIDE_THREADS / 32 - 1) / (WIDE_THREADS / 32);
+    fat_line_update_kernel_wide<S><<<(unsigned)blocks, WIDE_THREADS, 0, s>>>(p);
+    return (int)cudaGetLastError();
+  }
+  switch (kind) {
+    case KIND_SGD: launch_kind<KIND_SGD>(p, s); break;
+    case KIND_ADAGRAD: launch_kind<KIND_ADAGRAD>(p, s); break;
+    case KIND_ROWWISE_ADAGRAD: launch_kind<KIND_ROWWISE_ADAGRAD>(p, s); break;
+    default: launch_kind<KIND_ADAM>(p, s); break;
   }
   return (int)cudaGetLastError();
 }
@@ -107,7 +249,7 @@ extern "C" int fat_line_update_f32(
     float eps, float wd, void* stream) {
   return launch<float>(fat, ulines, g, touched, corr, n_lines, n_ulines, r, w, d,
                        kind, lr, b1, b2, om_b1, om_b2, eps, wd,
-                       fat_lines::SrParams{0u, 0, 1, 0}, stream);
+                       SrParams{0u, 0, 1, 0}, stream);
 }
 
 // bf16 lines (uint16_t bit patterns).  sr != 0: stochastic rounding keyed
@@ -120,5 +262,5 @@ extern "C" int fat_line_update_bf16(
     void* stream) {
   return launch<uint16_t>(fat, ulines, g, touched, corr, n_lines, n_ulines, r, w,
                           d, kind, lr, b1, b2, om_b1, om_b2, eps, wd,
-                          fat_lines::SrParams{seed, sr, lps, line_lanes}, stream);
+                          SrParams{seed, sr, lps, line_lanes}, stream);
 }

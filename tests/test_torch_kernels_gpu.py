@@ -58,6 +58,128 @@ def test_fat_line_update_matches_plain_on_card(kind, d):
     assert tk.fat_line_update.launches == launches + 1
 
 
+SENTINEL = 2**31 - 1
+GROUP_DS = (4, 8, 12, 20, 32, 48, 64, 100, 128, 200)
+
+
+def _slot_operands(kind, d, n_lines, u, *, dtype=torch.float32, packed=False,
+                   seed=0):
+    """A fat table of ``n_lines`` lines with random content in every lane
+    (pad lanes too, so a stray write shows; state lanes >= 0), ``u``
+    distinct lines with the sentinel, a negative and an out-of-range line
+    among them (where ``u`` has room), and grads in the row form or, with
+    ``packed``, the packed form with a partial touched mask."""
+    rng = np.random.default_rng(seed)
+    lay = tfl.line_layout(d, kind, "bfloat16" if dtype == torch.bfloat16 else "float32")
+    fat = torch.from_numpy(rng.random((n_lines, lay.tiles, 128), dtype=np.float32))
+    view = fat.view(-1, lay.w)
+    view[:, :d] -= 0.5
+    if kind == "adam":
+        view[:, d:2 * d] -= 0.5
+    ul = rng.permutation(n_lines)[:u].astype(np.int32)
+    for i, bad in zip((1, 2, 3), (SENTINEL, -5, n_lines + 3)):
+        if i < u:
+            ul[i] = bad
+    if packed or lay.r > 1:
+        g = rng.standard_normal((u, lay.r, d)).astype(np.float32)
+        tl = (rng.random((u, lay.r)) > 0.3).astype(np.float32)
+        tl = torch.from_numpy(tl).cuda()
+    else:
+        g, tl = rng.standard_normal((u, d)).astype(np.float32), None
+    return (lay, fat.to(dtype).cuda(), torch.from_numpy(ul).cuda(),
+            torch.from_numpy(g).cuda(), tl)
+
+
+def _updatable(fat, ul, tl, lay):
+    """[L*R, W] bool: lanes [0, need) of every slot the step may write."""
+    n = fat.shape[0]
+    lines = ul.to(torch.int64)
+    ok = (lines >= 0) & (lines < n)
+    slots = (torch.where(ok, lines, 0)[:, None] * lay.r
+             + torch.arange(lay.r, device=fat.device)).reshape(-1)
+    keep = ok.repeat_interleave(lay.r)
+    if tl is not None:
+        keep &= tl.reshape(-1) > 0
+    m = torch.zeros((n * lay.r, lay.w), dtype=torch.bool, device=fat.device)
+    m[slots[keep], :lay.need] = True
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("d", GROUP_DS)
+def test_fat_line_update_row_groups_on_card(kind, d):
+    """The redesigned kernel's edges: every kind at d below, at and past
+    each row-group width (G = 2 .. 32 threads per row; d % 4 != 0 never
+    occurs in a layout, d = 200 takes a warp per row), in the row form and
+    the packed form (R == 1 layouts both); U = 0, 1, 3, ragged against the
+    slots per warp and per block, and large enough for several passes of
+    the resident grid; sentinel, negative and out-of-range lines and a
+    partial touched mask.  Kernel vs plain within the optimizer tolerance,
+    every element it may not write bitwise unchanged, and the grads one
+    element off 16 bytes (a warp per row, chosen inside the launch) give
+    bitwise the same table, rowwise_adagrad's sum tree included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    lay = tfl.line_layout(d, kind)
+    forms = (False, True) if lay.r == 1 else (True,)
+    corr = torch.tensor([0.1, 0.001], device="cuda")
+    kw = dict(layout=lay, lr=0.05, weight_decay=1e-2)
+    rtol, atol = TOL["optimizer"]
+    for packed in forms:
+        for u, n_lines in ((0, 16), (1, 16), (3, 16), (37, 64), (1005, 3000),
+                           (100_003, 100_010)):
+            lay, fat, ul, g, tl = _slot_operands(kind, d, n_lines, u,
+                                                 packed=packed, seed=u + d)
+            a, k, w = fat.clone(), fat.clone(), fat.clone()
+            tk.fat_line_update_plain(a, ul, g, tl, corr, **kw)
+            launches = tk.fat_line_update.launches
+            tk.fat_line_update(k, ul, g, tl, corr, **kw)
+            # (an empty tensor has no data pointer to offset)
+            tk.fat_line_update(w, ul, _offset_copy(g) if u else g, tl, corr, **kw)
+            torch.cuda.synchronize()
+            assert tk.fat_line_update.launches == launches + 2
+            name = f"{kind} d={d} U={u} packed={packed}"
+            torch.testing.assert_close(k, a, rtol=rtol, atol=atol, msg=lambda m: f"{name}: {m}")
+            m = _updatable(fat, ul, tl, lay)
+            kv, fv = k.view(-1, lay.w), fat.view(-1, lay.w)
+            assert torch.equal(kv[~m].view(torch.int32), fv[~m].view(torch.int32)), name
+            assert torch.equal(k.view(torch.int32), w.view(torch.int32)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("d", [8, 20, 64, 128, 200])
+def test_fat_line_update_bf16_row_groups_on_card(kind, d):
+    """bf16 lines through the row groups (and a warp per row at d = 200):
+    with a seed at the TPU grid's 8 and 128 lines per block, and without a
+    seed (round to nearest), bitwise the plain version wherever the f32
+    kernel is bitwise its plain version (``_check_bf16``); the unaligned
+    grads' warp path writes bitwise the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    corr = torch.tensor([0.1, 0.001], device="cuda")
+    lay = tfl.line_layout(d, kind, "bfloat16")
+    for packed in ((False, True) if lay.r == 1 else (True,)):
+        lay, fat, ul, g, tl = _slot_operands(kind, d, 3000, 1005, dtype=torch.bfloat16,
+                                             packed=packed, seed=d)
+        for seed, lps in ((1234567, 8), (1234567, 128), (None, 128)):
+            kw = dict(layout=lay, lr=0.05, weight_decay=1e-2, sr_seed=seed,
+                      lines_per_step=lps)
+            out = {}
+            for dt in (torch.bfloat16, torch.float32):
+                a, k = fat.to(dt, copy=True), fat.to(dt, copy=True)
+                tk.fat_line_update_plain(a, ul, g, tl, corr, **kw)
+                tk.fat_line_update(k, ul, g, tl, corr, **kw)
+                out[dt] = (k, a)
+            w = fat.clone()
+            tk.fat_line_update(w, ul, _offset_copy(g), tl, corr, **kw)
+            torch.cuda.synchronize()
+            name = f"bf16 {kind} d={d} packed={packed} seed={seed} lps={lps}"
+            _check_bf16(name, kind, *out[torch.bfloat16], *out[torch.float32], fat)
+            assert torch.equal(w.view(torch.int16), out[torch.bfloat16][0].view(torch.int16)), name
+
+
 @pytest.mark.gpu
 def test_fat_line_update_refuses_mixed_devices():
     if not torch.cuda.is_available():
@@ -206,6 +328,37 @@ def test_fat_line_update_routed_unaligned_operands_on_card(kind, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_fat_line_update_routed_rowwise_wide_bitwise_on_card(d, dtype):
+    """rowwise_adagrad at d = 32 (8 threads a row in both kernels), 64 and
+    128 (the routed kernel's warp per row, warp_sum's tree; 16 and 32
+    threads a row in ``fat_line_update``): the two kernels write bitwise
+    the same table (bf16 at the routed grid's lines per block)."""
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as tkr
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    lay32, fat32, _, ul, rl, rs, g_u = _routed_operands("rowwise_adagrad", d, seed=23)
+    lay = tfl.line_layout(d, "rowwise_adagrad",
+                          "bfloat16" if dtype == torch.bfloat16 else "float32")
+    fat = fat32.to(dtype)
+    lines = fat[torch.where(ul < 2**31 - 1, ul, 0).long()].contiguous()
+    corr = torch.zeros(2, device="cuda")
+    seed = 77 if dtype == torch.bfloat16 else None
+    kw = dict(layout=lay, lr=0.05, weight_decay=1e-2, sr_seed=seed)
+    k, f = fat.clone(), fat.clone()
+    tkr.fat_line_update_routed(k, lines, ul, rl, rs, g_u, corr, **kw)
+    g_slots, touched = tkr.routed_to_slots(ul, rl, rs, g_u, lay)
+    tk.fat_line_update(f, ul, g_slots, touched, corr,
+                       lines_per_step=tkr.routed_lines_per_step(lay), **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert not torch.equal(k.view(bits), fat.view(bits))
+    assert torch.equal(k.view(bits), f.view(bits))
+
+
+@pytest.mark.gpu
 def test_fat_line_update_routed_refuses_mixed_devices():
     from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as tkr
 
@@ -273,7 +426,7 @@ def test_fat_line_update_bf16_matches_plain_on_card(kind, d):
     kw = dict(layout=lay, lr=0.05, weight_decay=1e-2)
     out = {}
     for dt, seed in ((torch.bfloat16, 1234567), (torch.float32, None)):
-        a, k = fat.to(dt), fat.to(dt)
+        a, k = fat.to(dt, copy=True), fat.to(dt, copy=True)
         tk.fat_line_update_plain(a, ul, g, tl, corr, sr_seed=seed, **kw)
         tk.fat_line_update(k, ul, g, tl, corr, sr_seed=seed, **kw)
         torch.cuda.synchronize()
