@@ -151,10 +151,47 @@ Phases (each prints its lines; any failure raises, so the script never exits
    (``bench.py:306``); the same checks on both stacks, one routed launch
    per step.
 
+17. dense_main — the dense TwoTower (``model_parallel = false``, the
+   quickstart's regime) at ``bench.py::build_train_bench``'s width
+   (SIZE_MAP, B = 8192, d = 64, every parameter under AdamW lr 3e-4 wd
+   1e-4; f32 compute, the cut: the bench computes in bf16 on a chip): 20
+   eager steps three times (finite losses), 20 steps with
+   ``steps_per_execution = 4`` as CUDA-graph replays
+   (``train/step.py::CudaGraphStep``) held to the eager runs by the rule of
+   phase 18, eager vs graph step ms, a checkpoint of
+   the capturable state restored bitwise into a card and a CPU state, and
+   the first 3 steps on the port's CPU path (losses and touched user rows
+   within rtol 1e-4).  No hand-written kernel is on this path.
+18. resume — phases 3, 15 and 7's setups at their widths: 20
+   uninterrupted steps three times, then 10 steps, a checkpoint save, a
+   restore into a fresh state (bitwise the saved one) and 10 more (R,
+   Bert4Rec's dropout drawn per step from ``(seed + 1, step)``).  When
+   the uninterrupted runs agree bitwise R must equal them bitwise, else
+   every loss and state element of R must lie within their range widened
+   by their spread (the largest difference between two of them; card runs
+   differ by ``index_add_``'s float atomics), both printed; each run
+   launches ``fat_line_update`` once per step and, for Bert4Rec, each
+   flash kernel once per layer per step.
+   Prints the checkpoint's bytes and save / restore seconds.
+19. quickstart_cli — ``launch synth -> preprocess-ctr -> train`` with a
+   copy of ``config.toml`` (only ``data_dir``, ``n_epochs = 1``,
+   ``checkpoint_dir``, ``checkpoint_every_n_steps`` changed), the data
+   written by the port's ``data/synthetic.py`` with 20,000 users so the
+   epoch outlasts the first save; the train process is killed with
+   SIGKILL once a mid-epoch checkpoint is committed and run again:
+   ``metrics.jsonl`` must show ``resumed_mid_epoch`` and an eval AUC in
+   [0, 1].
+20. b4r_jagged — the Bert4Rec CLI with a copy of ``configs/bert4rec.toml``
+   (its widths; ``jagged = true``, ``attn = "flash"``, one epoch): flash
+   launches n_layers per step in each backward kernel; then the jagged
+   and the padded step from b4r_main's initial state on the same 3 ragged
+   batches and dropout draws, losses within rtol 1e-4.
+
 ``--phases profile`` / ``profile_b4r`` / ``profile_dlrm`` /
-``profile_bf16`` / ``profile_dlrm_bf16`` (not in the default run) add a
-``torch.profiler`` breakdown of steady TwoTower / Bert4Rec / DLRM-Criteo /
-bf16 TwoTower / bf16 DLRM-Criteo main-path steps.
+``profile_bf16`` / ``profile_dlrm_bf16`` / ``profile_dense`` (not in the
+default run) add a ``torch.profiler`` breakdown of steady TwoTower /
+Bert4Rec / DLRM-Criteo / bf16 TwoTower / bf16 DLRM-Criteo main-path steps
+and of the dense TwoTower's eager steps and CUDA-graph replays.
 
 Output: the empty-kernel floor of each timing phase, a ``{"kernels":
 [...]}`` JSON line (``ms``: CUDA events, ``device_ms``: profiler, the
@@ -244,7 +281,8 @@ KERNEL_TABLE = (  # name, source, the TPU kernel it replaces
 DEFAULT_PHASES = ("build", "oracle", "timing", "main", "cli", "flash_oracle",
                   "flash_timing", "b4r_main", "b4r_cli", "routed_oracle",
                   "routed_timing", "dlrm_main", "dlrm_cli", "bf16_oracle",
-                  "bf16_timing", "main_bf16", "dlrm_bf16_main")
+                  "bf16_timing", "main_bf16", "dlrm_bf16_main", "dense_main",
+                  "resume", "quickstart_cli", "b4r_jagged")
 
 
 def say(*parts) -> None:
@@ -2249,6 +2287,588 @@ def phase_profile_dlrm_bf16(torch, warm: int = 3, steps: int = 5) -> None:
     profile_steps(torch, "dlrm-criteo bf16", state, step, batches, warm)
 
 
+# ---------------------------------------------------------- phases 17-20
+
+# steps_per_execution of the dense phase's CUDA-graph run
+DENSE_SPE = 4
+# quickstart_cli: synthetic users (about 247 train batches of 2048 in the
+# one epoch, so the epoch outlasts the first mid-epoch save) and the save
+# cadence
+QS_USERS, QS_CKPT_EVERY = 20_000, 20
+
+
+def state_tensors(tree, prefix=""):
+    """``{"a/b/0": tensor}`` of a state's tensor-dict form."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in state_tensors(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return state_tensors(dict(enumerate(tree)), prefix)
+    return {prefix.rstrip("/"): tree}
+
+
+def state_diff(torch, a, b) -> float:
+    """Largest |a - b| over two states' tensor-dict forms (0.0 when bitwise
+    equal, inf when a key, dtype or ``step`` differs)."""
+    fa, fb = state_tensors(a), state_tensors(b)
+    if fa.keys() != fb.keys():
+        return float("inf")
+    worst = 0.0
+    for k, x in fa.items():
+        y = fb[k]
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return float("inf")
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return float("inf")
+        if torch.equal(x, y.to(x.device)):
+            continue
+        d = (x.double() - y.to(x.device).double()).abs()
+        worst = max(worst, float(torch.nan_to_num(d, nan=float("inf")).max()))
+    return worst
+
+
+def cpu_copy(torch, tree):
+    return {k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in state_tensors(tree).items()}
+
+
+# uninterrupted runs a resumed (or graph-replayed) run is held against
+N_REFS = 3
+
+
+def spread_check(torch, name, refs, run, what) -> str:
+    """``run`` = ``(losses, state_dict)`` against ``refs``, the same steps
+    run uninterrupted ``N_REFS`` times.  The spread S is the largest
+    difference between two refs over every loss and state element; when S
+    is 0 (the uninterrupted run repeats itself bitwise) ``run`` must equal
+    them bitwise, else every element of ``run`` must lie within the refs'
+    range widened by S.  Returns the printed line; raises otherwise."""
+    flat = [dict(state_tensors(sd), losses=ls) for ls, sd in refs]
+    mine = dict(state_tensors(run[1]), losses=run[0])
+    if any(f.keys() != mine.keys() for f in flat):
+        raise AssertionError(f"{name}: the runs' states have other keys")
+
+    def bounds(k):
+        st = torch.stack([f[k].to(mine[k].device).double() for f in flat])
+        return st.min(0).values, st.max(0).values
+
+    spread = 0.0
+    for k, x in mine.items():
+        if not isinstance(x, torch.Tensor):
+            if any(f[k] != x for f in flat):
+                raise AssertionError(f"{name}: {k} differs: {x} vs {[f[k] for f in flat]}")
+            continue
+        lo, hi = bounds(k)
+        spread = max(spread, float((hi - lo).max()))
+    outside, worst, near = 0, 0.0, 0.0
+    for k, x in mine.items():
+        if not isinstance(x, torch.Tensor):
+            continue
+        lo, hi = bounds(k)
+        xd = x.double()
+        over = torch.maximum(lo - xd, xd - hi).clamp_min(0.0)
+        outside += int((over > spread).sum())
+        worst = max(worst, float(over.max()))
+        near = max(near, float((xd - flat[0][k].to(x.device).double()).abs().max()))
+    rule = ("bitwise (the uninterrupted runs agree bitwise)" if spread == 0.0
+            else f"inside the refs' range widened by the spread {spread:.3e}")
+    line = (f"{name}: {what}: {len(flat)} uninterrupted runs, spread {spread:.3e}; "
+            f"max |R - ref 0| {near:.3e}, furthest outside the refs' range "
+            f"{worst:.3e}, {outside} elements beyond the spread; rule: {rule}")
+    if outside:
+        raise AssertionError(line)
+    return line
+
+
+def dense_initial(torch):
+    """One dense ``TwoTower`` at bench.py::build_train_bench's width
+    (SIZE_MAP, d = 64, f32), on the CPU from a fixed seed."""
+    from tdfo_tpu_torch.models.twotower import init_twotower
+
+    return init_twotower(0, SIZE_MAP, DIM, device="cpu")
+
+
+def dense_state(torch, model0, device):
+    """A fresh ``TrainState`` on ``device`` from a copy of ``model0``
+    (AdamW lr 3e-4 wd 1e-4; capturable on the card)."""
+    import copy
+
+    from tdfo_tpu_torch.train.state import TrainState
+
+    return TrainState.create(model=copy.deepcopy(model0).to(device),
+                             learning_rate=LR, weight_decay=WD,
+                             capturable=device == "cuda")
+
+
+def dense_user_rows(state, ids):
+    return state.model.user_embed.weight.detach()[ids].cpu()
+
+
+def phase_dense_main(torch, card: str, steps: int = 20, check_steps: int = 3) -> dict:
+    """Phase 17: the dense TwoTower (``model_parallel = false``) at
+    ``bench.py::build_train_bench``'s width, eager and as CUDA-graph
+    replays; card vs CPU; a checkpoint round trip of the capturable state."""
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.train.checkpoint import CheckpointManager
+    from tdfo_tpu_torch.train.step import (
+        CudaGraphStep,
+        make_multi_step,
+        make_train_step,
+    )
+
+    model0 = dense_initial(torch)
+    n_params = sum(p.numel() for p in model0.parameters())
+    say(f"dense_main: TwoTower {SIZE_MAP}, d {DIM}, {n_params} parameters "
+        f"(every one under AdamW), B {BATCH}, f32")
+    rng = np.random.default_rng(21)
+    host = [make_host_batch(rng, BATCH) for _ in range(steps)]
+    dev = [to_device(torch, h, "cuda") for h in host]
+    touched = torch.from_numpy(np.unique(np.concatenate(
+        [h["user_id"] for h in host[:check_steps]])).astype(np.int64))
+
+    def eager():
+        state = dense_state(torch, model0, "cuda")
+        step = make_train_step()
+        torch.cuda.synchronize()
+        losses, rows, t_start = [], None, None
+        for i, b in enumerate(dev):
+            if i == check_steps:
+                torch.cuda.synchronize()
+                rows = dense_user_rows(state, touched.cuda())
+                t_start = time.perf_counter()
+            state, loss = step(state, b)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_start) * 1e3 / (steps - check_steps)
+        return state, torch.stack(losses).cpu(), rows, ms
+
+    refs, times, rows_gpu = [], [], None
+    for i in range(N_REFS):
+        st, ls, rows, ms = eager()
+        if i == 0:
+            rows_gpu, la = rows, ls
+        refs.append((ls, st.state_dict()))
+        times.append(ms)
+        del st
+    if not torch.isfinite(la).all():
+        raise AssertionError(f"non-finite losses: {la.tolist()}")
+    eager_ms = times[0]
+    say(f"dense_main: {steps} eager steps on the card, {N_REFS} runs, losses "
+        f"{float(la[0]):.6f} -> {float(la[-1]):.6f}, step_ms "
+        f"{', '.join(f'{t:.4f}' for t in times)} (host clock over steps "
+        f"{check_steps + 1}-{steps}), on {card}")
+
+    # steps_per_execution = DENSE_SPE: each step of a chunk is one replay
+    sg = dense_state(torch, model0, "cuda")
+    graphed = CudaGraphStep(make_train_step())
+    multi = make_multi_step(graphed)
+    chunks = [{k: torch.stack([b[k] for b in dev[i:i + DENSE_SPE]]) for k in dev[0]}
+              for i in range(0, steps, DENSE_SPE)]
+    torch.cuda.synchronize()
+    lg, t_start = [], None
+    for j, c in enumerate(chunks):
+        if j == 1:  # the first chunk holds the warm-up and the capture
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        sg, losses = multi(sg, c)
+        lg.append(losses)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t_start) * 1e3 / (steps - DENSE_SPE)
+    lg = torch.cat(lg).cpu()
+    if sg.step != steps:
+        raise AssertionError(f"graph run counted {sg.step} steps, ran {steps}")
+    say(spread_check(torch, "dense_main", refs, (lg, sg.state_dict()),
+                     f"CUDA-graph run (steps_per_execution {DENSE_SPE}) vs "
+                     "eager, losses and final state"))
+    del refs
+    say(f"dense_main: eager step_ms {eager_ms:.4f} vs CUDA-graph replay "
+        f"step_ms {graph_ms:.4f} (host clock over steps {DENSE_SPE + 1}-"
+        f"{steps}) on {card}")
+
+    # the capturable state through a checkpoint, into both forms
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        mgr.save(steps, sg)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in Path(tmp).rglob("*") if p.is_file())
+        for device in ("cuda", "cpu"):
+            fresh = dense_state(torch, model0, device)
+            t0 = time.perf_counter()
+            mgr.restore(fresh)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            d = state_diff(torch, fresh.state_dict(), sg.state_dict())
+            if d != 0.0:
+                raise AssertionError(f"dense checkpoint restored into {device} "
+                                     f"differs from the saved state by {d}")
+            say(f"dense_main: checkpoint of the capturable state: {nbytes} bytes, "
+                f"save {save_s:.3f} s, restore into a {device} state "
+                f"{restore_s:.3f} s, bitwise equal (AdamW step counter on "
+                f"{fresh.optimizer.state[next(fresh.model.parameters())]['step'].device})")
+            del fresh
+    del sg, graphed, multi, chunks
+    torch.cuda.empty_cache()
+
+    # the first steps on the port's CPU path from the same initial model
+    cs, step = dense_state(torch, model0, "cpu"), make_train_step()
+    closs = []
+    for h in host[:check_steps]:
+        cs, loss = step(cs, to_device(torch, h, "cpu"))
+        closs.append(float(loss))
+    rtol, atol = TOL["trajectory"]
+    np.testing.assert_allclose(la[:check_steps].numpy(), closs, rtol=rtol, atol=atol)
+    rows_cpu = dense_user_rows(cs, touched)
+    torch.testing.assert_close(rows_gpu, rows_cpu, rtol=rtol, atol=atol)
+    say(f"dense_main: card vs CPU over {check_steps} steps: losses "
+        f"{la[:check_steps].tolist()} vs {closs}; {touched.numel()} touched user "
+        f"rows, max_abs_err {float((rows_gpu - rows_cpu).abs().max()):.3e} "
+        f"(rtol {rtol})")
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms}
+
+
+def phase_profile_dense(torch, warm: int = 3, steps: int = 5) -> None:
+    """Optional (``--phases profile_dense``): the dense TwoTower's eager
+    steps, then its CUDA-graph replays."""
+    from tdfo_tpu_torch.train.step import CudaGraphStep, make_train_step
+
+    model0 = dense_initial(torch)
+    rng = np.random.default_rng(14)
+    batches = [to_device(torch, make_host_batch(rng, BATCH), "cuda")
+               for _ in range(warm + steps)]
+    profile_steps(torch, "dense twotower eager", dense_state(torch, model0, "cuda"),
+                  make_train_step(), batches, warm)
+    profile_steps(torch, "dense twotower CUDA-graph replays",
+                  dense_state(torch, model0, "cuda"),
+                  CudaGraphStep(make_train_step()), batches, warm)
+
+
+def resume_setups(torch):
+    """``(name, make_state, batches, step_args, expected launches per
+    step)`` of the resume phase: phases 3, 15 and 7's setups at their
+    widths, each state built fresh from one initial state."""
+    from tdfo_tpu_torch.train.seq import dropout_generator
+
+    coll, tables0, backbone0 = b4r_initial()
+    two = ShardedTwoTower(torch)
+    bf = twotower_bf16_initial(torch)
+    return [
+        ("main", lambda: two.state(), lambda rng: make_host_batch(rng, BATCH),
+         lambda st: (), {"fat_line_update": 1}),
+        ("main_bf16", lambda: twotower_bf16_state(torch, *bf, "cuda"),
+         lambda rng: make_host_batch(rng, BATCH), lambda st: (),
+         {"fat_line_update": 1}),
+        ("b4r_main", lambda: b4r_state(torch, coll, tables0, backbone0, "cuda"),
+         b4r_batch,
+         lambda st: (dropout_generator(B4R_SEED + 1, st.step, "cuda"),),
+         {"fat_line_update": 1,
+          **dict.fromkeys(FLASH_KERNELS, B4R["n_layers"])}),
+    ]
+
+
+class ShardedTwoTower:
+    """Phase 3's initial state, kept on the CPU, for fresh card states."""
+
+    def __init__(self, torch):
+        from tdfo_tpu_torch.models.twotower import TwoTowerBackbone, ctr_embedding_specs
+        from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
+
+        self.torch = torch
+        self.coll = ShardedEmbeddingCollection(ctr_embedding_specs(SIZE_MAP, DIM, "row"))
+        self.tables0 = self.coll.init(0, device="cpu")
+        self.backbone0 = TwoTowerBackbone(DIM, generator=torch.Generator().manual_seed(1))
+
+    def state(self):
+        _, state, step = build_main_path(self.torch, "cuda", self.tables0,
+                                         self.backbone0)
+        return state, step
+
+
+def phase_resume(torch, card: str, steps: int = 20, cut: int = 10) -> dict:
+    """Phase 18: for each setup, ``steps`` uninterrupted steps ``N_REFS``
+    times, then a run R that trains ``cut`` steps, saves, restores into a
+    fresh state (bitwise the saved one) and trains the rest; R against the
+    uninterrupted runs by :func:`spread_check`; every run launches each
+    kernel of its path the expected times per step."""
+    from tdfo_tpu_torch.train.checkpoint import CheckpointManager
+
+    counts_of = {"fat_line_update": lambda c: c["fat_line_update"],
+                 **{k: (lambda c, k=k: c[k]) for k in FLASH_KERNELS}}
+    out = {}
+    for name, make, batch_fn, args_fn, per_step in resume_setups(torch):
+        rng = np.random.default_rng(31)
+        dev = [to_device(torch, batch_fn(rng), "cuda") for _ in range(steps)]
+
+        def run(state, step, batches):
+            losses = []
+            for b in batches:
+                state, loss = step(state, b, *args_fn(state))
+                losses.append(loss)
+            return state, losses
+
+        def check_counts(what, n):
+            counts = flash_counts()
+            want = {k: v * n for k, v in per_step.items()}
+            got = {k: counts_of[k](counts) for k in want}
+            if got != want:
+                raise AssertionError(f"resume {name} {what}: launches {got}, "
+                                     f"expected {want}")
+            return got
+
+        refs = []
+        for _ in range(N_REFS):
+            state, step = make()
+            zero_counts()
+            state, losses = run(state, step, dev)
+            torch.cuda.synchronize()
+            check_counts("uninterrupted run", steps)
+            refs.append((torch.stack(losses).cpu(), state.state_dict()))
+            del state, step
+        # R: cut, save, restore into a fresh state, the rest
+        with tempfile.TemporaryDirectory() as tmp:
+            state, step = make()
+            zero_counts()
+            state, l1 = run(state, step, dev[:cut])
+            torch.cuda.synchronize()
+            mgr = CheckpointManager(tmp)
+            t0 = time.perf_counter()
+            mgr.save(cut, state, cursor={"epoch": 0, "step": cut,
+                                         "epoch_complete": False,
+                                         "global_step": cut})
+            save_s = time.perf_counter() - t0
+            nbytes = sum(p.stat().st_size for p in Path(tmp).rglob("*")
+                         if p.is_file())
+            saved = cpu_copy(torch, state.state_dict())
+            del state, step
+            torch.cuda.empty_cache()
+            fresh, step = make()
+            t0 = time.perf_counter()
+            got_step, fresh, cursor = mgr.restore(fresh)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            d_restore = state_diff(torch, cpu_copy(torch, fresh.state_dict()), saved)
+            if d_restore != 0.0 or got_step != cut or cursor["step"] != cut:
+                raise AssertionError(f"resume {name}: the restored state differs "
+                                     f"from the saved one by {d_restore}")
+            fresh, l2 = run(fresh, step, dev[cut:])
+            torch.cuda.synchronize()
+        counts = check_counts("cut-save-restore run", steps)
+        say(f"resume {name}: {steps} steps cut at {cut}: checkpoint {nbytes} "
+            f"bytes, save {save_s:.3f} s, restore {restore_s:.3f} s, the "
+            f"restored state bitwise the saved one; launches {counts} over the "
+            f"{steps} steps; on {card}")
+        say(spread_check(torch, f"resume {name}", refs,
+                         (torch.stack(l1 + l2).cpu(), fresh.state_dict()),
+                         "resumed run vs uninterrupted, losses and final state"))
+        out[name] = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+                     "launches": counts}
+        del fresh, refs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_quickstart_cli(torch) -> dict:
+    """Phase 19: ``launch synth -> preprocess-ctr -> train`` with a copy of
+    ``config.toml`` (only ``data_dir``, ``n_epochs = 1``, ``checkpoint_dir``
+    and ``checkpoint_every_n_steps`` changed; the dense regime it sets).
+    The train process is killed with SIGKILL once a mid-epoch cursor
+    exists, then run again: it must resume mid-epoch and log an eval AUC
+    in [0, 1].  The data come from the port's ``data/synthetic.py`` with
+    ``QS_USERS`` users (``launch synth``'s 120 users give one batch)."""
+    import os
+    import signal
+
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+
+    text = (ROOT / "config.toml").read_text()
+    if 'data_dir = "data/goodreads"' not in text or "n_epochs = 2" not in text:
+        raise AssertionError("config.toml no longer has the lines this phase edits")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ck = tmp / "ckpt"
+        cfg = tmp / "config.toml"
+        cfg.write_text(
+            text.replace('data_dir = "data/goodreads"', f'data_dir = "{tmp / "data"}"')
+            .replace("n_epochs = 2", "n_epochs = 1")
+            + f'checkpoint_dir = "{ck}"\ncheckpoint_every_n_steps = {QS_CKPT_EVERY}\n')
+        t0 = time.perf_counter()
+        write_synthetic_goodreads(tmp / "data", n_users=QS_USERS)
+        if launch.main(["preprocess-ctr", "--config", str(cfg)]) != 0:
+            raise AssertionError("launch preprocess-ctr failed")
+        etl_s = time.perf_counter() - t0
+        cmd = [sys.executable, "-m", "tdfo_tpu_torch.launch", "train", "--config",
+               str(cfg)]
+        log1 = tmp / "train1.log"
+        with open(log1, "w") as f:
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+        mid = None
+        deadline = time.monotonic() + 600
+        try:
+            while mid is None and proc.poll() is None and time.monotonic() < deadline:
+                for p in sorted(ck.glob("cursor_*.json")) if ck.exists() else []:
+                    # a cursor counts once its step is committed
+                    if not (ck / p.stem.split("_", 1)[1] / "state.pt").is_file():
+                        continue
+                    try:
+                        c = json.loads(p.read_text())
+                    except (OSError, ValueError):
+                        continue
+                    if not c.get("epoch_complete"):
+                        mid = c
+                        break
+                time.sleep(0.005)
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"the train run ended (rc {proc.returncode}) before a "
+                    f"mid-epoch checkpoint could be killed; log:\n{log1.read_text()[-3000:]}")
+            if mid is None:
+                raise AssertionError("no mid-epoch cursor within 600 s")
+            os.kill(proc.pid, signal.SIGKILL)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        from tdfo_tpu_torch.train.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(ck)
+        latest = mgr.read_cursor(mgr.latest_step())
+        if latest is None or latest.get("epoch_complete"):
+            raise AssertionError(f"the killed run's newest checkpoint is not "
+                                 f"mid-epoch: {latest}")
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        if res.returncode != 0:
+            raise AssertionError(f"the resumed train run failed:\n{res.stdout[-3000:]}"
+                                 f"\n{res.stderr[-3000:]}")
+        recs = [json.loads(x) for x in (ck / "metrics.jsonl").read_text().splitlines()]
+    resumed = [r for r in recs if "resumed_mid_epoch" in r]
+    aucs = [r["auc"] for r in recs if "auc" in r]
+    steps = [r["steps"] for r in recs if "train_loss_epoch" in r]
+    if not resumed or not aucs or not 0.0 <= aucs[-1] <= 1.0:
+        raise AssertionError(f"metrics.jsonl lacks resumed_mid_epoch or an eval "
+                             f"AUC: {recs}")
+    say(f"quickstart_cli: config.toml (dense TwoTower) on the card: synthetic "
+        f"{QS_USERS} users + preprocess-ctr {etl_s:.1f} s; SIGKILL after the "
+        f"mid-epoch save at step {mid['step']}; the newest checkpoint at step "
+        f"{latest['step']}; the restart resumed mid-epoch at step "
+        f"{resumed[0]['step']} and finished the epoch ({steps[-1]} steps), "
+        f"eval auc {aucs[-1]:.4f}")
+    return {"resumed_at": resumed[0]["step"], "auc": aucs[-1]}
+
+
+def jagged_rows(rng, b: int = B4R_BATCH):
+    """A random ragged Bert4Rec batch: per row a length in [1, T], items in
+    [1, n_items], 20% masked and labelled; returned packed (values,
+    lengths) and padded at the tail ([B, T])."""
+    from tdfo_tpu_torch.data.jagged import pack_rows
+
+    n, t = B4R["n_items"], B4R["max_len"]
+    items, labels = [], []
+    for _ in range(b):
+        k = int(rng.integers(1, t + 1))
+        it = rng.integers(1, n + 1, k).astype(np.int32)
+        m = rng.random(k) < B4R_MASK_PROB
+        m[0] = True
+        labels.append(np.where(m, it, 0).astype(np.int32))
+        items.append(np.where(m, n + 1, it).astype(np.int32))
+    iv, il = pack_rows(items, b * t)
+    lv, _ = pack_rows(labels, b * t)
+    pad = {"item": np.zeros((b, t), np.int32), "label": np.zeros((b, t), np.int32)}
+    for r, (it, lb) in enumerate(zip(items, labels)):
+        pad["item"][r, :len(it)] = it
+        pad["label"][r, :len(lb)] = lb
+    return {"item_values": iv, "item_lengths": il, "label_values": lv}, pad
+
+
+def phase_b4r_jagged(torch, card: str, check_steps: int = 3) -> dict:
+    """Phase 20: the Bert4Rec CLI at configs/bert4rec.toml's width with
+    ``jagged = true`` and ``attn = "flash"`` (``synth -> preprocess-seq ->
+    train``, the flash launches counted); then the jagged step and the
+    padded step from b4r_main's initial state on the same 3 batches (and
+    dropout draws): losses within rtol 1e-4."""
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.data.jagged import jagged_to_dense_per_host
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.models.bert4rec import PAD_ID
+    from tdfo_tpu_torch.train.seq import bert4rec_sparse_forward, dropout_generator
+    from tdfo_tpu_torch.train.sparse_step import make_sparse_train_step
+
+    text = (ROOT / "configs" / "bert4rec.toml").read_text()
+    for line in ('data_dir = "data/goodreads"', "n_epochs = 10", 'attn = "full"'):
+        if line not in text:
+            raise AssertionError(f"configs/bert4rec.toml lost {line!r}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = tmp / "bert4rec.toml"
+        cfg.write_text(
+            text.replace('data_dir = "data/goodreads"', f'data_dir = "{tmp / "data"}"')
+            .replace("n_epochs = 10", "n_epochs = 1")
+            .replace('attn = "full"', 'attn = "flash"')
+            + "jagged = true\nlog_every_n_steps = 4\n")
+        for cmd in ("synth", "preprocess-seq"):
+            if launch.main([cmd, "--config", str(cfg)]) != 0:
+                raise AssertionError(f"launch {cmd} failed")
+        zero_counts()
+        trainer = launch.run(["train", "--config", str(cfg), "--log-dir",
+                              str(tmp / "logs"), "--device", "cuda"])
+        counts = flash_counts()
+        recs = [json.loads(x) for x in
+                (tmp / "logs" / "metrics.jsonl").read_text().splitlines()]
+    steps = sum(r["steps"] for r in recs if "train_loss_epoch" in r)
+    evals = [r for r in recs if "Recall@10" in r]
+    n_layers = trainer.model_cfg.n_layers
+    if (not steps or not evals or not all(0.0 <= r["Recall@10"] <= 1.0 for r in evals)
+            or counts["flash_bwd_dq"] != n_layers * steps
+            or counts["flash_bwd_dkv"] != n_layers * steps
+            or counts["flash_fwd"] < n_layers * steps):
+        raise AssertionError(f"jagged CLI: {steps} steps, launches {counts}, "
+                             f"evals {evals}")
+    say(f"b4r_jagged: configs/bert4rec.toml (d {trainer.model_cfg.embed_dim}, "
+        f"{n_layers} layers, T {trainer.model_cfg.max_len}, B "
+        f"{trainer.config.per_device_train_batch_size}) with jagged = true, attn "
+        f"= flash: {steps} steps, Recall@10 {evals[-1]['Recall@10']:.4f}, "
+        f"launches {counts}")
+    del trainer
+
+    coll, tables0, backbone0 = b4r_initial()
+    t_len = B4R["max_len"]
+
+    def to_dense(batch):
+        lengths = batch["item_lengths"]
+        return {k: jagged_to_dense_per_host(batch[f"{k}_values"], lengths, t_len,
+                                            PAD_ID) for k in ("item", "label")}
+
+    rng = np.random.default_rng(41)
+    pairs = [jagged_rows(rng) for _ in range(check_steps)]
+    runs = {}
+    for mode in ("jagged", "padded"):
+        state, _ = b4r_state(torch, coll, tables0, backbone0, "cuda")
+        step = make_sparse_train_step(
+            coll, bert4rec_sparse_forward(state.backbone),
+            batch_transform=to_dense if mode == "jagged" else None)
+        zero_counts()
+        ls = []
+        for jag, pad in pairs:
+            b = to_device(torch, jag if mode == "jagged" else pad, "cuda")
+            gen = dropout_generator(B4R_SEED + 1, state.step, "cuda")
+            state, loss = step(state, b, gen)
+            ls.append(float(loss))
+        runs[mode] = (ls, flash_counts())
+        del state
+    rtol, atol = TOL["trajectory"]
+    np.testing.assert_allclose(runs["jagged"][0], runs["padded"][0], rtol=rtol,
+                               atol=atol)
+    say(f"b4r_jagged: jagged vs padded step from one state on {check_steps} "
+        f"batches at b4r_main's width (dropout {B4R['dropout']}): losses "
+        f"{runs['jagged'][0]} vs {runs['padded'][0]} (rtol {rtol}); launches "
+        f"{runs['jagged'][1]}, on {card}")
+    return {"launches": counts}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2257,7 +2877,8 @@ def main(argv=None) -> int:
     p.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                    help="comma-separated subset of " + ",".join(DEFAULT_PHASES)
                         + ",profile,profile_b4r,profile_dlrm,profile_bf16,"
-                        "profile_dlrm_bf16 (default: all but the profiles)")
+                        "profile_dlrm_bf16,profile_dense (default: all but "
+                        "the profiles)")
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2363,6 +2984,14 @@ def main(argv=None) -> int:
     if "dlrm_bf16_main" in phases:
         routed16["launches"] = phase_dlrm_bf16_main(torch, smi)["launches"][
             "fat_line_update_routed"]
+    if "dense_main" in phases:
+        phase_dense_main(torch, smi)
+    if "resume" in phases:
+        phase_resume(torch, smi)
+    if "quickstart_cli" in phases:
+        phase_quickstart_cli(torch)
+    if "b4r_jagged" in phases:
+        phase_b4r_jagged(torch, smi)
     if "profile" in phases:
         phase_profile(torch)
     if "profile_b4r" in phases:
@@ -2373,6 +3002,8 @@ def main(argv=None) -> int:
         phase_profile_bf16(torch)
     if "profile_dlrm_bf16" in phases:
         phase_profile_dlrm_bf16(torch)
+    if "profile_dense" in phases:
+        phase_profile_dense(torch)
     if floors:
         say(f"launch floor (empty kernel, ms): {json.dumps(floors)}")
     say(json.dumps({"kernels": list(recs.values())}))

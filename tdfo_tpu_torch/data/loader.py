@@ -13,13 +13,15 @@ Port of ``tdfo_tpu/data/loader.py``:
     group), so the same seed yields the same numpy batch sequence in both
     packages.
   * :class:`MapStream` — map-style full-permutation epochs over an
-    in-memory table (``streaming = false``).
+    in-memory table (``streaming = false``), with the same cursor.
   * :func:`prefetch_to_device` — ``prefetch_to_mesh``'s counterpart: a
     pinned-memory, ``non_blocking=True`` host-to-device double buffer.
 
-Not ported yet: ``TFRecordStream`` and jagged (ragged list) columns
-(``ROADMAP.md`` Queue A items 16 and 11) and the mid-epoch resume cursor
-(item 17).  Fixed-width list columns are stacked into [B, T] arrays.
+The cursor is ``(seed, epoch, batches_emitted)``: an epoch's batch sequence
+is a pure function of ``(seed, epoch)``, so a resumed stream fast-forwards
+over the batches already consumed and yields the uninterrupted epoch's tail.
+Not ported yet: ``TFRecordStream`` (``ROADMAP.md`` Queue A item 16).
+Fixed-width list columns are stacked into [B, T] arrays.
 """
 
 from __future__ import annotations
@@ -56,19 +58,33 @@ def _process_index_count() -> tuple[int, int]:
     return 0, 1
 
 
-def _to_numpy_columns(batch: pa.RecordBatch | pa.Table) -> dict[str, np.ndarray]:
-    """Arrow -> dict of numpy; fixed-width list columns become [B, T] arrays
-    (ragged ones fail here with an actionable message)."""
+def _to_numpy_columns(batch: pa.RecordBatch | pa.Table,
+                      allow_ragged: bool = False) -> dict[str, np.ndarray]:
+    """Arrow -> dict of numpy; fixed-width list columns become [B, T] arrays.
+    With ``allow_ragged`` every list column becomes an object array of
+    per-row arrays (always, so a batch whose rows happen to share one length
+    keeps the representation the shuffle pool concatenates); without it a
+    ragged column fails here with an actionable message."""
     out: dict[str, np.ndarray] = {}
     for name, col in zip(batch.schema.names, batch.columns):
         if pa.types.is_list(col.type) or pa.types.is_large_list(col.type):
             arr = col.combine_chunks() if isinstance(col, pa.ChunkedArray) else col
             flat = arr.flatten().to_numpy(zero_copy_only=False)
-            widths = np.diff(arr.offsets.to_numpy(zero_copy_only=False))
+            offsets = arr.offsets.to_numpy(zero_copy_only=False)
+            widths = np.diff(offsets)
+            if allow_ragged:
+                # flatten() is slice-aware but .offsets is absolute: rebase
+                rel = offsets - offsets[0]
+                obj = np.empty(len(arr), dtype=object)
+                for i, r in enumerate(np.split(flat, rel[1:-1])):
+                    obj[i] = r
+                out[name] = obj
+                continue
             if len(widths) and (widths != widths[0]).any():
                 raise ValueError(
-                    f"list column {name!r} is ragged; the jagged path is not "
-                    "ported yet (ROADMAP.md Queue A item 11)")
+                    f"list column {name!r} is ragged; these shards were "
+                    "written for the jagged path (config jagged = true) "
+                    "— or pad them in preprocessing")
             t = int(widths[0]) if len(widths) else 0
             out[name] = flat.reshape(len(arr), t)
         else:
@@ -115,8 +131,10 @@ class ParquetStream:
         columns: Sequence[str] | None = None,
         num_workers: int = 0,
         max_bad_shards: int = 0,
+        allow_ragged: bool = False,
     ):
         self.files = list(files)
+        self.allow_ragged = allow_ragged
         # corrupted-shard quarantine: files that failed to open/decode are
         # skipped (0 rows) with a warning; the (max_bad_shards+1)-th bad
         # shard is fatal.  0 keeps the historical any-failure-is-fatal
@@ -136,6 +154,8 @@ class ParquetStream:
         self.drop_last = drop_last
         self.columns = list(columns) if columns is not None else None
         self._epoch = 0
+        self._skip = 0  # resume fast-forward pending for the next __iter__
+        self._emitted = 0
         rank, world = _process_index_count()
         self.process_index = rank if process_index is None else process_index
         self.process_count = world if process_count is None else process_count
@@ -157,7 +177,7 @@ class ParquetStream:
         pf = retry_call(pq.ParquetFile, path,
                         description=f"open_shard:{Path(path).name}")
         for rb in pf.iter_batches(batch_size=65536, columns=self.columns):
-            yield _to_numpy_columns(rb)
+            yield _to_numpy_columns(rb, self.allow_ragged)
 
     # ---- corrupted-shard quarantine ----
 
@@ -304,14 +324,37 @@ class ParquetStream:
         return min_rows // self.batch_size
 
     def set_epoch(self, epoch: int) -> None:
-        """Reshuffle order for a new epoch (HF ``set_epoch`` parity)."""
+        """Reshuffle order for a new epoch; clears a pending resume
+        fast-forward (call :meth:`load_state_dict` after it)."""
         self._epoch = int(epoch)
+        self._skip = 0
+
+    def state_dict(self) -> dict[str, int]:
+        """The cursor ``(seed, epoch, batches emitted this epoch)``; it pins
+        the exact batch.  It counts batches handed to the caller of
+        ``__iter__``: behind a prefetcher, count consumed batches yourself
+        (the Trainer does)."""
+        return {"seed": int(self.seed), "epoch": int(self._epoch),
+                "batches_emitted": int(self._emitted)}
+
+    def load_state_dict(self, state: dict[str, int]) -> None:
+        """Resume: the next ``__iter__`` decodes and discards
+        ``batches_emitted`` batches (the shuffle pool must replay to
+        reproduce the stream bit for bit) and yields from there."""
+        _check_cursor_seed(state, self.seed)
+        self._epoch = int(state["epoch"])
+        self._skip = int(state["batches_emitted"])
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         budget = self._batches_per_host() if self.drop_last else None
-        for pos, batch in enumerate(self._iter_unbounded()):
-            if budget is not None and pos >= budget:
+        skip, self._skip = self._skip, 0
+        self._emitted = 0
+        for pos, batch in enumerate(self._iter_unbounded(), start=1):
+            if budget is not None and pos > budget:
                 return
+            self._emitted = pos
+            if pos <= skip:
+                continue  # resume fast-forward: consumed before the restart
             yield batch
 
     def _iter_unbounded(self) -> Iterator[dict[str, np.ndarray]]:
@@ -374,6 +417,14 @@ class ParquetStream:
             yield _concat_rows(pending)
 
 
+def _check_cursor_seed(state: dict[str, int], seed: int) -> None:
+    if int(state.get("seed", seed)) != seed:
+        raise ValueError(
+            f"stream cursor was recorded with seed {state['seed']}, this "
+            f"stream uses {seed} — resuming would yield a different batch "
+            "sequence")
+
+
 def load_parquet_table(files: Sequence[str],
                        columns: Sequence[str] | None = None) -> dict[str, np.ndarray]:
     """Map-style: read everything into memory (``jax-flax/train.py:52-60``)."""
@@ -404,17 +455,35 @@ class MapStream:
         self.seed = seed
         self.drop_last = drop_last
         self._epoch = 0
+        self._skip = 0
+        self._emitted = 0
         self._n = len(next(iter(self.table.values())))
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
+        self._skip = 0
+
+    def state_dict(self) -> dict[str, int]:
+        """Same cursor contract as :meth:`ParquetStream.state_dict`."""
+        return {"seed": int(self.seed), "epoch": int(self._epoch),
+                "batches_emitted": int(self._emitted)}
+
+    def load_state_dict(self, state: dict[str, int]) -> None:
+        """Resume mid-epoch; the skip is index arithmetic into the epoch's
+        permutation, no replay."""
+        _check_cursor_seed(state, self.seed)
+        self._epoch = int(state["epoch"])
+        self._skip = int(state["batches_emitted"])
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        skip, self._skip = self._skip, 0
+        self._emitted = skip
         idx = np.arange(self._n)
         if self.shuffle:
             np.random.default_rng((self.seed, self._epoch)).shuffle(idx)
         end = self._n - self._n % self.batch_size if self.drop_last else self._n
-        for i in range(0, end, self.batch_size):
+        for i in range(skip * self.batch_size, end, self.batch_size):
+            self._emitted += 1
             yield _take(self.table, idx[i : i + self.batch_size])
 
 

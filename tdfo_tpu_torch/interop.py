@@ -12,6 +12,11 @@ JAX package:
   ``Bert4RecBackbone`` tree loads with ``load_state_dict(strict=True)``; the fused ``qkv`` kernel
   keeps its (head, qkv, dh) column order, which the port's attention reads
   the same way.
+* :func:`dense_params_from_flax` maps a dense-regime model's flax tree
+  (``init_twotower``'s or ``init_bert4rec``'s params) to the port's
+  ``TwoTower`` or ``Bert4Rec`` state dict: each ``{name}/embedding [V, d]``
+  becomes ``{name}.weight`` as it is, everything else goes through
+  :func:`backbone_params_from_flax`.
 * :func:`tables_from_numpy` copies a table dict onto a device.  Fat tables
   already share the ``[L, T, 128]`` layout, so no reshaping happens.
 * :func:`to_torch` carries one array over bit for bit, bf16 included: an
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 __all__ = ["TOL", "backbone_params_from_flax", "bf16_bits",
-           "tables_from_numpy", "to_torch"]
+           "dense_params_from_flax", "tables_from_numpy", "to_torch"]
 
 # what is compared -> (rtol, atol); "exact" comparisons use equality
 TOL = {
@@ -74,6 +79,20 @@ def backbone_params_from_flax(tree: Mapping, prefix: str = "") -> dict[str, torc
             out[f"{prefix}weight"] = to_torch(v)
         else:
             out[name] = to_torch(v)
+    return out
+
+
+def dense_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A dense-regime model's flax params -> the port model's ``state_dict``
+    (loads with ``strict=True``)."""
+    out: dict[str, torch.Tensor] = {}
+    rest = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping) and set(v) == {"embedding"}:
+            out[f"{k}.weight"] = to_torch(v["embedding"])
+        else:
+            rest[k] = v
+    out.update(backbone_params_from_flax(rest))
     return out
 
 

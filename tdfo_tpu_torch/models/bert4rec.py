@@ -1,6 +1,6 @@
-"""Bert4Rec, DMP regime — port of ``tdfo_tpu/models/bert4rec.py``
-(``PAD_ID``, ``Bert4RecConfig``, ``key_padding_mask``, ``Bert4RecBackbone``,
-``make_sharded_bert4rec``).
+"""Bert4Rec — port of ``tdfo_tpu/models/bert4rec.py`` (``PAD_ID``,
+``Bert4RecConfig``, ``key_padding_mask``, ``Bert4RecBackbone``,
+``Bert4Rec``, ``init_bert4rec``, ``make_sharded_bert4rec``).
 
 The item table lives in a
 :class:`~tdfo_tpu_torch.parallel.embedding.ShardedEmbeddingCollection`
@@ -18,8 +18,13 @@ Attention cores: ``"full"`` (:func:`dot_product_attention`) and ``"flash"``
 mask reaches them as ``mask[:, 0, 0, :]``).  A fully masked query row
 attends uniformly under ``"full"`` (softmax over equal fills) and outputs 0
 under ``"flash"``; both packages agree on each.  ``"ring"`` and
-``"ring_flash"`` wait for the multi-GPU slice, and the dense ``Bert4Rec``
-class (its own embedding) for the dense regime.
+``"ring_flash"`` wait for the multi-GPU slice.
+
+:class:`Bert4Rec` is the self-contained model (its own ``[V, d]`` item
+table, the reference's DDP branch) for ``train.step.make_train_step`` with
+``train.seq.bert4rec_loss_fn``.  The trainer's ``model_parallel = false``
+runs the sharded wiring with the table ``"replicated"``, as the reference's
+trainer does.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ __all__ = [
     "Bert4RecConfig",
     "Bert4RecBackbone",
     "key_padding_mask",
+    "Bert4Rec",
     "flash_attn_fn",
+    "init_bert4rec",
     "make_sharded_bert4rec",
 ]
 
@@ -110,6 +117,37 @@ class Bert4RecBackbone(nn.Module):
         for i in range(self.cfg.n_layers):
             h = getattr(self, f"block_{i}")(h, mask, generator)
         return self.out_proj(h)
+
+
+class Bert4Rec(nn.Module):
+    """Item ids ``[B, T] -> logits [B, T, V]``: the ``item_embed`` table
+    (``U(-init_scale, init_scale)``, the DMP path's init), then the
+    backbone.  Pass ``generator`` to enable dropout."""
+
+    def __init__(self, cfg: Bert4RecConfig, attn_fn=dot_product_attention,
+                 generator: torch.Generator | None = None,
+                 init_scale: float = 1.0):
+        super().__init__()
+        self.cfg = cfg
+        self.item_embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+        nn.init.uniform_(self.item_embed.weight, -init_scale, init_scale,
+                         generator=generator)
+        self.backbone = Bert4RecBackbone(cfg, attn_fn, generator=generator)
+
+    def forward(self, item_ids, generator=None):
+        from tdfo_tpu_torch.parallel.embedding import embedding_lookup
+
+        h = embedding_lookup(self.item_embed.weight, item_ids)
+        return self.backbone(h, key_padding_mask(item_ids), generator=generator)
+
+
+def init_bert4rec(cfg: Bert4RecConfig, *, seed: int = 0,
+                  device="cuda") -> Bert4Rec:
+    """A :class:`Bert4Rec` (full attention, as the reference's) drawn from
+    ``seed`` on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return Bert4Rec(cfg, generator=gen).to(resolve_device(device))
 
 
 def make_sharded_bert4rec(cfg: Bert4RecConfig, *, seed: int = 0,

@@ -52,8 +52,8 @@ from tdfo_tpu_torch.ops.fat_lines import (
 )
 from tdfo_tpu_torch.ops.quant import storage_dtype
 
-__all__ = ["EmbeddingSpec", "ShardedEmbeddingCollection", "make_embedding_specs",
-           "take_fill"]
+__all__ = ["EmbeddingSpec", "ShardedEmbeddingCollection", "embedding_lookup",
+           "make_embedding_specs", "take_fill"]
 
 
 def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -68,6 +68,39 @@ def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     rows = table[torch.where(inside, ids, 0)]
     inside = inside.reshape(inside.shape + (1,) * (table.dim() - 1))
     return torch.where(inside, rows, float("nan"))
+
+
+class _TakeFill(torch.autograd.Function):
+    """:func:`take_fill` whose gradient is a row-wise ``index_add_`` (ids
+    outside the table get none, as under ``jnp.take``'s fill mode)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        v = table.shape[0]
+        ids = ids.to(torch.int64)
+        rows = torch.where(ids < 0, ids + v, ids)
+        inside = (rows >= 0) & (rows < v)
+        ctx.save_for_backward(torch.where(inside, rows, 0), inside)
+        ctx.num_rows = v
+        return take_fill(table, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows, inside = ctx.saved_tensors
+        g = torch.where(inside[..., None], grad, 0.0).reshape(-1, grad.shape[-1])
+        out = torch.zeros((ctx.num_rows, grad.shape[-1]), dtype=grad.dtype,
+                          device=grad.device)
+        return out.index_add_(0, rows.reshape(-1), g), None
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Embed`` on a plain ``[V, d]`` parameter: :func:`take_fill`'s
+    rows (a one-row table broadcasts, as flax does), differentiable with
+    respect to ``table`` without a host sync, so a step built on it can be
+    captured in a CUDA graph."""
+    if table.shape[0] == 1:
+        return table.expand(*ids.shape, table.shape[1])
+    return _TakeFill.apply(table, ids)
 
 
 def make_embedding_specs(size_map, entries, embed_dim: int,

@@ -32,7 +32,6 @@ Queue A items 12 and 13).
 
 from __future__ import annotations
 
-import copy
 import inspect
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -48,7 +47,12 @@ from tdfo_tpu_torch.ops.sparse import (
     dedupe_rows_and_lines,
 )
 from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection, take_fill
-from tdfo_tpu_torch.train.state import make_adamw
+from tdfo_tpu_torch.train.state import (
+    clone_tree,
+    load_optimizer_tensors,
+    make_adamw,
+    optimizer_tensors,
+)
 
 __all__ = ["SparseTrainState", "make_sparse_train_step"]
 
@@ -86,44 +90,57 @@ class SparseTrainState:
             sparse_opt=sparse_opt,
         )
 
-    def snapshot(self) -> dict:
-        """Deep copy of everything a step mutates (device copies; the
-        non-finite guard's rollback point)."""
+    def state_dict(self) -> dict:
+        """The tensor-dict form ``train/checkpoint.py`` saves: ``step`` (the
+        stochastic-rounding keys fold it, so it comes back exactly), the
+        backbone, AdamW's tensors, the tables and their slots."""
         return {
             "step": self.step,
-            "backbone": copy.deepcopy(self.backbone.state_dict()),
-            "optimizer": copy.deepcopy(self.optimizer.state_dict()),
-            "tables": {k: v.clone() for k, v in self.tables.items()},
-            "slots": {k: tuple(s.clone() for s in v)
-                      for k, v in self.slots.items()},
+            "backbone": dict(self.backbone.state_dict()),
+            "optimizer": optimizer_tensors(self.optimizer),
+            "tables": dict(self.tables),
+            "slots": {k: list(v) for k, v in self.slots.items()},
         }
+
+    def load_state_dict(self, tree: dict) -> None:
+        """Copy a :meth:`state_dict` form into the live tensors."""
+        self.step = int(tree["step"])
+        with torch.no_grad():
+            for k, v in self.backbone.state_dict().items():
+                v.copy_(tree["backbone"][k])
+            load_optimizer_tensors(self.optimizer, tree["optimizer"])
+            for k, v in tree["tables"].items():
+                self.tables[k].copy_(v)
+            for k, v in tree["slots"].items():
+                for dst, src in zip(self.slots[k], v):
+                    dst.copy_(src)
+
+    def snapshot(self) -> dict:
+        """Device copy of everything a step mutates (the non-finite guard's
+        rollback point)."""
+        return clone_tree(self.state_dict())
 
     def restore(self, snap: dict) -> None:
         """Copy a :meth:`snapshot` back into the live tensors (the snapshot
         itself stays usable for a later rollback)."""
-        self.step = snap["step"]
-        self.backbone.load_state_dict(snap["backbone"])
-        self.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
-        for k, v in snap["tables"].items():
-            self.tables[k].copy_(v)
-        for k, v in snap["slots"].items():
-            for dst, src in zip(self.slots[k], v):
-                dst.copy_(src)
+        self.load_state_dict(snap)
 
 
 def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                            forward: Callable, *, mode: str = "gspmd",
                            with_aux: bool = False,
-                           dedup_lookup: bool = False):
+                           dedup_lookup: bool = False,
+                           batch_transform: Callable | None = None):
     """Build the step ``(state, batch, generator=None) -> (state, loss)``
     (``(state, (loss, aux))`` with ``with_aux``); ``forward(embs, batch)``
     returns the loss (or ``(loss, aux)``).  A forward that also takes a
     ``generator`` keyword receives the step's ``torch.Generator`` (the
     reference's ``dropout_rng``; ``None`` disables dropout).  ``batch``
     holds an id tensor, of any shape, for every feature the collection
-    serves (``[B]`` CTR ids, ``[B, T]`` item sequences).  Returned losses are
-    detached device tensors: reading one is the caller's (only) host
-    sync."""
+    serves (``[B]`` CTR ids, ``[B, T]`` item sequences), after
+    ``batch_transform`` (run first, on the device: the jagged path's
+    ``(values, lengths) -> [B, T]``).  Returned losses are detached device
+    tensors: reading one is the caller's (only) host sync."""
     if mode != "gspmd":
         raise NotImplementedError(
             f"lookup mode {mode!r} is not ported yet (ROADMAP.md Queue A "
@@ -194,6 +211,8 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
         return embs, ctx
 
     def step(state: SparseTrainState, batch, generator=None):
+        if batch_transform is not None:
+            batch = batch_transform(batch)
         ids = {f: batch[f] for f in features}
         with torch.no_grad():
             if dedup_lookup:

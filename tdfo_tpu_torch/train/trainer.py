@@ -1,37 +1,57 @@
-"""Epoch loop, DMP (model-parallel) paths — port of
-``tdfo_tpu/train/trainer.py`` (``_ctr_columns``, ``_ctr_eval_schema``,
-``_build_ctr_sparse``, ``_build_bert4rec``, ``pad_batch``, ``train_epoch``,
-``evaluate``, ``evaluate_test``, ``fit``, train AUC).
+"""Epoch loop — port of ``tdfo_tpu/train/trainer.py`` (``_ctr_columns``,
+``_ctr_eval_schema``, ``_build_twotower_dense``, ``_build_ctr_sparse``,
+``_build_bert4rec``, ``pad_batch``, ``train_epoch``, ``evaluate``,
+``evaluate_test``, ``fit``, train AUC, checkpoint/resume, profiling).
 
-TwoTower and DLRM with ``model_parallel = true``: the tables (TwoTower's 7,
-or one per ``categorical_features`` column of a custom schema such as
-Criteo's 26) live in a ShardedEmbeddingCollection with the row-sparse
-in-backward optimizer (``stack_tables`` stacks the plain ones,
-``dedup_lookup`` shares one sort between the lookup and the update), the
-dense backbone under AdamW.  ``[embeddings] table_dtype`` (and its
-per-table overrides) sets each table's storage dtype and ``slot_dtype`` the
-plain tables' optimizer slots (f32 or bf16, stochastically rounded
-writes); ``mixed_precision`` computes the backbone in
-``core.precision.compute_dtype`` (f16 on the card, the reference's GPU
-choice; f32 on the CPU).  Bert4Rec with ``model_parallel = true``: the item table
-(fat lines above ``fused_table_threshold`` rows) under the row-sparse
-optimizer, the transformer under AdamW, attention ``"full"`` or ``"flash"``
-(the hand-written kernels); masked-LM loss with dropout drawn from a
-``torch.Generator`` seeded ``seed + 1``, eval Recall/NDCG@{10,20,50} on the
-last position against 1 positive + 100 negatives, a pre-training eval and a
-held-out test eval after ``fit``.
+Regimes:
+
+* TwoTower with ``model_parallel = false`` (the quickstart ``config.toml``):
+  the dense regime, every parameter (the 7 ``[V, d]`` tables included) in
+  one ``TwoTower`` under AdamW (``train/state.py::TrainState``,
+  ``train/step.py``); f16 loss scaling under ``mixed_precision`` on the
+  card.  ``ps_min_shard_bytes`` is the identity placement on one device.
+* TwoTower with ``model_parallel = true`` and DLRM: the tables (TwoTower's
+  7, or one per ``categorical_features`` column such as Criteo's 26) in a
+  ShardedEmbeddingCollection with the row-sparse in-backward optimizer
+  (``stack_tables``, ``dedup_lookup``; ``model_parallel = false`` places
+  them ``"replicated"``, which on one device is the same storage), the
+  dense backbone under AdamW.  ``[embeddings] table_dtype`` (and its
+  per-table overrides) and ``slot_dtype`` set storage dtypes (bf16 writes
+  stochastically rounded); ``mixed_precision`` computes the backbone in
+  ``core.precision.compute_dtype`` (f16 on the card, f32 on the CPU).
+* Bert4Rec (``model_parallel`` true, or false: ``"replicated"``): the item
+  table (fat lines above ``fused_table_threshold`` rows) under the
+  row-sparse optimizer, the transformer under AdamW, attention ``"full"`` or
+  ``"flash"`` (the hand-written kernels); masked-LM loss with dropout drawn
+  per step from ``train.seq.dropout_generator(seed + 1, state.step)``; eval
+  Recall/NDCG@{10,20,50} against 1 positive + 100 negatives, a pre-training
+  eval and a held-out test eval.  ``jagged = true`` streams the ragged
+  windows ``preprocess-seq`` writes, packs each batch into ``(values,
+  lengths)`` on the host and turns it into ``[B, T]`` ids inside the step
+  (``data/jagged.py``).
 
 Streaming parquet epochs feed the card through a pinned-memory double
-buffer; losses stay on the device and are fetched in windows of
-``log_every_n_steps`` (the reference's sync cadence); the non-finite guard
-keeps a device snapshot and rolls back after ``nonfinite_tolerance``
-consecutive non-finite losses, skipping the window.  Eval pads the last
-batch with zero-weight rows and folds its metrics on the device.
+buffer.  ``steps_per_execution = K`` stacks K host batches into one
+transfer and runs them as K steps (the dense step as K replays of one CUDA
+graph on the card; the sparse steps hold host syncs, so they run eagerly).
+Losses stay on the device and are fetched in windows of
+``log_every_n_steps``; the non-finite guard keeps a device snapshot and
+rolls back after ``nonfinite_tolerance`` consecutive non-finite losses.
+
+Checkpoints (``checkpoint_dir``, ``train/checkpoint.py``): every
+``checkpoint_every_n_steps`` steps mid-epoch (after the pending losses are
+verified, so no unverified window is saved) with the stream cursor, and at
+epoch ends every ``checkpoint_every_n_epochs`` and at the last epoch.
+``fit`` resumes from the newest: the stream fast-forwards to the exact
+batch, so a killed and restarted run ends bit for bit where the
+uninterrupted one does.  Storage dtypes other than f32 are stamped and a
+mismatched restore refuses.  ``profile = true`` traces steps 10-20 of
+epoch 0 with ``torch.profiler`` into ``<checkpoint_dir or .>/profile``;
+``use_tpu = true`` refuses (this package never runs on a TPU).
 
 Knobs whose code paths are not ported yet raise ``NotImplementedError``
 naming the ``ROADMAP.md`` item that ports them (see
-:func:`refuse_unported`); nothing is silently ignored.  Checkpointing waits
-for a later slice: a config with ``checkpoint_dir`` is refused.
+:func:`refuse_unported`); nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -52,7 +72,16 @@ from tdfo_tpu_torch.data.loader import (
     prefetch_to_device,
     resolve_files,
 )
+from tdfo_tpu_torch.train.checkpoint import CheckpointManager
 from tdfo_tpu_torch.train.metrics import AUC, recalls_and_ndcgs_for_ks
+from tdfo_tpu_torch.train.seq import dropout_generator
+from tdfo_tpu_torch.train.state import TrainState
+from tdfo_tpu_torch.train.step import (
+    CudaGraphStep,
+    make_eval_step,
+    make_multi_step,
+    make_train_step,
+)
 from tdfo_tpu_torch.utils import retry as _retry
 from tdfo_tpu_torch.utils.summary import MetricLogger, param_summary
 
@@ -108,15 +137,8 @@ def refuse_unported(cfg: Config) -> None:
     emb = cfg.embeddings
     tele = cfg.telemetry
     checks = [
-        (cfg.jagged, "jagged = true (ragged sequence windows)", 11),
         (cfg.attn in ("ring", "ring_flash"), f"attn = {cfg.attn!r}", 12),
         (cfg.tensor_parallel, "tensor_parallel = true", 12),
-        (not cfg.model_parallel,
-         "the dense TwoTower regime (model_parallel = false)", 17),
-        (cfg.checkpoint_dir is not None, "checkpoint_dir (checkpoint/resume)", 17),
-        (cfg.steps_per_execution != 1, "steps_per_execution > 1", 17),
-        (cfg.profile, "profile = true", 17),
-        (cfg.use_tpu, "use_tpu = true", 17),
         (cfg.embedding_sharding not in ("row", "replicated"),
          f"embedding_sharding = {cfg.embedding_sharding!r}", 12),
         (cfg.lookup_mode != "gspmd", f"lookup_mode = {cfg.lookup_mode!r}", 12),
@@ -146,32 +168,88 @@ def refuse_unported(cfg: Config) -> None:
 
 
 class Trainer:
-    """Config-driven trainer for the TwoTower, DLRM and Bert4Rec DMP regimes on
-    one device (``device`` defaults to the card; pass ``"cpu"``
-    explicitly)."""
+    """Config-driven trainer for the TwoTower (dense and DMP), DLRM and
+    Bert4Rec regimes on one device (``device`` defaults to the card; pass
+    ``"cpu"`` explicitly).  ``log_dir`` defaults to ``checkpoint_dir``."""
 
     _METRIC_KS = (10, 20, 50)
 
     def __init__(self, config: Config, *, log_dir: str | Path | None = None,
                  device="cuda"):
         refuse_unported(config)
+        if config.use_tpu:
+            raise RuntimeError(
+                "use_tpu = true but tdfo_tpu_torch trains on a CUDA card or "
+                "the CPU, never a TPU (TPUStrategy-resolution parity: refuse "
+                "to silently train a TPU config elsewhere)")
         self.config = config
         self.device = resolve_device(device)
-        self.logger = MetricLogger(log_dir)
+        out_dir = log_dir or config.checkpoint_dir
+        self.logger = MetricLogger(out_dir)
         self._logged_steps = 0  # run-global data-step counter
         self._map_streams: dict = {}
         self._seq = config.model == "bert4rec"
-        if log_dir is not None:
-            _retry.set_failure_log(Path(log_dir) / "retries.jsonl")
+        self._dense = config.model == "twotower" and not config.model_parallel
+        self._ckpt = None
+        self._ckpt_stamps = None  # compatibility stamps (storage dtypes)
+        self._train_auc = None
+        if out_dir is not None:
+            _retry.set_failure_log(Path(out_dir) / "retries.jsonl")
+        if config.checkpoint_dir:
+            self._ckpt = CheckpointManager(config.checkpoint_dir)
         if self._seq:
             self._build_bert4rec()
+        elif self._dense:
+            self._build_twotower_dense()
         else:
             self._build_ctr_sparse()
-        print(param_summary(self.state.backbone, tables=self.state.tables,
-                            coll=self.coll,
-                            title=f"{config.model} parameters"), flush=True)
+        self._multi_step = make_multi_step(self._one_step)
+        if self._dense:
+            summary = param_summary(self.state.model,
+                                    title=f"{config.model} parameters")
+        else:
+            summary = param_summary(self.state.backbone, tables=self.state.tables,
+                                    coll=self.coll,
+                                    title=f"{config.model} parameters")
+        print(summary, flush=True)
 
     # ------------------------------------------------------------- building
+
+    def _set_patterns(self, subdir: str) -> None:
+        cfg = self.config
+        self._train_pattern = str(Path(subdir) / cfg.train_data)
+        self._eval_pattern = str(Path(subdir) / cfg.eval_data)
+
+    def _build_twotower_dense(self) -> None:
+        """The reference's dense regime: ``TwoTower`` with its own tables,
+        AdamW over everything (capturable on the card: the eager step and
+        the CUDA-graph replays run the same optimizer code)."""
+        from tdfo_tpu_torch.core.precision import DynamicLossScale, compute_dtype
+        from tdfo_tpu_torch.models.twotower import TWOTOWER_CATEGORICAL, init_twotower
+
+        cfg = self.config
+        missing = [f for f in TWOTOWER_CATEGORICAL if f not in cfg.size_map]
+        if missing:
+            raise ValueError(
+                f"{cfg.model} needs vocab sizes {missing} in size_map (run preprocessing)")
+        dtype = compute_dtype(cfg.mixed_precision, self.device)
+        model = init_twotower(cfg.seed, cfg.size_map, cfg.embed_dim, dtype=dtype,
+                              device=self.device)
+        loss_scale = (DynamicLossScale.create(device=self.device)
+                      if cfg.mixed_precision and cfg.loss_scale == "dynamic"
+                      and dtype == torch.float16 else None)
+        on_card = self.device.type == "cuda"
+        self.state = TrainState.create(
+            model=model, learning_rate=cfg.learning_rate,
+            weight_decay=cfg.weight_decay, loss_scale=loss_scale,
+            capturable=on_card)
+        inner = make_train_step(with_aux=True)
+        self.train_step = (CudaGraphStep(inner)
+                           if on_card and cfg.steps_per_execution > 1 else inner)
+        self.eval_step = make_eval_step()
+        self._set_patterns("parquet")
+        self._eval_schema = _ctr_eval_schema(*_ctr_columns(cfg))
+        self._eval_rename = None
 
     def _build_ctr_sparse(self) -> None:
         from tdfo_tpu_torch.models.twotower import (
@@ -203,22 +281,30 @@ class Trainer:
         if missing:
             raise ValueError(
                 f"{cfg.model} needs vocab sizes {missing} in size_map (run preprocessing)")
-        self._train_pattern = str(Path("parquet") / cfg.train_data)
-        self._eval_pattern = str(Path("parquet") / cfg.eval_data)
+        self._set_patterns("parquet")
+        sharding = cfg.embedding_sharding if cfg.model_parallel else "replicated"
         if custom:
             from tdfo_tpu_torch.models.dlrm import generic_embedding_specs
 
             specs = generic_embedding_specs(
-                cfg.size_map, cat_cols, cfg.embed_dim, cfg.embedding_sharding,
+                cfg.size_map, cat_cols, cfg.embed_dim, sharding,
                 fused_threshold=cfg.effective_fused_threshold)
         else:
             specs = ctr_embedding_specs(
-                cfg.size_map, cfg.embed_dim, cfg.embedding_sharding,
+                cfg.size_map, cfg.embed_dim, sharding,
                 fused_threshold=cfg.effective_fused_threshold)
         # storage dtype is a per-table property of the spec
         specs = [dataclasses.replace(
             s, dtype=storage_dtype(cfg.embeddings.dtype_for(s.name)))
             for s in specs]
+        # a bf16-stored table restored into an f32 run (or the reverse)
+        # would change every later update: stamp the storage dtypes;
+        # defaults-only runs write no stamp (the reference's rule)
+        tstamp = {s.name: str(s.dtype).removeprefix("torch.") for s in specs}
+        if (any(v != "float32" for v in tstamp.values())
+                or cfg.embeddings.slot_dtype != "float32"):
+            self._ckpt_stamps = {"table_dtype": tstamp,
+                                 "slot_dtype": cfg.embeddings.slot_dtype}
         coll = ShardedEmbeddingCollection(specs, fused_kind=cfg.sparse_optimizer,
                                           stack_tables=cfg.stack_tables)
         tables = coll.init(cfg.seed, device=self.device)
@@ -252,6 +338,7 @@ class Trainer:
 
     def _build_bert4rec(self) -> None:
         from tdfo_tpu_torch.models.bert4rec import (
+            PAD_ID,
             Bert4RecConfig,
             make_sharded_bert4rec,
         )
@@ -269,8 +356,9 @@ class Trainer:
         self.model_cfg = Bert4RecConfig(
             n_items=n_items, max_len=cfg.max_len, embed_dim=cfg.embed_dim,
             n_heads=cfg.n_heads, n_layers=cfg.n_layers, dropout=cfg.dropout)
+        sharding = cfg.embedding_sharding if cfg.model_parallel else "replicated"
         self.coll, tables, self.backbone = make_sharded_bert4rec(
-            self.model_cfg, seed=cfg.seed, sharding=cfg.embedding_sharding,
+            self.model_cfg, seed=cfg.seed, sharding=sharding,
             attn=cfg.attn, fused_threshold=cfg.effective_fused_threshold,
             fused_kind=cfg.sparse_optimizer, device=self.device)
         self.state = SparseTrainState.create(
@@ -279,13 +367,24 @@ class Trainer:
                                         lr=cfg.learning_rate,
                                         weight_decay=cfg.weight_decay),
             learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay)
+        transform = None
+        if cfg.jagged:
+            # (values, lengths) -> [B, T] inside the step, on the device
+            from tdfo_tpu_torch.data.jagged import jagged_to_dense_per_host
+
+            t_len = cfg.max_len
+
+            def transform(batch):
+                lengths = batch["item_lengths"]
+                return {k: jagged_to_dense_per_host(batch[f"{k}_values"], lengths,
+                                                    t_len, PAD_ID)
+                        for k in ("item", "label")}
+
         self.train_step = make_sparse_train_step(
             self.coll, bert4rec_sparse_forward(self.backbone),
-            mode=cfg.lookup_mode, dedup_lookup=cfg.dedup_lookup)
-        self._dropout_gen = torch.Generator(device=self.device).manual_seed(
-            cfg.seed + 1)
-        self._train_pattern = str(Path("parquet_bert4rec") / cfg.train_data)
-        self._eval_pattern = str(Path("parquet_bert4rec") / cfg.eval_data)
+            mode=cfg.lookup_mode, dedup_lookup=cfg.dedup_lookup,
+            batch_transform=transform)
+        self._set_patterns("parquet_bert4rec")
         self._eval_schema = {"seqs": np.int32, "cands": np.int32}
         self._eval_rename = lambda raw: {"seqs": raw["eval_seqs"],
                                          "cands": raw["candidate_items"]}
@@ -308,43 +407,119 @@ class Trainer:
             files, batch_size=bsz, shuffle=train,
             buffer_size=cfg.shuffle_buffer_size, seed=cfg.seed,
             drop_last=train, num_workers=cfg.num_workers,
-            max_bad_shards=cfg.max_bad_shards)
+            max_bad_shards=cfg.max_bad_shards,
+            # eval shards are fixed-width; only the jagged TRAIN stream
+            # carries ragged windows
+            allow_ragged=train and self._seq and cfg.jagged)
 
-    def _train_batches(self, epoch: int) -> Iterator[dict]:
+    def _train_batches(self, epoch: int, skip: int = 0) -> Iterator[tuple[dict, int]]:
+        """Yields ``(device batch, steps in it)``.  With
+        ``steps_per_execution = K > 1`` host batches stack into ``[K, B,
+        ...]`` chunks (a short tail chunk allowed), one transfer each.
+        ``skip`` resumes mid-epoch: the stream fast-forwards that many
+        batches first, so the batches that follow are the uninterrupted
+        epoch's (a chunk may then start anywhere: chunks only group
+        steps)."""
+        cfg = self.config
         stream = self._stream(self._train_pattern, train=True)
         stream.set_epoch(epoch)
-        if self._seq:
-            stream = ({"item": b["train_interactions"], "label": b["labels"]}
-                      for b in stream)
-        yield from prefetch_to_device(stream, self.device)
+        if skip:
+            stream.load_state_dict({"seed": cfg.seed, "epoch": epoch,
+                                    "batches_emitted": skip})
+        if self._seq and cfg.jagged:
+            from tdfo_tpu_torch.data.jagged import pack_rows
+
+            cap = stream.batch_size * cfg.max_len  # static host capacity
+
+            def pack(b):
+                iv, il = pack_rows(list(b["train_interactions"]), cap)
+                lv, ll = pack_rows(list(b["labels"]), cap)
+                if (il != ll).any():  # data integrity, must survive python -O
+                    raise ValueError(
+                        "item/label window lengths diverged — mixed-version "
+                        "or corrupted jagged shards")
+                return {"item_values": iv, "item_lengths": il, "label_values": lv}
+
+            host = (pack(b) for b in stream)
+        elif self._seq:
+            host = ({"item": b["train_interactions"], "label": b["labels"]}
+                    for b in stream)
+        else:
+            host = iter(stream)
+        spe = cfg.steps_per_execution
+        if spe <= 1:
+            for batch in prefetch_to_device(host, self.device):
+                yield batch, 1
+            return
+
+        def stacked():
+            chunk: list[dict] = []
+            for b in host:
+                chunk.append(b)
+                if len(chunk) == spe:
+                    yield {k: np.stack([c[k] for c in chunk]) for k in chunk[0]}
+                    chunk = []
+            if chunk:
+                yield {k: np.stack([c[k] for c in chunk]) for k in chunk[0]}
+
+        for stack in prefetch_to_device(stacked(), self.device):
+            yield stack, int(next(iter(stack.values())).shape[0])
 
     # ---------------------------------------------------------------- train
 
-    def train_epoch(self, epoch: int) -> float:
-        """One training epoch; returns the mean finite train loss."""
+    def _one_step(self, state, batch):
+        """One train step and the trainer's folds: Bert4Rec's per-step
+        dropout generator, the CTR train AUC.  ``(state, loss)``."""
+        if self._seq:
+            gen = dropout_generator(self.config.seed + 1, state.step, self.device)
+            return self.train_step(state, batch, gen)
+        state, (loss, logits) = self.train_step(state, batch)
+        logits = logits.float()  # a narrow compute dtype's logits
+        ok = torch.isfinite(logits)
+        self._train_auc = self._train_auc.update(
+            batch["label"], torch.sigmoid(torch.where(ok, logits, 0.0)),
+            ok.to(torch.float32))
+        return state, loss
+
+    def _save(self, gstep: int, cursor: dict) -> None:
+        self._ckpt.save(gstep, self.state, force=True, cursor=cursor,
+                        stamps=self._ckpt_stamps)
+
+    def train_epoch(self, epoch: int, *, start_step: int = 0,
+                    loss_sum: float = 0.0, contributed: int = 0) -> float:
+        """One training epoch, resumable at step granularity; returns the
+        mean finite train loss.  ``start_step`` (with the partial
+        ``loss_sum`` / ``contributed`` of the checkpoint cursor) restarts
+        the epoch at an exact batch.  Device losses queue and are fetched
+        together at the log cadence and before a checkpoint (one host sync
+        per window).  The train AUC is not in the cursor: after a
+        mid-epoch resume it covers the steps run since."""
         cfg = self.config
         t0 = time.perf_counter()
-        n_steps = 0
-        loss_sum, contributed = 0.0, 0
-        next_log = cfg.log_every_n_steps
-        train_auc = AUC.empty(device=self.device)
+        n_steps = start_step
+        next_log = start_step + cfg.log_every_n_steps
+        self._train_auc = None if self._seq else AUC.empty(device=self.device)
         tol = cfg.nonfinite_tolerance
         guard = tol > 0
-        pending: list[tuple[torch.Tensor, int]] = []  # (device loss, gstep)
+        # (device losses [k], k, global data step of the last one)
+        pending: list[tuple[torch.Tensor, int, int]] = []
+        pending_steps = 0
         flush_every = max(1, cfg.log_every_n_steps)
         consec_bad = 0
         snap = None  # (state snapshot, auc, loss_sum, contributed, gstep)
-        steps_at_snap = 0
+        steps_at_snap = n_steps
         if guard:
-            snap = (self.state.snapshot(), train_auc, loss_sum, contributed,
-                    self._logged_steps)
+            snap = (self.state.snapshot(), self._train_auc, loss_sum,
+                    contributed, self._logged_steps + n_steps)
 
         def flush_checks() -> None:
-            nonlocal loss_sum, contributed, consec_bad, snap, train_auc
-            nonlocal steps_at_snap
+            nonlocal loss_sum, contributed, consec_bad, snap
+            nonlocal steps_at_snap, pending_steps
             rolled = False
-            for loss_dev, gstep in pending:
-                v = float(loss_dev)
+            vals = (torch.cat([x.reshape(-1) for x, _, _ in pending]).tolist()
+                    if pending else [])  # one host fetch for the window
+            steps = [g - k + 1 + j for _, k, g in pending for j in range(k)]
+            for v, gstep in zip(vals, steps):
                 if math.isfinite(v):
                     consec_bad = 0
                     loss_sum += v
@@ -355,51 +530,95 @@ class Trainer:
                     continue
                 st, auc_c, ls, ct, sg = snap
                 self.state.restore(st)
-                train_auc, loss_sum, contributed = auc_c, ls, ct
+                self._train_auc, loss_sum, contributed = auc_c, ls, ct
                 consec_bad = 0
                 rolled = True
                 self.logger.log(epoch=epoch, rollback=1, global_step=gstep,
                                 restored_to_step=sg, skipped_steps=gstep - sg,
                                 nonfinite_loss=v)
-                break
+                break  # later losses came from the poisoned lineage
             pending.clear()
+            pending_steps = 0
             if (guard and not rolled and consec_bad == 0
                     and n_steps - steps_at_snap >= cfg.snapshot_every_n_steps):
-                snap = (self.state.snapshot(), train_auc, loss_sum,
+                snap = (self.state.snapshot(), self._train_auc, loss_sum,
                         contributed, self._logged_steps + n_steps)
                 steps_at_snap = n_steps
 
-        for batch in self._train_batches(epoch):
-            if self._seq:  # no train AUC: a binary-CTR metric
-                self.state, loss = self.train_step(self.state, batch,
-                                                   self._dropout_gen)
-            else:
-                self.state, (loss, logits) = self.train_step(self.state, batch)
-                logits = logits.float()  # a narrow compute dtype's logits
-                ok = torch.isfinite(logits)
-                train_auc = train_auc.update(
-                    batch["label"], torch.sigmoid(torch.where(ok, logits, 0.0)),
-                    ok.to(torch.float32))
-            n_steps += 1
-            gstep = self._logged_steps + n_steps
-            pending.append((loss, gstep))
-            if len(pending) >= flush_every:
-                flush_checks()
-            if n_steps >= next_log:
-                self.logger.log(epoch=epoch, step=n_steps,
-                                train_loss=float(loss), global_step=gstep)
-                next_log = n_steps + cfg.log_every_n_steps
+        ckpt_n = cfg.checkpoint_every_n_steps if self._ckpt is not None else 0
+        next_ckpt = (n_steps // ckpt_n + 1) * ckpt_n if ckpt_n else None
+        profiling = cfg.profile and epoch == 0
+        prof = None
+        try:
+            for batch, k in self._train_batches(epoch, skip=start_step):
+                if profiling and prof is None and n_steps >= 10:
+                    prof = self._start_profile()
+                if cfg.steps_per_execution > 1:
+                    self.state, losses = self._multi_step(self.state, batch)
+                else:
+                    self.state, loss = self._one_step(self.state, batch)
+                    losses = loss.reshape(1)
+                n_steps += k
+                gstep = self._logged_steps + n_steps
+                pending.append((losses, k, gstep))
+                pending_steps += k
+                if pending_steps >= flush_every:
+                    flush_checks()
+                if prof is not None and n_steps >= 20:
+                    self._stop_profile(prof, epoch)
+                    prof, profiling = None, False
+                if next_ckpt is not None and n_steps >= next_ckpt:
+                    # never persist an unverified window: a detected-NaN
+                    # state rolls back BEFORE the save
+                    flush_checks()
+                    self._save(gstep, {"epoch": epoch, "step": n_steps,
+                                       "epoch_complete": False,
+                                       "global_step": gstep,
+                                       "loss_sum": loss_sum,
+                                       "contributed": contributed})
+                    next_ckpt = (n_steps // ckpt_n + 1) * ckpt_n
+                if n_steps >= next_log:
+                    self.logger.log(epoch=epoch, step=n_steps,
+                                    train_loss=float(losses[-1]),
+                                    global_step=gstep)
+                    next_log = n_steps + cfg.log_every_n_steps
+        finally:
+            if prof is not None:  # the epoch ended (or raised) mid-window
+                self._stop_profile(prof, epoch)
         flush_checks()
         dt = time.perf_counter() - t0
+        ran = n_steps - start_step  # steps executed in this session
         self._logged_steps += n_steps
         avg = loss_sum / contributed if contributed else 0.0
         extra = {}
-        if n_steps and not self._seq:
-            extra["train_auc"] = float(train_auc.result())
+        if n_steps and self._train_auc is not None:
+            extra["train_auc"] = float(self._train_auc.result())
         self.logger.log(epoch=epoch, train_loss_epoch=avg, steps=n_steps,
-                        examples_per_sec=n_steps * cfg.per_device_train_batch_size
+                        examples_per_sec=ran * cfg.per_device_train_batch_size
                         / max(dt, 1e-9), **extra)
         return avg
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, epoch: int) -> None:
+        """Stop the trace and write it as a Chrome trace under
+        ``<checkpoint_dir or .>/profile``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = Path(self.config.checkpoint_dir or ".") / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"trace_epoch{epoch}.json"
+        prof.export_chrome_trace(str(path))
+        self.logger.log(epoch=epoch, profile_trace=str(path))
 
     # ----------------------------------------------------------------- eval
 
@@ -512,17 +731,59 @@ class Trainer:
     # ------------------------------------------------------------------ fit
 
     def fit(self) -> dict[str, float]:
-        """Train and evaluate for ``n_epochs`` (Bert4Rec: after a
-        pre-training eval at epoch -1, and then the test eval); returns the
-        last eval metrics.  Closes the metrics sink either way."""
+        """Train and evaluate for ``n_epochs``, resuming from the newest
+        checkpoint (Bert4Rec: a pre-training eval at epoch -1 on a fresh
+        start, and the test eval after).  A mid-epoch checkpoint re-enters
+        its epoch at the exact batch; an epoch-complete one starts the next
+        epoch; a checkpoint without a cursor is the legacy epoch-indexed
+        form (its id is the epoch).  Returns the last eval metrics; closes
+        the metrics sink either way."""
+        cfg = self.config
+        start_epoch = 0
+        resume = {"step": 0, "loss_sum": 0.0, "contributed": 0}
         metrics: dict[str, float] = {}
         try:
-            if self._seq:
+            restored = (self._ckpt.restore(self.state, stamps=self._ckpt_stamps)
+                        if self._ckpt is not None else None)
+            if restored is not None:
+                step_id, self.state, cursor = restored
+                if cursor is None:
+                    start_epoch = step_id + 1
+                    self.logger.log(resumed_from_epoch=step_id)
+                elif cursor.get("epoch_complete"):
+                    start_epoch = int(cursor["epoch"]) + 1
+                    self._logged_steps = int(cursor["global_step"])
+                    self.logger.log(resumed_from_epoch=int(cursor["epoch"]),
+                                    global_step=self._logged_steps)
+                else:
+                    start_epoch = int(cursor["epoch"])
+                    resume = {"step": int(cursor["step"]),
+                              "loss_sum": float(cursor.get("loss_sum", 0.0)),
+                              "contributed": int(cursor.get("contributed", 0))}
+                    self._logged_steps = int(cursor["global_step"]) - resume["step"]
+                    self.logger.log(resumed_mid_epoch=start_epoch,
+                                    step=resume["step"],
+                                    global_step=int(cursor["global_step"]))
+            if self._seq and start_epoch == 0 and not resume["step"]:
                 self.evaluate(epoch=-1)  # pre-training sanity floor
-            for epoch in range(self.config.n_epochs):
-                self.train_epoch(epoch)
+            for epoch in range(start_epoch, cfg.n_epochs):
+                self.train_epoch(epoch, start_step=resume["step"],
+                                 loss_sum=resume["loss_sum"],
+                                 contributed=resume["contributed"])
+                resume = {"step": 0, "loss_sum": 0.0, "contributed": 0}
                 metrics = self.evaluate(epoch)
+                if self._ckpt is not None and (
+                        (epoch + 1) % cfg.checkpoint_every_n_epochs == 0
+                        or epoch == cfg.n_epochs - 1):
+                    # ids share the global data-step namespace with the
+                    # mid-epoch saves; force replaces one at the same step
+                    gstep = self._logged_steps
+                    self._save(gstep, {"epoch": epoch, "step": 0,
+                                       "epoch_complete": True,
+                                       "global_step": gstep})
             metrics.update(self.evaluate_test())
         finally:
             self.logger.close()
+            if self._ckpt is not None:
+                self._ckpt.close()
         return metrics

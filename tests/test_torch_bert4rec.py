@@ -43,6 +43,18 @@ from tdfo_tpu_torch.train import seq as tseq
 from tdfo_tpu_torch.train.sparse_step import SparseTrainState as TState
 from tdfo_tpu_torch.train.sparse_step import make_sparse_train_step as t_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these steps are tiny, and the suite runs
+    several test processes at once, whose thread pools would otherwise
+    oversubscribe the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_ITEMS, D, T, B, LR, WD = 300, 16, 12, 8, 3e-4, 1e-4
 
 
@@ -206,6 +218,59 @@ def test_three_step_sparse_trajectory_matches_jax():
             for x in (got[:, 1], ref[:, 1]):  # the key bias: noise-driven
                 assert np.abs(x - p0[:, 1]).max() <= 3 * LR * 1.01
             got, ref = got[:, 0::2], ref[:, 0::2]  # q and v parts
+        np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol, err_msg=name)
+
+
+def test_dense_bert4rec_matches_jax():
+    """The self-contained ``Bert4Rec`` (its own item table, every parameter
+    under AdamW): ``init_bert4rec``'s params injected through
+    ``interop.dense_params_from_flax``, logits at ``TOL["logits"]`` and a
+    3-step ``make_train_step`` trajectory with ``bert4rec_loss_fn`` at
+    ``TOL["trajectory"]`` (the qkv key bias held to 3 lr, as above)."""
+    from tdfo_tpu.train.state import TrainState as JDense
+    from tdfo_tpu.train.step import make_train_step as j_dense_step
+    from tdfo_tpu_torch.interop import dense_params_from_flax
+    from tdfo_tpu_torch.train.state import TrainState as TDense
+    from tdfo_tpu_torch.train.step import make_train_step as t_dense_step
+
+    rng = np.random.default_rng(9)
+    jcfg, tcfg = _cfgs(n_layers=1)
+    jmodel, params = jb4r.init_bert4rec(jax.random.key(3), jcfg)
+    start = dense_params_from_flax(jax.tree.map(np.asarray, params))
+    tm = tb4r.init_bert4rec(tcfg, device="cpu")
+    tm.load_state_dict(start, strict=True)
+    item, _ = _seqs(rng)
+    want = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(item))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(item))
+    rtol, atol = TOL["logits"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=atol)
+
+    jstate = JDense.create(apply_fn=jmodel.apply, params=params,
+                           tx=optax.adamw(LR, weight_decay=WD))
+    jrun = j_dense_step(jseq.bert4rec_loss_fn, donate_state=False)
+    tstate = TDense.create(model=tm, learning_rate=LR, weight_decay=WD)
+    trun = t_dense_step(tseq.bert4rec_loss_fn)
+    jl, tl = [], []
+    for _ in range(3):
+        item, label = _seqs(rng)
+        jstate, loss = jrun(jstate, {"item": jnp.asarray(item),
+                                     "label": jnp.asarray(label)})
+        jl.append(float(loss))
+        tstate, loss = trun(tstate, {"item": torch.from_numpy(item),
+                                     "label": torch.from_numpy(label)})
+        tl.append(float(loss))
+    rtol, atol = TOL["trajectory"]
+    np.testing.assert_allclose(tl, jl, rtol=rtol, atol=atol)
+    want = dense_params_from_flax(jax.tree.map(np.asarray, jstate.params))
+    for name, p in tm.state_dict().items():
+        got, ref = p.numpy(), want[name].numpy()
+        if name == "backbone.block_0.attn.qkv.bias":
+            got, ref, p0 = (x.reshape(2, 3, D // 2) for x in
+                            (got, ref, start[name].numpy()))
+            for x in (got[:, 1], ref[:, 1]):  # the key bias: noise-driven
+                assert np.abs(x - p0[:, 1]).max() <= 3 * LR * 1.01
+            got, ref = got[:, 0::2], ref[:, 0::2]
         np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol, err_msg=name)
 
 
