@@ -187,6 +187,44 @@ Phases (each prints its lines; any failure raises, so the script never exits
    and the padded step from b4r_main's initial state on the same 3 ragged
    batches and dropout draws, losses within rtol 1e-4.
 
+21. int8_main — ``bench.py::build_sparse_train_bench(8192, 64,
+   table_dtype="int8")``: every TwoTower table plain int8 with its
+   (scale, offset) sidecar (the arm rebuilds the specs plain), sparse adam
+   and AdamW at lr 3e-4, wd 1e-4, bf16 compute: 20 steps (finite losses,
+   no fat-line launch, the tables still int8), median step ms and peak
+   memory; then 3 steps on the card and the CPU path from one state:
+   losses within ``BF16_LOSS_RTOL``, at most ``INT8_FAR_SHARE`` of the
+   touched user elements more than one grid step apart, and the initial
+   rows, as a control, outside that share.
+22. int8_fused — ``bench.py::bench_quant_int8_fused``: 2,000,000 rows at
+   d = 64 under adam as int8 byte-container fat lines (640 B a row) and as
+   a plain int8 table; fed the same deduped ids, grads and keys for 3
+   steps, the fused update must write the plain update's codes, sidecars
+   and moments bitwise; then both layouts' whole update timed with CUDA
+   events in turns.
+23. dlrm_int8_cache — ``configs/dlrm-criteo.toml`` with ``table_dtype =
+   "int8"``, ``cache_rows = 131072``, ``flush_every = 64``: the 26 tables
+   in one int8 plain stack, rowwise_adagrad, ``dedup_lookup``, zipf ids
+   (a = 1.2), B = 8192.  The toml's cache over one interval must overflow
+   and fail in the trainer's words (``CACHE_ROWS_STACK``); then 130 steps
+   (two flushes) with a stack-sized cache and three times uncached:
+   overflow 0 at every flush, the cached run within the uncached runs'
+   range (``spread_check``), step ms of both, flush ms, hit rate and peak
+   memory beside dlrm_main's.
+24. dlrm_hot_cold — ``bench.py::build_criteo_train_bench(hot_vocab=
+   16384)``: every table's ``[0, min(16384, V))`` prefix a hot head, zipf
+   ids, f32 compute; once with f32 storage and once with the int8 cold
+   residual: 20 steps (step ms, peak memory, no fat-line launch), then 3
+   steps on the card and the CPU path (f32: losses, cold rows and heads
+   within rtol 1e-4; int8: losses within ``BF16_LOSS_RTOL``, cold rows by
+   the grid-step rule and its control, heads within rtol 1e-4).
+25. criteo_int8_cli — ``synth-criteo -> preprocess-criteo -> train`` with
+   a copy of ``configs/dlrm-criteo.toml`` plus int8, ``cache_rows``,
+   ``flush_every`` and ``hot_vocab``: the ETL writes ``hot_ids.json``, the
+   train process is SIGKILLed after a save inside a flush interval and
+   resumes mid-epoch (eval AUC in [0, 1]), and a run under an edited
+   ``hot_ids.json`` refuses to restore in the reference's words.
+
 ``--phases profile`` / ``profile_b4r`` / ``profile_dlrm`` /
 ``profile_bf16`` / ``profile_dlrm_bf16`` / ``profile_dense`` (not in the
 default run) add a ``torch.profiler`` breakdown of steady TwoTower /
@@ -282,7 +320,9 @@ DEFAULT_PHASES = ("build", "oracle", "timing", "main", "cli", "flash_oracle",
                   "flash_timing", "b4r_main", "b4r_cli", "routed_oracle",
                   "routed_timing", "dlrm_main", "dlrm_cli", "bf16_oracle",
                   "bf16_timing", "main_bf16", "dlrm_bf16_main", "dense_main",
-                  "resume", "quickstart_cli", "b4r_jagged")
+                  "resume", "quickstart_cli", "b4r_jagged", "int8_main",
+                  "int8_fused", "dlrm_int8_cache", "dlrm_hot_cold",
+                  "criteo_int8_cli")
 
 
 def say(*parts) -> None:
@@ -1653,7 +1693,8 @@ def phase_dlrm_main(torch, card: str, steps: int = 20, check_steps: int = 3) -> 
                                    msg=lambda s_, a=aname: f"{a}: {s_}")
     say(f"dlrm_main: card vs CPU over {check_steps} steps: losses {lg} vs {lc}; "
         + "; ".join(parts))
-    return {"launches": counts, "step_ms": step_ms, "losses": losses}
+    return {"launches": counts, "step_ms": step_ms, "losses": losses,
+            "peak_gb": peak_gb}
 
 
 def phase_profile_dlrm(torch, warm: int = 3, steps: int = 5) -> None:
@@ -2869,6 +2910,677 @@ def phase_b4r_jagged(torch, card: str, check_steps: int = 3) -> dict:
     return {"launches": counts}
 
 
+# ----------------------------------------------- phases 21-25 (ROADMAP item 13)
+
+# int8 storage, the update cache and hot/cold tables at full width.  No
+# hand-written kernel is on these paths (the reference runs them as plain
+# XLA); each phase holds the fat-line kernels at zero launches, since int8
+# lines and plain tables must never reach them.
+INT8_FUSED_ROWS = 2_000_000      # bench.py::bench_quant_int8_fused
+CACHE_ROWS, FLUSH_EVERY, CACHE_STEPS = 131_072, 64, 130  # dlrm-criteo.toml:85-103
+# the toml's 131,072 rows cover one big table's 64-step working set, but
+# stack_tables puts all 26 tables in ONE cached array: at B = 8192 zipf
+# traffic a 64-step interval touches about 619,000 distinct rows of the
+# stack (numpy count of the phase's draws), so the toml's cache overflows
+# and the trainer refuses; the measured runs size the cache to the stack
+CACHE_ROWS_STACK = 2_097_152
+HOT_VOCAB = 16_384               # docs/BUDGET.md:102-124
+ZIPF_A = 1.2                     # bench.py::bench_cache_int8_zipf
+# criteo_int8_cli: synthetic rows (about 210 train batches of 256), the
+# save cadence and a flush interval the save falls inside
+CLI_ROWS, CLI_CKPT_EVERY, CLI_FLUSH_EVERY, CLI_HOT_VOCAB = 60_000, 5, 4, 64
+# The card-vs-CPU check of the int8 paths: both devices round the same f32
+# rows with the same random draws, so a touched code differs only where the
+# two devices' f32 rows straddle a rounding boundary; held like the bf16
+# paths (BF16_FAR_SHARE): at most INT8_FAR_SHARE of the touched elements
+# more than one grid step (the row's scale) apart, losses within
+# BF16_LOSS_RTOL, and the initial rows, as a control, must fail the share.
+INT8_FAR_SHARE = BF16_FAR_SHARE
+
+
+def _with_dtype(specs, dtype):
+    import dataclasses
+
+    return [dataclasses.replace(s, dtype=dtype) for s in specs]
+
+
+def fat_launches():
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as kr
+
+    return kl.fat_line_update.launches + kr.fat_line_update_routed.launches
+
+
+def int8_rows(torch, state, aname, ids):
+    """Decoded rows ``ids`` (numpy, array rows) of int8 array ``aname``
+    and each row's grid step (its scale), on the CPU."""
+    from tdfo_tpu_torch.ops.quant import dequantize_rows
+    from tdfo_tpu_torch.parallel.embedding import qscale_name
+
+    idx = torch.from_numpy(ids).to(state.tables[aname].device)
+    qs = state.tables[qscale_name(aname)][idx]
+    return dequantize_rows(state.tables[aname][idx], qs).cpu(), qs[:, 0].cpu()
+
+
+def _check_int8_rows(torch, name, g, c, base, step):
+    """Decoded card rows ``g`` vs CPU rows ``c`` ([n, d]) within one grid
+    step ``step`` ([n], the CPU rows' scale), and the initial rows ``base``
+    as the control (the note at INT8_FAR_SHARE); returns a summary."""
+    diff = (g - c).abs()
+    far = diff > step[:, None] * (1 + 1e-6)
+    share = float(far.double().mean())
+    share0 = float(((base - c).abs() > step[:, None] * (1 + 1e-6)).double().mean())
+    summary = (f"{name}: {g.shape[0]} touched rows, {g.numel()} elements: "
+               f"{int((diff == 0).sum())} equal, {int(far.sum())} more than one "
+               f"grid step apart ({share:.4%}, at most {INT8_FAR_SHARE:.0%}; max "
+               f"|diff| {float(diff.max()):.3e}); control, the initial rows: "
+               f"{share0:.4%} beyond one grid step")
+    if share > INT8_FAR_SHARE:
+        raise AssertionError("card vs CPU: " + summary)
+    if share0 <= INT8_FAR_SHARE:
+        raise AssertionError("card vs CPU: the control passes, so the check "
+                             "cannot fail; " + summary)
+    return summary
+
+
+def _steps_on_card(torch, step, state, batches, warm):
+    """Each batch through ``step`` with a synchronise after it: ``(state,
+    losses, host ms per step)``; the steady steps are ``times[warm:]``."""
+    losses, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses: {losses}")
+    return state, losses, times
+
+
+def _ms_line(times, warm):
+    steady = times[warm:]
+    return (float(np.median(steady)),
+            f"median {float(np.median(steady)):.4f} mean {float(np.mean(steady)):.4f} "
+            f"min {min(steady):.4f} max {max(steady):.4f} (host clock, each step "
+            f"synchronised, steps {warm + 1}-{len(times)})")
+
+
+def twotower_int8_initial(torch):
+    """Phase 21's collection (``build_sparse_train_bench``'s int8 arm: the
+    specs rebuilt plain, every table int8), initial tables (on the CPU) and
+    bf16-compute backbone, from fixed seeds."""
+    from tdfo_tpu_torch.models.twotower import TwoTowerBackbone, ctr_embedding_specs
+    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
+
+    coll = ShardedEmbeddingCollection(_with_dtype(
+        ctr_embedding_specs(SIZE_MAP, DIM, "row", fused_threshold=None), torch.int8))
+    tables0 = coll.init(0, device="cpu")
+    backbone0 = TwoTowerBackbone(DIM, generator=torch.Generator().manual_seed(1),
+                                 dtype=torch.bfloat16)
+    return coll, tables0, backbone0
+
+
+def phase_int8_main(torch, card: str, steps: int = 20, check_steps: int = 3) -> dict:
+    """Phase 21: ``bench.py::build_sparse_train_bench(8192, 64,
+    table_dtype="int8")`` (``bench.py:535-552``): every table plain int8
+    with its (scale, offset) sidecar, sparse adam (f32 slots, int8 tables on
+    the row path whatever their vocab) and AdamW at lr 3e-4, wd 1e-4,
+    uniform ids, the backbone in bf16 as the bench computes on a chip."""
+    coll, tables0, backbone0 = twotower_int8_initial(torch)
+    shapes = {k: (tuple(v.shape), str(v.dtype)) for k, v in tables0.items()}
+    say(f"int8_main: arrays {shapes}")
+
+    def build(device):
+        return twotower_bf16_state(torch, coll, tables0, backbone0, device)
+
+    rng = np.random.default_rng(21)
+    host = [make_host_batch(rng, BATCH) for _ in range(steps)]
+    state, step = build("cuda")
+    dev_batches = [to_device(torch, h, "cuda") for h in host]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_dlrm_counts()
+    state, losses, times = _steps_on_card(torch, step, state, dev_batches, check_steps)
+    if fat_launches():
+        raise AssertionError("a fat-line kernel launched on the int8 path")
+    if any(t.dtype != torch.int8 for k, t in state.tables.items()
+           if not k.startswith("__qscale__/")):
+        raise AssertionError("a table left int8 storage")
+    step_ms, line = _ms_line(times, check_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say(f"int8_main: {steps} steps on the card, losses {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}, fat-line launches 0, every table still int8, "
+        f"step_ms {line}, peak device memory {peak_gb:.2f} GB, on {card}")
+    del state, dev_batches
+    torch.cuda.empty_cache()
+
+    runs = {}
+    aname, _, off = coll.resolve("user_id")
+    touched = np.unique(np.concatenate(
+        [h["user_id"] for h in host[:check_steps]])).astype(np.int64) + off
+    for device in ("cuda", "cpu"):
+        st, stp = build(device)
+        if device == "cpu":
+            base, _ = int8_rows(torch, st, aname, touched)
+        ls = []
+        for h in host[:check_steps]:
+            st, loss = stp(st, to_device(torch, h, device))
+            ls.append(float(loss))
+        runs[device] = (ls, int8_rows(torch, st, aname, touched))
+        del st
+    (lg, (rg, _)), (lc, (rc, sc)) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=BF16_LOSS_RTOL)
+    summary = _check_int8_rows(torch, "user rows", rg, rc, base, sc)
+    say(f"int8_main: card vs CPU over {check_steps} steps: losses {lg} vs {lc} "
+        f"(rtol {BF16_LOSS_RTOL}); {summary}")
+    return {"step_ms": step_ms, "peak_gb": peak_gb, "losses": losses}
+
+
+def phase_int8_fused(torch, card: str, steps: int = 3, timed: int = 10) -> dict:
+    """Phase 22: ``bench.py::bench_quant_int8_fused`` (``:1081-1110``):
+    2,000,000 rows at d = 64 under adam (lr 1e-2), B = 8192 uniform ids:
+    the int8 byte-container fat lines (640-byte lines of 5 tiles: codes,
+    the sidecar and the f32 adam state in one line) against the plain int8
+    table with its sidecar and f32 moments.  Fed the same deduped ``(uids,
+    g)`` and key each step, the fused update must write the plain update's
+    codes, sidecars and state bit for bit (nothing after the dedupe uses
+    atomics); then each layout's whole update (dedupe included) is timed
+    with CUDA events."""
+    from tdfo_tpu_torch.ops.fat_lines import fat_pack, fat_unpack, line_layout
+    from tdfo_tpu_torch.ops.quant import quantize_rows, sr_key
+    from tdfo_tpu_torch.ops.sparse import dedupe_grads, sparse_optimizer
+
+    v, d = INT8_FUSED_ROWS, DIM
+    lay = line_layout(d, "adam", "int8")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = (torch.rand((v, d), generator=gen, device="cuda") * 2 - 1) * 0.05
+    codes, qs = quantize_rows(x)
+    del x
+    mu = torch.zeros((v, d), device="cuda")
+    nu = torch.zeros((v, d), device="cuda")
+    fat = fat_pack(codes, mu, nu, kind="adam", dtype="int8", qscale=qs)
+    opt = sparse_optimizer("adam", lr=1e-2, small_vocab_threshold=0)
+    count = lambda: torch.zeros((), dtype=torch.int32, device="cuda")  # noqa: E731
+    plain_slots, fused_slots = (mu, nu, count()), (count(),)
+    codes0 = codes.clone()
+    zero_dlrm_counts()
+    for i in range(steps):
+        ids = torch.randint(0, v, (BATCH,), generator=gen, device="cuda")
+        g = torch.randn((BATCH, d), generator=gen, device="cuda")
+        uids, gu, valid = dedupe_grads(ids, g)
+        key = sr_key(i, "bench_quant_int8_fused")
+        opt.update_unique(codes, plain_slots, uids, gu, valid, qscale=qs, sr_key=key)
+        opt.update_unique(fat, fused_slots, uids, gu, valid, embedding_dim=d,
+                          sr_key=key)
+    torch.cuda.synchronize()
+    if fat_launches():
+        raise AssertionError("a fat-line kernel launched on int8 lines")
+    fc, fq, fmu, fnu = fat_unpack(fat, lay, rows=v)
+    same = {"codes": torch.equal(fc, codes),
+            "sidecar": torch.equal(fq.view(torch.int32), qs.view(torch.int32)),
+            "mu": torch.equal(fmu.view(torch.int32), mu.view(torch.int32)),
+            "nu": torch.equal(fnu.view(torch.int32), nu.view(torch.int32))}
+    moved = int((codes != codes0).any(dim=1).sum())
+    del fc, fq, fmu, fnu
+    if not all(same.values()) or moved == 0:
+        raise AssertionError(f"fused vs plain int8 after {steps} steps: bitwise "
+                             f"{same}, rows moved {moved}")
+
+    def timed_update(table, slots, **kw):
+        ids = torch.randint(0, v, (timed + 2, BATCH), generator=gen, device="cuda")
+        g = torch.randn((timed + 2, BATCH, d), generator=gen, device="cuda")
+        for i in range(2):
+            opt.update(table, slots, ids[i], g[i], sr_key=sr_key(100 + i, "t"), **kw)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        for i in range(2, timed + 2):
+            opt.update(table, slots, ids[i], g[i], sr_key=sr_key(100 + i, "t"), **kw)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / timed
+
+    ms = {}
+    for rnd in range(2):  # plain, fused, fused, plain
+        for name in (("plain", "fused") if rnd == 0 else ("fused", "plain")):
+            kw = (dict(qscale=qs) if name == "plain" else dict(embedding_dim=d))
+            t = timed_update(codes if name == "plain" else fat,
+                             plain_slots if name == "plain" else fused_slots, **kw)
+            ms.setdefault(name, []).append(t)
+    plain_ms, fused_ms = (float(np.mean(ms[k])) for k in ("plain", "fused"))
+    hbm = {"fused": fat.numel(), "plain": codes.numel() + qs.numel() * 4
+           + mu.numel() * 8}
+    say(f"int8_fused: {v} rows, d {d}, adam, B {BATCH}: lines {tuple(fat.shape)} "
+        f"({lay.w} B a row, {lay.tiles} tiles); {steps} steps from one state "
+        f"with the same deduped ids, grads and keys: fused == plain bitwise "
+        f"{same} ({moved} rows moved); whole update (dedupe included), CUDA "
+        f"events over {timed} steps, turns plain/fused/fused/plain: plain "
+        f"{[round(x, 4) for x in ms['plain']]} ms, fused "
+        f"{[round(x, 4) for x in ms['fused']]} ms, vs_plain "
+        f"{plain_ms / fused_ms:.3f}; table + state bytes {hbm}, on {card}")
+    return {"plain_ms": plain_ms, "fused_ms": fused_ms}
+
+
+def criteo_zipf_batch(rng: np.random.Generator, b: int = BATCH) -> dict:
+    """bench.py:248-265 with ``powerlaw``: frequency-ranked zipf ids
+    (``data/synthetic.py::zipf_ids``, a = 1.2) per table."""
+    from tdfo_tpu_torch.data.synthetic import zipf_ids
+
+    out = {c: zipf_ids(rng, v, b, a=ZIPF_A) for c, v in zip(CRITEO_CATS, CRITEO_VOCABS)}
+    out.update({c: rng.random(b, dtype=np.float32) for c in CRITEO_CONTS})
+    out["label"] = rng.integers(0, 2, b).astype(np.float32)
+    return out
+
+
+def dlrm_criteo_config(torch, tmp: Path, emb_lines: str):
+    """``configs/dlrm-criteo.toml`` with ``emb_lines`` appended as its
+    ``[embeddings]`` table, read by the port's config (its refusals are the
+    reference's) and checked against the port's unported knobs."""
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.train.trainer import refuse_unported
+
+    text = (ROOT / "configs" / "dlrm-criteo.toml").read_text()
+    path = tmp / "dlrm-criteo.toml"
+    path.write_text(text + "\n[embeddings]\n" + emb_lines)
+    cfg = read_configs(str(path), size_map=dict(zip(CRITEO_CATS, CRITEO_VOCABS)))
+    refuse_unported(cfg)
+    return cfg
+
+
+def dlrm_sparse_state(torch, coll, tables0, backbone0, device, cfg, cached):
+    """``(state, step, flush)`` of a DLRM-Criteo collection on ``device``
+    from copies of the initial state, the toml's sparse optimizer and
+    ``dedup_lookup``; ``cached`` adds the update caches."""
+    import copy
+
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.train.ctr import ctr_sparse_forward
+    from tdfo_tpu_torch.train.sparse_step import (
+        SparseTrainState,
+        make_cache_flush_fn,
+        make_sparse_train_step,
+    )
+
+    backbone = copy.deepcopy(backbone0).to(device)
+    state = SparseTrainState.create(
+        backbone=backbone,
+        tables={k: v.to(device, copy=True) for k, v in tables0.items()},
+        sparse_opt=sparse_optimizer(cfg.sparse_optimizer, lr=cfg.learning_rate),
+        learning_rate=cfg.learning_rate, weight_decay=WD)
+    if cached:
+        state.slots.update(coll.init_caches(state.tables, state.sparse_opt))
+    step = make_sparse_train_step(coll, ctr_sparse_forward(backbone),
+                                  dedup_lookup=cfg.dedup_lookup)
+    return state, step, make_cache_flush_fn()
+
+
+def _stack_ids(coll, host):
+    """Each array's distinct touched rows over the batches ``host``
+    (negative ids touch nothing)."""
+    out = {}
+    for c in CRITEO_CATS:
+        aname, _, off = coll.resolve(c)
+        out.setdefault(aname, []).extend(h[c][h[c] >= 0].astype(np.int64) + off
+                                         for h in host)
+    return {a: np.unique(np.concatenate(v)) for a, v in out.items()}
+
+
+def phase_dlrm_int8_cache(torch, card: str, f32_peak_gb=None) -> dict:
+    """Phase 23: ``configs/dlrm-criteo.toml`` with ``table_dtype = "int8"``,
+    ``cache_rows = 131072``, ``flush_every = 64`` (``:85-103``): the 26
+    Criteo tables (33,762,577 rows, d = 16) in one plain int8 stack
+    (``fused_table_threshold = -1``) with its sidecar, rowwise_adagrad,
+    ``dedup_lookup``, B = 8192, zipf traffic (a = 1.2, as
+    ``bench.py::bench_cache_int8_zipf``).  130 steps (two flushes) cached
+    and three times uncached from one initial state: overflow 0 at every
+    flush, the cached run within the uncached runs' range (``spread_check``
+    over the losses, the decoded touched rows, their accumulators and the
+    backbone), step ms of both, flush ms, the hit rate (the share of each
+    step's distinct rows the cache already held) and peak memory."""
+    from tdfo_tpu_torch.models.dlrm import DLRMBackbone, generic_embedding_specs
+    from tdfo_tpu_torch.ops.quant import dequantize_rows
+    from tdfo_tpu_torch.ops.sparse import cache_route
+    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection, qscale_name
+
+    from tdfo_tpu_torch.train.trainer import _check_cache_overflow
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dlrm_criteo_config(torch, Path(tmp), (
+            f'table_dtype = "int8"\ncache_rows = {CACHE_ROWS}\n'
+            f'flush_every = {FLUSH_EVERY}\n'))
+    size_map = dict(zip(CRITEO_CATS, CRITEO_VOCABS))
+    specs = _with_dtype(generic_embedding_specs(
+        size_map, CRITEO_CATS, cfg.embed_dim, "row",
+        fused_threshold=cfg.effective_fused_threshold), torch.int8)
+
+    def collection(cache_rows):
+        return ShardedEmbeddingCollection(
+            specs, stack_tables=cfg.stack_tables, fused_kind=cfg.sparse_optimizer,
+            cache_rows=cache_rows)
+
+    coll = collection(cfg.embeddings.cache_rows)
+    tables0 = coll.init(0, device="cuda")
+    backbone0 = DLRMBackbone(cfg.embed_dim, cat_columns=CRITEO_CATS,
+                             cont_columns=CRITEO_CONTS,
+                             generator=torch.Generator().manual_seed(1))
+    say(f"dlrm_int8_cache: arrays {({k: (tuple(v.shape), str(v.dtype)) for k, v in tables0.items()})}, "
+        f"{cfg.sparse_optimizer} lr {cfg.learning_rate}, dedup_lookup "
+        f"{cfg.dedup_lookup}, cache_rows {cfg.embeddings.cache_rows}, "
+        f"flush_every {cfg.embeddings.flush_every}, B {BATCH}, zipf a {ZIPF_A}")
+    rng = np.random.default_rng(23)
+    host = [criteo_zipf_batch(rng) for _ in range(CACHE_STEPS)]
+    touched = _stack_ids(coll, host)
+
+    def compact(state, losses):
+        out = {}
+        for aname, ids in touched.items():
+            idx = torch.from_numpy(ids).cuda()
+            out[aname] = dequantize_rows(state.tables[aname][idx],
+                                         state.tables[qscale_name(aname)][idx])
+            out[aname + "/acc"] = state.slots[aname][0][idx]
+        out["backbone"] = {k: v.detach().clone()
+                           for k, v in state.backbone.state_dict().items()}
+        return (torch.tensor(losses, dtype=torch.float64), out)
+
+    def run(cached, n=CACHE_STEPS):
+        state, step, flush = dlrm_sparse_state(torch, coll, tables0, backbone0,
+                                               "cuda", cfg, cached)
+        times, flush_ms, hits, overs, losses = [], [], [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, h in enumerate(host[:n]):
+            b = to_device(torch, h, "cuda")
+            if cached:  # the share of this step's distinct rows already cached
+                for aname in coll.cached_array_names(state.sparse_opt, state.tables):
+                    ids = torch.cat([b[c].to(torch.int64) + coll.resolve(c)[2]
+                                     for c in CRITEO_CATS if coll.resolve(c)[0] == aname])
+                    u = torch.unique(ids)
+                    _, hit = cache_route(state.slots["__cache__/" + aname], u)
+                    hits.append(float(hit.double().mean()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            if cached and ((i + 1) % cfg.embeddings.flush_every == 0
+                           or i + 1 == n):
+                t0 = time.perf_counter()
+                state, over = flush(state)
+                torch.cuda.synchronize()
+                flush_ms.append((time.perf_counter() - t0) * 1e3)
+                overs.append({k: int(v) for k, v in over.items()})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [float(x) for x in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite losses: {losses}")
+        res = compact(state, losses)
+        del state
+        torch.cuda.empty_cache()
+        return res, times, flush_ms, hits, overs, peak
+
+    zero_dlrm_counts()
+    # the toml's cache over one flush interval: its overflow must fail the
+    # run in the trainer's words; then the stack-sized cache is measured
+    *_, probe, _ = run(True, n=cfg.embeddings.flush_every)
+    try:
+        _check_cache_overflow(probe[0])
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    say(f"dlrm_int8_cache: the toml's cache_rows {cfg.embeddings.cache_rows} over "
+        f"{cfg.embeddings.flush_every} steps: overflow {probe}; "
+        + (f"refused: {refused[:160]}..." if refused else "no overflow"))
+    if refused:
+        coll = collection(CACHE_ROWS_STACK)
+    refs, ref_times, ref_peak = [], [], 0.0
+    for _ in range(N_REFS):
+        res, times, _, _, _, peak = run(False)
+        refs.append(res)
+        ref_times.append(times)
+        ref_peak = max(ref_peak, peak)
+    mine, times, flush_ms, hits, overs, peak = run(True)
+    if fat_launches():
+        raise AssertionError("a fat-line kernel launched on the int8 path")
+    if len(overs) != 3 or any(v for o in overs for v in o.values()):
+        raise AssertionError(f"admission overflow at the flushes: {overs}")
+    line = spread_check(torch, "dlrm_int8_cache", refs, mine,
+                        f"{CACHE_STEPS} steps cached vs uncached")
+    cached_ms, cline = _ms_line(times, 3)
+    uncached_ms, uline = _ms_line(ref_times[0], 3)
+    hit_rate = float(np.mean(hits[FLUSH_EVERY:])) if len(hits) > FLUSH_EVERY else None
+    vs = (f", against dlrm_main's f32 fat stack {f32_peak_gb:.2f} GB"
+          if f32_peak_gb else "")
+    say(f"dlrm_int8_cache: cache_rows {coll.cache_rows}, overflow at the "
+        f"{len(overs)} flushes {overs}; {line}")
+    say(f"dlrm_int8_cache: step_ms cached {cline}; uncached {uline}; flush_ms "
+        f"{[round(x, 3) for x in flush_ms]}; hit rate {np.mean(hits):.4f} over "
+        f"all steps, {hit_rate} after the first flush; peak device memory "
+        f"cached {peak:.2f} GB, uncached {ref_peak:.2f} GB{vs}; on {card}")
+    return {"cached_ms": cached_ms, "uncached_ms": uncached_ms,
+            "flush_ms": flush_ms, "hit_rate": hit_rate, "peak_gb": peak}
+
+
+def phase_dlrm_hot_cold(torch, card: str, steps: int = 20, check_steps: int = 3) -> dict:
+    """Phase 24: ``bench.py::build_criteo_train_bench(hot_vocab=16384)``
+    (``:268-330``): every table's ``[0, min(16384, V))`` prefix a hot head
+    (18 of the 26 tables wholly hot), the cold residuals in one plain stack,
+    zipf ids, rowwise_adagrad lr 3e-4, ``dedup_lookup``; f32 compute (the
+    bench computes the dense half in bf16).  Once with f32 storage and once
+    with the int8 cold residual: 20 steps on the card (step ms, peak
+    memory, no fat-line launch), then 3 steps on the card and on the CPU
+    from one state: f32 losses, touched cold rows and heads within rtol
+    1e-4; int8 losses within BF16_LOSS_RTOL, cold rows by the grid-step
+    rule with its control, heads within rtol 1e-4."""
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.models.dlrm import DLRMBackbone, generic_embedding_specs
+    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
+
+    size_map = dict(zip(CRITEO_CATS, CRITEO_VOCABS))
+    hot = {c: np.arange(min(HOT_VOCAB, v), dtype=np.int32) for c, v in size_map.items()}
+    rng = np.random.default_rng(24)
+    host = [criteo_zipf_batch(rng) for _ in range(steps)]
+    cfg = type("Cfg", (), dict(sparse_optimizer="rowwise_adagrad", learning_rate=LR,
+                               dedup_lookup=True))
+    out = {}
+    for dtype in (torch.float32, torch.int8):
+        name = str(dtype).removeprefix("torch.")
+        coll = ShardedEmbeddingCollection(
+            _with_dtype(generic_embedding_specs(size_map, CRITEO_CATS, CRITEO_DIM,
+                                                "row", fused_threshold=None), dtype),
+            stack_tables=True, fused_kind="rowwise_adagrad", hot_ids=hot)
+        tables0 = coll.init(0, device="cuda")
+        backbone0 = DLRMBackbone(CRITEO_DIM, cat_columns=CRITEO_CATS,
+                                 cont_columns=CRITEO_CONTS,
+                                 generator=torch.Generator().manual_seed(1))
+        full = sum(coll.hot_full(t) for t in coll.hot_tables())
+        heads = sum(coll.hot_count(t) for t in coll.hot_tables())
+        state, step, _ = dlrm_sparse_state(torch, coll, tables0, backbone0,
+                                           "cuda", cfg, False)
+        batches = [to_device(torch, h, "cuda") for h in host]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_dlrm_counts()
+        state, losses, times = _steps_on_card(torch, step, state, batches, check_steps)
+        if fat_launches():
+            raise AssertionError("a fat-line kernel launched on the hot/cold path")
+        step_ms, line = _ms_line(times, check_steps)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        say(f"dlrm_hot_cold[{name}]: {len(coll.hot_tables())} hot heads ({full} "
+            f"tables wholly hot, {heads} head rows), cold arrays "
+            f"{({k: tuple(v.shape) for k, v in tables0.items() if not k.endswith('__hot')})}; "
+            f"{steps} steps on the card, losses {losses[0]:.6f} -> {losses[-1]:.6f}, "
+            f"step_ms {line}, peak device memory {peak_gb:.2f} GB, on {card}")
+        del state, batches, step
+        torch.cuda.empty_cache()
+
+        runs = {}
+        touched = _stack_ids(coll, [{c: np.where(h[c] < HOT_VOCAB, -1, h[c])
+                                     for c in CRITEO_CATS} for h in host[:check_steps]])
+        for device in ("cuda", "cpu"):
+            src = tables0 if device == "cuda" else {k: v.cpu() for k, v in tables0.items()}
+            st, stp, _ = dlrm_sparse_state(torch, coll, src, backbone0, device, cfg, False)
+            del src
+            if device == "cpu" and dtype == torch.int8:
+                base = {a: int8_rows(torch, st, a, ids) for a, ids in touched.items()}
+            ls = []
+            for h in host[:check_steps]:
+                st, loss = stp(st, to_device(torch, h, device))
+                ls.append(float(loss))
+            rows = {a: int8_rows(torch, st, a, ids) if dtype == torch.int8
+                    else (st.tables[a][torch.from_numpy(ids).to(device)].cpu(), None)
+                    for a, ids in touched.items()}
+            rows.update({k: (v.detach().cpu(), None) for k, v in st.tables.items()
+                         if k.endswith("__hot")})
+            runs[device] = (ls, rows)
+            del st
+            torch.cuda.empty_cache()
+        (lg, rg), (lc, rc) = runs["cuda"], runs["cpu"]
+        rtol, atol = TOL["trajectory"]
+        parts = []
+        if dtype == torch.int8:
+            np.testing.assert_allclose(lg, lc, rtol=BF16_LOSS_RTOL)
+        else:
+            np.testing.assert_allclose(lg, lc, rtol=rtol, atol=atol)
+        for a in rg:
+            (g, _), (c, scale) = rg[a], rc[a]
+            if scale is not None:
+                parts.append(_check_int8_rows(torch, a, g, c, base[a][0], scale))
+                continue
+            torch.testing.assert_close(g, c, rtol=rtol, atol=atol,
+                                       msg=lambda s_, a=a: f"{a}: {s_}")
+            if not a.endswith("__hot"):
+                parts.append(f"{a}: {g.shape[0]} touched cold rows within rtol {rtol}")
+        parts.append(f"{sum(a.endswith('__hot') for a in rg)} heads within rtol {rtol}")
+        say(f"dlrm_hot_cold[{name}]: card vs CPU over {check_steps} steps: losses "
+            f"{lg} vs {lc}; " + "; ".join(parts))
+        out[name] = {"step_ms": step_ms, "peak_gb": peak_gb}
+        del tables0
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_criteo_int8_cli(torch) -> dict:
+    """Phase 25: the journey ``synth-criteo -> preprocess-criteo -> train``
+    with a copy of ``configs/dlrm-criteo.toml`` (``data_dir``, ``n_epochs =
+    1``, batches of 256, ``checkpoint_dir``, ``checkpoint_every_n_steps``
+    and ``[embeddings]`` ``table_dtype = "int8"``, ``cache_rows``,
+    ``flush_every``, ``hot_vocab`` set): the ETL writes ``hot_ids.json``;
+    the train process is SIGKILLed once a mid-epoch save (inside a flush
+    interval) is committed and run again, which must resume mid-epoch and
+    log an eval AUC in [0, 1]; then a run under an edited ``hot_ids.json``
+    must refuse to restore, in the reference's words."""
+    import os
+    import signal
+
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.data.synthetic import write_synthetic_criteo
+
+    src = (ROOT / "configs" / "dlrm-criteo.toml").read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ck = tmp / "ckpt"
+        body = []
+        for line in src.splitlines():
+            if line.startswith("data_dir ="):
+                line = f'data_dir = "{tmp / "data"}"'
+            elif line.startswith("n_epochs ="):
+                line = "n_epochs = 1"
+            elif line.startswith("per_device_"):
+                line = line.split("=")[0] + "= 256"
+            elif line.startswith("[mesh]"):
+                body += [f'checkpoint_dir = "{ck}"',
+                         f"checkpoint_every_n_steps = {CLI_CKPT_EVERY}"]
+            body.append(line)
+        body += ["[embeddings]", 'table_dtype = "int8"', "cache_rows = 131072",
+                 f"flush_every = {CLI_FLUSH_EVERY}", f"hot_vocab = {CLI_HOT_VOCAB}"]
+        cfg = tmp / "dlrm-criteo.toml"
+        cfg.write_text("\n".join(body) + "\n")
+        t0 = time.perf_counter()
+        write_synthetic_criteo(tmp / "data", n_rows=CLI_ROWS)
+        if launch.main(["preprocess-criteo", "--config", str(cfg)]) != 0:
+            raise AssertionError("launch preprocess-criteo failed")
+        etl_s = time.perf_counter() - t0
+        art = json.loads((tmp / "data" / "hot_ids.json").read_text())
+        cmd = [sys.executable, "-m", "tdfo_tpu_torch.launch", "train", "--config",
+               str(cfg)]
+        log1 = tmp / "train1.log"
+        with open(log1, "w") as f:
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+        mid = None
+        deadline = time.monotonic() + 600
+        try:
+            while mid is None and proc.poll() is None and time.monotonic() < deadline:
+                for p in sorted(ck.glob("cursor_*.json")) if ck.exists() else []:
+                    if not (ck / p.stem.split("_", 1)[1] / "state.pt").is_file():
+                        continue
+                    try:
+                        c = json.loads(p.read_text())
+                    except (OSError, ValueError):
+                        continue
+                    if not c.get("epoch_complete"):
+                        mid = c
+                        break
+                time.sleep(0.005)
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"the train run ended (rc {proc.returncode}) before a "
+                    f"mid-epoch checkpoint could be killed; log:\n{log1.read_text()[-3000:]}")
+            if mid is None:
+                raise AssertionError("no mid-epoch cursor within 600 s")
+            os.kill(proc.pid, signal.SIGKILL)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        from tdfo_tpu_torch.train.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(ck)
+        latest = mgr.read_cursor(mgr.latest_step())
+        if latest is None or latest.get("epoch_complete"):
+            raise AssertionError(f"the killed run's newest checkpoint is not "
+                                 f"mid-epoch: {latest}")
+        if latest["step"] % CLI_FLUSH_EVERY == 0:
+            raise AssertionError(f"the save at step {latest['step']} is not inside "
+                                 "a flush interval")
+        stamps = json.loads((ck / f"stamps_{mgr.latest_step()}.json").read_text())
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        if res.returncode != 0:
+            raise AssertionError(f"the resumed train run failed:\n{res.stdout[-3000:]}"
+                                 f"\n{res.stderr[-3000:]}")
+        recs = [json.loads(x) for x in (ck / "metrics.jsonl").read_text().splitlines()]
+        # an edited hot set must refuse to restore
+        edited = dict(art)
+        edited["tables"] = dict(art["tables"])
+        edited["tables"]["cat_0"] = art["tables"]["cat_0"][:-1]
+        (tmp / "data" / "hot_ids.json").write_text(json.dumps(edited))
+        bad = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+    resumed = [r for r in recs if "resumed_mid_epoch" in r]
+    aucs = [r["auc"] for r in recs if "auc" in r]
+    steps = [r["steps"] for r in recs if "train_loss_epoch" in r]
+    if not resumed or not aucs or not 0.0 <= aucs[-1] <= 1.0:
+        raise AssertionError(f"metrics.jsonl lacks resumed_mid_epoch or an eval "
+                             f"AUC: {recs}")
+    refusal = "under a different hot-id set — so resuming is refused"
+    if bad.returncode == 0 or refusal not in bad.stderr:
+        raise AssertionError(f"the run under an edited hot_ids.json did not refuse "
+                             f"(rc {bad.returncode}):\n{bad.stderr[-3000:]}")
+    say(f"criteo_int8_cli: configs/dlrm-criteo.toml + int8, cache_rows 131072, "
+        f"flush_every {CLI_FLUSH_EVERY}, hot_vocab {CLI_HOT_VOCAB} on the card: "
+        f"synthetic {CLI_ROWS} rows + preprocess-criteo {etl_s:.1f} s wrote "
+        f"hot_ids.json ({len(art['tables'])} tables, {sum(map(len, art['tables'].values()))} "
+        f"hot ids); stamps {sorted(stamps)}; SIGKILL after the mid-epoch save at "
+        f"step {mid['step']} (newest checkpoint step {latest['step']}, inside a "
+        f"flush interval); the restart resumed at step {resumed[0]['step']} and "
+        f"finished the epoch ({steps[-1]} steps), eval auc {aucs[-1]:.4f}; an "
+        f"edited hot_ids.json refused: rc {bad.returncode}")
+    return {"resumed_at": resumed[0]["step"], "auc": aucs[-1]}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -2960,9 +3672,11 @@ def main(argv=None) -> int:
         floors["routed_timing"] = t.pop("floor")
         err = t.pop("max_abs_err")
         routed.update(t, max_abs_err=max(routed["max_abs_err"] or 0.0, err))
+    dlrm_peak = None  # dlrm_main's peak memory, beside dlrm_int8_cache's
     if "dlrm_main" in phases:
-        routed["launches"] = phase_dlrm_main(torch, smi)["launches"][
-            "fat_line_update_routed"]
+        r = phase_dlrm_main(torch, smi)
+        routed["launches"] = r["launches"]["fat_line_update_routed"]
+        dlrm_peak = r["peak_gb"]
     if "dlrm_cli" in phases:
         phase_dlrm_cli(torch)
     fat16 = recs["fat_line_update[bf16]"]
@@ -2992,6 +3706,16 @@ def main(argv=None) -> int:
         phase_quickstart_cli(torch)
     if "b4r_jagged" in phases:
         phase_b4r_jagged(torch, smi)
+    if "int8_main" in phases:
+        phase_int8_main(torch, smi)
+    if "int8_fused" in phases:
+        phase_int8_fused(torch, smi)
+    if "dlrm_int8_cache" in phases:
+        phase_dlrm_int8_cache(torch, smi, dlrm_peak)
+    if "dlrm_hot_cold" in phases:
+        phase_dlrm_hot_cold(torch, smi)
+    if "criteo_int8_cli" in phases:
+        phase_criteo_int8_cli(torch)
     if "profile" in phases:
         phase_profile(torch)
     if "profile_b4r" in phases:

@@ -1,10 +1,9 @@
 """Criteo-style CTR ETL — port of ``tdfo_tpu/data/criteo_preprocessing.py``.
 
-The same input and seed give byte-identical parquet shards and
-``size_map.json``.  Not ported yet: the planner's ``table_stats.json``
-artifact (``ROADMAP.md`` Queue A item 14; this ETL writes none) and the
-hot/cold ``hot_ids.json`` artifact (``hot_vocab > 0`` raises
-``NotImplementedError``, item 13).  The reference's docstring follows.
+The same input and seed give byte-identical parquet shards,
+``size_map.json`` and (``hot_vocab > 0``) ``hot_ids.json``.  Not ported
+yet: the planner's ``table_stats.json`` artifact (``ROADMAP.md`` Queue A
+item 14; this ETL writes none).  The reference's docstring follows.
 
 The Criteo display-ads format (``label \\t 13 ints \\t 26 hex categoricals``
 per line, TSV, no header — the Kaggle/Terabyte layout) lands in the SAME
@@ -69,13 +68,15 @@ def run_criteo_preprocessing(
     seed: int = 42,
     chunksize: int = 500_000,
     hot_vocab: int = 0,
+    hot_fraction: float = 0.9,
 ) -> dict[str, int]:
     """TSV -> parquet shards + size_map.json.  Returns the size map.
-    ``hot_vocab > 0`` (the hot/cold artifact) is not ported yet."""
-    if hot_vocab > 0:
-        raise NotImplementedError(
-            "preprocess-criteo with hot_vocab > 0 (the hot/cold hot_ids.json "
-            "artifact) is not ported yet (ROADMAP.md Queue A item 13)")
+
+    ``hot_vocab > 0`` also writes the hot/cold remap artifact
+    (``hot_ids.json``, ``data/hot_ids.py``) from the same pass-1 frequency
+    counts the vocab build uses.  Ids are assigned by descending frequency
+    (0 = OOV, which absorbs the below-threshold and missing mass), so hot
+    sets are ``[0, K)`` prefixes whenever the OOV mass makes the cut."""
     data_dir = Path(data_dir)
     src = data_dir / source
 
@@ -104,6 +105,24 @@ def run_criteo_preprocessing(
         size_map[c] = len(kept) + 1
     with open(data_dir / "size_map.json", "w") as f:
         json.dump(size_map, f, indent=4)
+
+    if hot_vocab > 0:
+        from tdfo_tpu_torch.data.hot_ids import hot_ids_from_counts, write_hot_ids
+
+        # per-id lookup counts from the pass-1 scan: id 0 (OOV) folds the
+        # below-threshold and missing mass (one lookup per row per column)
+        per_table: dict[str, np.ndarray] = {}
+        coverage: dict[str, float] = {}
+        for i, c in enumerate(CRITEO_CATEGORICAL):
+            kept_counts = [n for _, n in counts[i].most_common() if n >= min_freq]
+            id_counts = np.zeros(size_map[c], np.int64)
+            id_counts[0] = n_rows - sum(kept_counts)
+            id_counts[1:] = kept_counts
+            per_table[c] = hot_ids_from_counts(
+                id_counts, hot_vocab=hot_vocab, hot_fraction=hot_fraction)
+            coverage[c] = float(id_counts[per_table[c]].sum() / n_rows)
+        write_hot_ids(data_dir, per_table, hot_vocab=hot_vocab,
+                      hot_fraction=hot_fraction, coverage=coverage)
 
     # ---- pass 2: transform, split by time order, STREAM to shards --------
     # Rows append to open parquet writers as they stream past — no

@@ -1,10 +1,11 @@
 """Goodreads CTR ETL — TwoTower features, parquet shards, size_map contract.
 
 Port of ``tdfo_tpu/data/ctr_preprocessing.py``: the same seed gives
-byte-identical parquet shards and ``size_map.json``.  Not ported yet: the
-planner's ``table_stats.json`` artifact, the hot/cold ``hot_ids.json``
-artifact (``hot_vocab > 0``) and ``write_format = "tfrecord"``; the latter
-two raise ``NotImplementedError`` (``ROADMAP.md`` Queue A items 13, 14, 16).
+byte-identical parquet shards, ``size_map.json`` and (``hot_vocab > 0``)
+``hot_ids.json``.  Not ported yet: the planner's ``table_stats.json``
+artifact (``ROADMAP.md`` Queue A item 14; this ETL writes none) and
+``write_format = "tfrecord"``, which raises ``NotImplementedError`` (item
+16).
 The reference's docstring follows.
 
 Capability parity with ``jax-flax/preprocessing.py`` (and its twin
@@ -196,12 +197,11 @@ def run_ctr_preprocessing(data_dir: str | Path, *, file_num: int = FILE_NUM,
                           hot_vocab: int = 0,
                           hot_fraction: float = 0.9) -> dict[str, int]:
     """Full ETL: raw goodreads files -> parquet shards + size_map.json.
-    ``hot_vocab > 0`` and ``write_format = "tfrecord"`` are refused until
-    their slices land (see the module docstring)."""
-    if hot_vocab > 0:
-        raise NotImplementedError(
-            "hot/cold id artifacts (hot_vocab > 0) are not ported yet "
-            "(ROADMAP.md Queue A item 13)")
+    ``hot_vocab > 0`` also writes the hot/cold remap artifact
+    (``data/hot_ids.py``) for the user and item tables from the TRAIN
+    split's interaction counts; these vocabs are not frequency-ranked, so
+    the hot sets are scattered subsets.  ``write_format = "tfrecord"`` is
+    refused until its slice lands (see the module docstring)."""
     if write_format == "tfrecord":
         raise NotImplementedError(
             "write_format = 'tfrecord' is not ported yet (ROADMAP.md Queue A "
@@ -218,6 +218,22 @@ def run_ctr_preprocessing(data_dir: str | Path, *, file_num: int = FILE_NUM,
         raise ValueError("interaction user_id outside [0, n_users) of user_id_map")
     if interactions["book_id"].max() >= size_map["item"] or interactions["book_id"].min() < 0:
         raise ValueError("interaction book_id outside [0, n_items) of book_id_map")
+    if hot_vocab > 0:
+        from tdfo_tpu_torch.data.hot_ids import hot_ids_from_counts, write_hot_ids
+
+        train_pairs = split_interactions(interactions, True)
+        per_table, coverage = {}, {}
+        for col, vocab_key, src in (("user_id", "user", "user_id"),
+                                    ("item_id", "item", "book_id")):
+            id_counts = np.zeros(size_map[vocab_key], np.int64)
+            vc = train_pairs[src].value_counts()
+            id_counts[vc.index.to_numpy()] = vc.to_numpy()
+            per_table[col] = hot_ids_from_counts(
+                id_counts, hot_vocab=hot_vocab, hot_fraction=hot_fraction)
+            total = max(int(id_counts.sum()), 1)
+            coverage[col] = float(id_counts[per_table[col]].sum() / total)
+        write_hot_ids(data_dir, per_table, hot_vocab=hot_vocab,
+                      hot_fraction=hot_fraction, coverage=coverage)
     for prefix, is_train in (("train", True), ("eval", False)):
         pairs = split_interactions(interactions, is_train)
         if write_format == "parquet":

@@ -1,10 +1,9 @@
 """Synthetic Goodreads raw files — test/demo fixture for the ETL pipeline.
 
-Port of ``write_synthetic_goodreads`` and ``write_synthetic_criteo`` from
-``tdfo_tpu/data/synthetic.py`` (numpy/pandas only, unchanged: the same seed
-writes byte-identical raw files in both packages).  ``zipf_ids`` (the
-reference bench's power-law batches) is not ported: nothing in the port
-draws power-law ids yet.
+Port of ``write_synthetic_goodreads``, ``write_synthetic_criteo`` and
+``zipf_ids`` from ``tdfo_tpu/data/synthetic.py`` (numpy/pandas only,
+unchanged: the same seed writes byte-identical raw files, and draws the
+same power-law ids, in both packages).
 
 Generates the four raw inputs the preprocessing layer consumes
 (``goodreads_interactions.csv``, ``goodreads_books.json`` ndjson,
@@ -23,7 +22,20 @@ from pathlib import Path
 import numpy as np
 import pandas as pd
 
-__all__ = ["write_synthetic_goodreads", "write_synthetic_criteo"]
+__all__ = ["write_synthetic_goodreads", "write_synthetic_criteo", "zipf_ids"]
+
+
+def zipf_ids(rng: np.random.Generator, vocab: int, size,
+             *, a: float = 1.2) -> np.ndarray:
+    """Frequency-RANKED power-law ids: id ``i`` drawn with mass ∝ (i+1)^-a,
+    so low ids are the hot head — exactly the layout the Criteo ETL
+    produces (ids assigned by descending frequency, 0 = OOV absorbing the
+    folded tail).  Samples past the vocab wrap onto the head (they carry
+    the zipf tail's negligible mass).  The bench harness uses this to
+    model real power-law lookup traffic; uniform ids would understate
+    every frequency-partitioned optimisation."""
+    ids = rng.zipf(a, size).astype(np.int64) - 1
+    return (ids % vocab).astype(np.int32)
 
 
 _LANGS = ["eng", "en-US", "spa", "fre", "ger", ""]

@@ -18,7 +18,11 @@ JAX package:
   becomes ``{name}.weight`` as it is, everything else goes through
   :func:`backbone_params_from_flax`.
 * :func:`tables_from_numpy` copies a table dict onto a device.  Fat tables
-  already share the ``[L, T, 128]`` layout, so no reshaping happens.
+  already share the ``[L, T, 128]`` layout (int8 byte lines included), so
+  no reshaping happens; int8 codes, their ``__qscale__/`` sidecars and hot
+  heads carry over as they are.  :func:`tree_from_numpy` does the same for
+  any tree of arrays: optimizer slots, and update caches (dicts), whose
+  keys are the reference's.
 * :func:`to_torch` carries one array over bit for bit, bf16 included: an
   ``ml_dtypes`` bfloat16 array (what ``np.asarray`` of a JAX bf16 array
   gives) is viewed as uint16 and then as ``torch.bfloat16``.
@@ -37,7 +41,8 @@ import numpy as np
 import torch
 
 __all__ = ["TOL", "backbone_params_from_flax", "bf16_bits",
-           "dense_params_from_flax", "tables_from_numpy", "to_torch"]
+           "dense_params_from_flax", "tables_from_numpy", "to_torch",
+           "tree_from_numpy"]
 
 # what is compared -> (rtol, atol); "exact" comparisons use equality
 TOL = {
@@ -100,3 +105,13 @@ def tables_from_numpy(tables: Mapping[str, np.ndarray], device="cpu") -> dict[st
     """Copy ``{array name: ndarray}`` (plain ``[V, d]`` or fat ``[L, T,
     128]``, f32 or bf16) into fresh tensors on ``device``, bit for bit."""
     return {k: to_torch(v).to(device) for k, v in tables.items()}
+
+
+def tree_from_numpy(tree, device="cpu"):
+    """A tree of arrays (dicts, tuples, lists) -> the same tree of fresh
+    tensors on ``device``, bit for bit (slots, update caches)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(v, device) for v in tree)
+    return to_torch(tree).to(device)

@@ -72,7 +72,8 @@ def run(argv: list[str] | None = None):
         )
 
         size_map = run_criteo_preprocessing(
-            cfg.data_dir, seed=cfg.seed, hot_vocab=cfg.embeddings.hot_vocab)
+            cfg.data_dir, seed=cfg.seed, hot_vocab=cfg.embeddings.hot_vocab,
+            hot_fraction=cfg.embeddings.hot_fraction)
         print(f"size_map: {{{len(size_map)} tables, "
               f"max vocab {max(size_map.values())}}}")
         return None

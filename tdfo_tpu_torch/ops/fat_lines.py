@@ -12,8 +12,14 @@ row-major is byte-identical to the ``[L*R, W]`` row view, so on the card
 bf16 lines have the f32 geometry (the reference's ``line_layout`` reads
 the dtype only for int8): table and optimizer state share the line's
 storage dtype, every lane is bf16, and gathers widen to f32 after the
-gather.  The int8 byte-container lines of the reference are not ported yet
-(``ROADMAP.md`` Queue A item 13): :func:`line_layout` refuses int8.
+gather.
+
+int8 lines are byte containers: each row's slot holds ``[d code bytes |
+8 bytes of the f32 (scale, offset) pair | 4 bytes per f32 state lane |
+zero pad]``, so only the table lanes are quantized and the optimizer state
+rides as exact f32 bit patterns.  ``rowwise_adagrad`` refuses int8 lines,
+as in the reference.  int8 lines are updated row by row
+(``ops/sparse.py::_fat_apply_rows_int8``), never by the fat-line kernels.
 """
 
 from __future__ import annotations
@@ -21,6 +27,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from tdfo_tpu_torch.ops.quant import (
+    bytes_to_f32,
+    dequantize_rows,
+    f32_to_bytes,
+    quantize_rows,
+)
 
 __all__ = [
     "LineLayout",
@@ -60,6 +73,9 @@ class LineLayout:
 
     @property
     def need(self) -> int:
+        if self.dtype == "int8":
+            # codes + bitcast f32 (scale, offset) + bitcast f32 state
+            return self.d + 8 + 4 * self.state_lanes
         return self.d + self.state_lanes
 
     def n_lines(self, rows: int) -> int:
@@ -80,11 +96,20 @@ def line_layout(d: int, kind: str, dtype="float32") -> LineLayout:
         raise ValueError(f"unknown fused optimizer kind: {kind!r}")
     name = _dtype_name(dtype)
     if name == "int8":
-        raise NotImplementedError(
-            "int8 fat lines are not ported yet (ROADMAP.md Queue A item 13)")
+        if kind == "rowwise_adagrad":
+            raise ValueError(
+                "fused int8 storage does not support rowwise_adagrad: the "
+                "f32 per-row accumulator contract cannot ride a quantized "
+                "line (use optimizer = adagrad/adam/sgd, or fused = false)")
+        need = d + 8 + 4 * _STATE_LANES[kind](d)
+        if need <= LANE:
+            w = next(s for s in _SLOT_WIDTHS if s >= need)
+            return LineLayout(d, kind, w, LANE // w, 1, "int8")
+        tiles = -(-need // LANE)
+        return LineLayout(d, kind, tiles * LANE, 1, tiles, "int8")
     if name not in ("float32", "bfloat16"):
-        raise ValueError(f"fat-line storage dtype must be float32 or "
-                         f"bfloat16, got {name!r}")
+        raise ValueError(f"fat-line storage dtype must be float32, "
+                         f"bfloat16 or int8, got {name!r}")
     need = d + _STATE_LANES[kind](d)
     if need <= LANE:
         w = next(s for s in _SLOT_WIDTHS if s >= need)
@@ -111,12 +136,21 @@ def fat_gather_rows(fat: torch.Tensor, ids: torch.Tensor,
     line = ids // layout.r
     inside = line < fat.shape[0]
     idx = torch.where(inside, line, 0) * layout.r + ids % layout.r
+    if layout.dtype == "int8":
+        # codes and the adjacent sidecar bytes, decoded on the small
+        # gathered block; a line past the table fills with the int8 fill
+        # value (-128), as jnp.take does
+        span = fat_view(fat, layout)[idx, :layout.d + 8]
+        span = torch.where(inside[..., None], span, -128)
+        return dequantize_rows(span[..., :layout.d],
+                               bytes_to_f32(span[..., layout.d:]))
     rows = fat_view(fat, layout)[idx, :layout.d].to(torch.float32)
     return torch.where(inside[..., None], rows, float("nan"))
 
 
 def fat_pack(table: torch.Tensor, *state: torch.Tensor, kind: str = "adam",
-             layout: LineLayout | None = None, dtype=None) -> torch.Tensor:
+             layout: LineLayout | None = None, dtype=None,
+             qscale: torch.Tensor | None = None) -> torch.Tensor:
     """[V, d] table (+ per-kind optimizer state) -> [L, T, 128] fat lines.
 
     State arguments by kind: adam ``(mu[V,d], nu[V,d])``; adagrad
@@ -124,7 +158,12 @@ def fat_pack(table: torch.Tensor, *state: torch.Tensor, kind: str = "adam",
     state defaults to zeros (fresh init).  Padding rows/lanes are zero.
     ``dtype`` is the lines' storage dtype (default the layout's, else the
     table's): the line is assembled in f32 and rounded to nearest once, as
-    the reference's per-component ``astype``."""
+    the reference's per-component ``astype``.
+
+    int8 lines are byte containers: an f32 ``table`` is quantized here
+    (round to nearest, the plain int8 init's grid); an int8 ``table`` of
+    codes needs its ``qscale`` f32 ``[V, 2]`` sidecar.  State rides as f32
+    bytes."""
     v, d = table.shape
     if dtype is None:
         dtype = layout.dtype if layout is not None else table.dtype
@@ -132,7 +171,24 @@ def fat_pack(table: torch.Tensor, *state: torch.Tensor, kind: str = "adam",
     want = {"sgd": 0, "rowwise_adagrad": 1, "adagrad": 1, "adam": 2}[lay.kind]
     if state and len(state) != want:
         raise ValueError(f"{lay.kind} fat_pack takes {want} state arrays")
-    dt, dev = torch.float32, table.device
+    dev = table.device
+    if lay.dtype == "int8":
+        if table.dtype == torch.int8:
+            if qscale is None:
+                raise ValueError(
+                    "fat_pack of int8 codes needs the f32 (scale, offset) "
+                    "qscale sidecar")
+            codes, qs = table, qscale.to(torch.float32)
+        else:
+            codes, qs = quantize_rows(table)
+        rows = torch.zeros((lay.padded_rows(v), lay.w), dtype=torch.int8,
+                           device=dev)
+        rows[:v, :d] = codes
+        rows[:v, d:d + 8] = f32_to_bytes(qs)
+        for i, st in enumerate(state):
+            rows[:v, d + 8 + 4 * d * i:d + 8 + 4 * d * (i + 1)] = f32_to_bytes(st)
+        return rows.view(-1, lay.tiles, LANE)
+    dt = torch.float32
     rows = torch.zeros((lay.padded_rows(v), lay.w), dtype=dt, device=dev)
     rows[:v, :d] = table
     if lay.kind == "rowwise_adagrad" and state:
@@ -149,12 +205,18 @@ def fat_pack(table: torch.Tensor, *state: torch.Tensor, kind: str = "adam",
 def fat_unpack(fat: torch.Tensor, layout: LineLayout,
                rows: int | None = None) -> tuple[torch.Tensor, ...]:
     """Inverse of :func:`fat_pack`: ``(table[V,d], *state)`` as views, at
-    the lines' storage dtype."""
+    the lines' storage dtype.  int8 lines return ``(codes[V,d] int8,
+    qscale[V,2] f32, *state f32)`` (copies: the byte lanes are decoded)."""
     view = fat_view(fat, layout)
     if rows is not None:
         view = view[:rows]
     d = layout.d
     table = view[:, :d]
+    if layout.dtype == "int8":
+        n = {"sgd": 0, "adagrad": 1, "adam": 2}[layout.kind]
+        return (table, bytes_to_f32(view[:, d:d + 8]),
+                *(bytes_to_f32(view[:, d + 8 + 4 * d * i:d + 8 + 4 * d * (i + 1)])
+                  for i in range(n)))
     if layout.kind == "sgd":
         return (table,)
     if layout.kind == "rowwise_adagrad":

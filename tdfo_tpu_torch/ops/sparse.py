@@ -33,8 +33,29 @@ f32 cast for f32 storage.  The random bits cover the same block the
 reference's cover (the ``[C, d]`` capacity block, or the whole ``[V, d]``
 table in the ``dense_lazy_*`` tiers), so a bf16 write equals the JAX
 package's bit for bit.  Fat lines pass ``_kernel_seed(sr_key)`` to the
-kernels.  int8 storage and the update cache are not ported yet
-(``ROADMAP.md`` Queue A item 13).
+kernels.
+
+int8 storage is rowwise (``ops/quant.py``): plain int8 tables pass their
+f32 ``[V, 2]`` (scale, offset) sidecar as ``qscale`` and get it back,
+gathered rows decode through the stored grid, and every write requantizes
+the new rows (:func:`~tdfo_tpu_torch.ops.quant.quantize_rows`) over the
+same ``[C, d]`` block with the same key as the reference (the raw key for
+sgd, ``component_key(key, 0)`` otherwise), so codes, sidecars and slots
+are the JAX package's given the same f32 rows.  int8 fat lines (byte
+containers) update row by row (:func:`_fat_apply_rows_int8`), never
+through the fat-line kernels.  int8 tables never take the
+``dense_lazy_*`` tiers, whose full-block requantize would re-grid every
+untouched row.
+
+The update cache (:meth:`SparseOptimizer.cache_init` ..
+:meth:`SparseOptimizer.cache_flush`) keeps the touched rows of a plain
+table (and their optimizer state) in a small device-resident directory
+between flushes; the cached math is the ``sparse_*`` math, so a cached
+run's flushed tables equal the uncached run's bit for bit.  The
+reference's replicated ``shard_map`` around the cache math serves meshes
+and is not needed on one device; its ``counters.emit`` diagnostics belong
+to the observability layer (``ROADMAP.md`` Queue A item 16) and are left
+out.
 """
 
 from __future__ import annotations
@@ -45,7 +66,7 @@ from typing import Any
 import torch
 
 from tdfo_tpu_torch.ops import threefry
-from tdfo_tpu_torch.ops.fat_lines import line_layout
+from tdfo_tpu_torch.ops.fat_lines import fat_view, line_layout
 from tdfo_tpu_torch.ops.kernels.fat_line_update import (
     SENTINEL,
     fat_line_update,
@@ -53,7 +74,15 @@ from tdfo_tpu_torch.ops.kernels.fat_line_update import (
 from tdfo_tpu_torch.ops.kernels.fat_line_update_routed import (
     fat_line_update_routed,
 )
-from tdfo_tpu_torch.ops.quant import component_key, quantize, storage_dtype
+from tdfo_tpu_torch.ops.quant import (
+    bytes_to_f32,
+    component_key,
+    dequantize_rows,
+    f32_to_bytes,
+    quantize,
+    quantize_rows,
+    storage_dtype,
+)
 
 __all__ = [
     "dedupe_grads",
@@ -70,6 +99,9 @@ __all__ = [
     "fat_update",
     "fat_apply_routed",
     "fat_apply_unique",
+    "cache_route",
+    "cache_lookup_rows",
+    "cache_overlay_rows",
     "SparseOptimizer",
     "sparse_optimizer",
 ]
@@ -155,37 +187,50 @@ def dedupe_grads(ids: torch.Tensor, grads: torch.Tensor, *,
     return uids, g, valid
 
 
-def _scatter_rows(dst, uids, valid, new_rows, key=None):
+def _scatter_rows(dst, uids, valid, new_rows, key=None, qscale=None):
     """``dst[uids[valid]] = quantize(new_rows)[valid]`` in place: the whole
     ``[C, ...]`` block requantizes to ``dst``'s storage dtype (its random
     bits are those the reference draws over the same block), then the
-    valid rows scatter."""
+    valid rows scatter.  int8 ``dst`` (``qscale`` its sidecar): the block's
+    rows are re-gridded (:func:`quantize_rows`) and codes and sidecar rows
+    scatter together."""
     u = uids.to(torch.int64)[valid]
-    dst.index_copy_(0, u, quantize(new_rows, dst.dtype, key)[valid])
+    if qscale is None:
+        dst.index_copy_(0, u, quantize(new_rows, dst.dtype, key)[valid])
+        return
+    data, qs = quantize_rows(new_rows, key)
+    dst.index_copy_(0, u, data[valid])
+    qscale.index_copy_(0, u, qs[valid])
 
 
-def _gather_rows(t, uids, valid):
-    """Touched-row gather, widened to f32 after the gather."""
+def _gather_rows(t, uids, valid, qscale=None):
+    """Touched-row gather, widened to f32 after the gather (int8: decoded
+    through the gathered sidecar rows)."""
     idx = torch.where(valid, uids.to(torch.int64), torch.zeros_like(uids, dtype=torch.int64))
-    return t[idx].to(torch.float32)
+    if qscale is None:
+        return t[idx].to(torch.float32)
+    return dequantize_rows(t[idx], qscale[idx])
 
 
 def sparse_sgd(table, uids, g, valid, *, lr: float, weight_decay: float = 0.0,
-               sr_key=None):
+               sr_key=None, qscale=None):
     """fbgemm EXACT_SGD parity: touched rows only, wd on touched rows.
-    The table write requantizes with the raw ``sr_key``."""
-    rows = _gather_rows(table, uids, valid)
+    The table write requantizes with the raw ``sr_key``.  Returns the
+    table, or ``(table, qscale)`` for an int8 table."""
+    rows = _gather_rows(table, uids, valid, qscale)
     g = g.to(torch.float32) + weight_decay * rows
-    _scatter_rows(table, uids, valid, rows - lr * g, sr_key)
-    return table
+    _scatter_rows(table, uids, valid, rows - lr * g, sr_key, qscale)
+    return table if qscale is None else (table, qscale)
 
 
 def sparse_adam(table, mu, nu, count, uids, g, valid, *, lr, b1=0.9,
-                b2=0.999, eps=1e-8, weight_decay=0.0, sr_key=None):
+                b2=0.999, eps=1e-8, weight_decay=0.0, sr_key=None,
+                qscale=None):
     """Row-sparse AdamW: per-row moments, global-step bias correction,
     decoupled weight decay on gathered rows only.  ``count`` is advanced in
-    place.  Returns ``(table, mu, nu, count)``."""
-    rows = _gather_rows(table, uids, valid)
+    place.  Returns ``(table, mu, nu, count)``, ``+ (qscale,)`` for an int8
+    table (its moments stay at ``slot_dtype``)."""
+    rows = _gather_rows(table, uids, valid, qscale)
     mu_r = _gather_rows(mu, uids, valid)
     nu_r = _gather_rows(nu, uids, valid)
     g = g.to(torch.float32)
@@ -196,37 +241,42 @@ def sparse_adam(table, mu, nu, count, uids, g, valid, *, lr, b1=0.9,
     mu_hat = mu_n / (1 - b1**t)
     nu_hat = nu_n / (1 - b2**t)
     delta = lr * (mu_hat / (torch.sqrt(nu_hat) + eps) + weight_decay * rows)
-    _scatter_rows(table, uids, valid, rows - delta, component_key(sr_key, 0))
+    _scatter_rows(table, uids, valid, rows - delta, component_key(sr_key, 0),
+                  qscale)
     _scatter_rows(mu, uids, valid, mu_n, component_key(sr_key, 1))
     _scatter_rows(nu, uids, valid, nu_n, component_key(sr_key, 2))
-    return table, mu, nu, count
+    out = (table, mu, nu, count)
+    return out if qscale is None else out + (qscale,)
 
 
 def sparse_rowwise_adagrad(table, accum, uids, g, valid, *, lr, eps=1e-10,
-                           weight_decay=0.0, sr_key=None):
+                           weight_decay=0.0, sr_key=None, qscale=None):
     """fbgemm EXACT_ROWWISE_ADAGRAD parity: ONE f32 accumulator per row
-    (mean of squared grads; never narrowed)."""
-    rows = _gather_rows(table, uids, valid)
+    (mean of squared grads; never narrowed).  ``+ (qscale,)`` for int8."""
+    rows = _gather_rows(table, uids, valid, qscale)
     acc_r = _gather_rows(accum, uids, valid)
     g = g.to(torch.float32) + weight_decay * rows
     acc_n = acc_r + torch.mean(g * g, dim=-1)
     delta = lr * g / (torch.sqrt(acc_n)[:, None] + eps)
-    _scatter_rows(table, uids, valid, rows - delta, component_key(sr_key, 0))
+    _scatter_rows(table, uids, valid, rows - delta, component_key(sr_key, 0),
+                  qscale)
     _scatter_rows(accum, uids, valid, acc_n)
-    return table, accum
+    return (table, accum) if qscale is None else (table, accum, qscale)
 
 
 def sparse_adagrad(table, accum, uids, g, valid, *, lr, eps=1e-10,
-                   weight_decay=0.0, sr_key=None):
-    """fbgemm EXACT_ADAGRAD parity (elementwise squared-grad accumulator)."""
-    rows = _gather_rows(table, uids, valid)
+                   weight_decay=0.0, sr_key=None, qscale=None):
+    """fbgemm EXACT_ADAGRAD parity (elementwise squared-grad accumulator).
+    ``+ (qscale,)`` for int8."""
+    rows = _gather_rows(table, uids, valid, qscale)
     acc_r = _gather_rows(accum, uids, valid)
     g = g.to(torch.float32) + weight_decay * rows
     acc_n = acc_r + g * g
     delta = lr * g / (torch.sqrt(acc_n) + eps)
-    _scatter_rows(table, uids, valid, rows - delta, component_key(sr_key, 0))
+    _scatter_rows(table, uids, valid, rows - delta, component_key(sr_key, 0),
+                  qscale)
     _scatter_rows(accum, uids, valid, acc_n, component_key(sr_key, 1))
-    return table, accum
+    return (table, accum) if qscale is None else (table, accum, qscale)
 
 
 def _dense_gsum(table, ids, grads):
@@ -311,6 +361,116 @@ def dense_lazy_rowwise_adagrad(table, accum, ids, grads, *, lr, eps=1e-10,
     return table, accum
 
 
+# ---------------------------------------------------------------------------
+# the update cache (reference ``ops/sparse.py``: cache section)
+# ---------------------------------------------------------------------------
+#
+# A cache is a dict of tensors: ``ids`` [C] sorted ascending (int32-max
+# sentinels mark free entries and sort to the top), ``slot`` [C] the
+# physical row each directory entry owns (a permutation of [0, C)),
+# ``rows`` [C, d] at the table's storage dtype, the optimizer-state mirrors
+# (``acc`` or ``mu``/``nu``), ``dirty`` / ``freq`` / ``last`` per physical
+# row, the admission-overflow counter ``over``, and for int8 tables the
+# ``qs`` [C, 2] sidecar mirror.  Which physical row a new id takes depends
+# on the order of the free entries, which the reference leaves to an
+# unstable sort; the port sorts stably.  Only the id -> value mapping is
+# observable (lookups, updates and the flush go through the directory).
+
+_CACHE_OOB = 2**31 - 1  # int32 max: free directory entry / invalid id
+
+
+def cache_route(cache, ids):
+    """Route ``ids`` (any shape; negatives are padding) through the
+    directory: ``(phys, hit)``, the physical cache row per id (``C``, one
+    past the end, where ``hit`` is False)."""
+    cids = cache["ids"].to(torch.int64)
+    c = cids.shape[0]
+    ids = ids.to(torch.int64)
+    pos = torch.searchsorted(cids, ids.reshape(-1)).reshape(ids.shape)
+    posc = torch.clamp(pos, max=c - 1)
+    hit = (cids[posc] == ids) & (ids >= 0) & (ids < _CACHE_OOB)
+    phys = torch.where(hit, cache["slot"].to(torch.int64)[posc], c)
+    return phys, hit
+
+
+def cache_lookup_rows(cache, ids):
+    """Route ``ids`` and gather their cached rows: ``(rows[..., d] f32,
+    hit[...])``; int8 caches decode through the cached per-row grid."""
+    phys, hit = cache_route(cache, ids)
+    clamp = torch.clamp(phys, max=cache["rows"].shape[0] - 1)
+    cur = cache["rows"][clamp]
+    if "qs" in cache:
+        return dequantize_rows(cur, cache["qs"][clamp]), hit
+    return cur.to(torch.float32), hit
+
+
+def cache_overlay_rows(cache, ids, rows):
+    """Where ``ids`` hit the directory, replace ``rows`` (gathered from the
+    possibly stale table) with the cache's authoritative value."""
+    cur, hit = cache_lookup_rows(cache, ids)
+    return torch.where(hit[..., None], cur.to(rows.dtype), rows)
+
+
+def _cache_mirror_keys(kind):
+    """Optimizer-slot mirror keys carried per cached row."""
+    return {"sgd": (), "adagrad": ("acc",), "rowwise_adagrad": ("acc",),
+            "adam": ("mu", "nu")}[kind]
+
+
+def _cache_slot_index(key, kind) -> int:
+    """Index of the table slot a mirror ``key`` mirrors."""
+    return 0 if kind == "rowwise_adagrad" else {"acc": 0, "mu": 0, "nu": 1}[key]
+
+
+def _cache_slot_mirror(key, kind, c, d, slot_dtype, device):
+    """Empty ``[C]``-leading mirror of the table slot component ``key``."""
+    if kind == "rowwise_adagrad":
+        # ONE f32 accumulator per row (the fbgemm parity contract)
+        return torch.zeros((c,), dtype=torch.float32, device=device)
+    return torch.zeros((c, d), dtype=storage_dtype(slot_dtype), device=device)
+
+
+def _cache_admit(cache, urows, uslot, uids, valid, kind, step, uqs=None):
+    """Admit every missing valid ``uid`` (reference ``_cache_admit``): the
+    k-th missing id (in id order) takes the k-th free directory entry and
+    its physical row, whose value and mirrors are copied from the
+    pre-gathered per-uid blocks (``urows``, ``uslot``, int8 ``uqs``: bits,
+    never re-gridded); then the directory re-sorts.  Distinct ids past the
+    free capacity count into ``over``; their updates are lost, so a
+    non-zero count must fail the run.  Returns the new cache dict."""
+    c = cache["ids"].shape[0]
+    dev = urows.device
+    cids, cslot = cache["ids"].to(torch.int64), cache["slot"].to(torch.int64)
+    _, hit = cache_route(cache, uids)
+    miss = valid & ~hit
+    u = uids.to(torch.int64)
+    smid, upos = torch.sort(torch.where(miss, u, _CACHE_OOB), stable=True)
+    n_miss = miss.sum()
+    n_used = (cids < _CACHE_OOB).sum()
+    k = torch.arange(smid.shape[0], device=dev)
+    dirpos = n_used + k
+    admit = (k < n_miss) & (dirpos < c)
+    over = ((k < n_miss) & (dirpos >= c)).sum()
+    phys = cslot[torch.clamp(dirpos, max=c - 1)]
+    new_ids = cids.clone()
+    new_ids[dirpos[admit]] = smid[admit]
+    sids, order = torch.sort(new_ids, stable=True)
+    cache = dict(cache)
+    cache["ids"] = sids.to(torch.int32)
+    cache["slot"] = cslot[order].to(torch.int32)
+    tgt, src = phys[admit], upos[admit]
+    cache["rows"] = cache["rows"].index_copy(0, tgt, urows[src])
+    if uqs is not None:
+        cache["qs"] = cache["qs"].index_copy(0, tgt, uqs[src])
+    for key in _cache_mirror_keys(kind):
+        cache[key] = cache[key].index_copy(0, tgt, uslot[key][src])
+    cache["dirty"] = cache["dirty"].index_fill(0, tgt, False)
+    cache["freq"] = cache["freq"].index_fill(0, tgt, 0)
+    cache["last"] = cache["last"].index_fill(0, tgt, int(step))
+    cache["over"] = cache["over"] + over.to(torch.int32)
+    return cache
+
+
 def dedupe_rows_and_lines(ids: torch.Tensor, *, capacity_rows: int,
                           capacity_lines: int, rows_per_line: int):
     """Row- AND line-level dedupe from one sort (reference
@@ -375,6 +535,71 @@ def _kernel_seed(sr_key, dtype) -> int | None:
     return int(threefry.randint(sr_key))
 
 
+def _fat_apply_rows_int8(fat, uids, g, *, layout, lr, b1=0.9, b2=0.999,
+                         eps=1e-8, weight_decay=0.0, count=None,
+                         sr_key=None):
+    """Row-space optimizer step on int8 byte-container lines (reference
+    ``_fat_apply_rows_int8``): gather the touched rows' bytes through the
+    ``[L*R, W]`` view, decode (codes x sidecar -> f32 rows, state bytes ->
+    exact f32), run the ``sparse_*`` math, requantize the new rows over the
+    whole ``[U, d]`` uids-ordered block with the plain int8 path's key
+    (raw for sgd, ``component_key(key, 0)`` otherwise), re-encode and
+    write the rows back in place.  Sentinel uids clamp on the gather and
+    are not written.  ``count``: adam's advanced step count."""
+    d = layout.d
+    view = fat_view(fat, layout)
+    u = uids.to(torch.int64)
+    safe = torch.clamp(u, 0, view.shape[0] - 1)
+    rows_b = view[safe]  # [U, W] bytes
+    rows = dequantize_rows(rows_b[:, :d], bytes_to_f32(rows_b[:, d:d + 8]))
+    g = g.to(torch.float32)
+    kind = layout.kind
+    if kind == "sgd":
+        new_rows = rows - lr * (g + weight_decay * rows)
+        key_t, state_new = sr_key, ()
+    elif kind == "adagrad":
+        acc = bytes_to_f32(rows_b[:, d + 8:d + 8 + 4 * d])
+        g2 = g + weight_decay * rows
+        acc_n = acc + g2 * g2
+        new_rows = rows - lr * g2 / (torch.sqrt(acc_n) + eps)
+        key_t, state_new = component_key(sr_key, 0), (acc_n,)
+    elif kind == "adam":
+        mu = bytes_to_f32(rows_b[:, d + 8:d + 8 + 4 * d])
+        nu = bytes_to_f32(rows_b[:, d + 8 + 4 * d:d + 8 + 8 * d])
+        t = count.to(torch.float32)
+        mu_n = b1 * mu + (1 - b1) * g
+        nu_n = b2 * nu + (1 - b2) * g * g
+        mu_hat = mu_n / (1 - b1**t)
+        nu_hat = nu_n / (1 - b2**t)
+        delta = lr * (mu_hat / (torch.sqrt(nu_hat) + eps) + weight_decay * rows)
+        new_rows = rows - delta
+        key_t, state_new = component_key(sr_key, 0), (mu_n, nu_n)
+    else:  # rowwise_adagrad never builds an int8 layout (line_layout refuses)
+        raise ValueError(kind)
+    codes, qs = quantize_rows(new_rows, key_t)
+    comps = [codes, f32_to_bytes(qs), *(f32_to_bytes(x) for x in state_new)]
+    if layout.w > layout.need:
+        comps.append(rows_b[:, layout.need:])  # the zero pad bytes
+    keep = (u >= 0) & (u < view.shape[0])
+    view.index_copy_(0, u[keep], torch.cat(comps, dim=1)[keep])
+    return fat
+
+
+def _fat_apply_int8(fat, slots, uids, g, *, layout, lr, b1, b2, eps,
+                    weight_decay, sr_key=None):
+    """Slot bookkeeping around :func:`_fat_apply_rows_int8` (adam's global
+    step count, advanced in place, is the only state outside the line).
+    Returns ``(fat, slots)``."""
+    count = None
+    if layout.kind == "adam":
+        (count,) = slots
+        count += 1
+    _fat_apply_rows_int8(fat, uids, g, layout=layout, lr=lr, b1=b1, b2=b2,
+                         eps=eps, weight_decay=weight_decay, count=count,
+                         sr_key=sr_key)
+    return fat, slots
+
+
 def _fat_apply_lines(fat, slots, ulines, g_slots, touched, *, layout, lr,
                      b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
                      sr_key=None):
@@ -413,6 +638,15 @@ def fat_update(fat, slots, ids, grads, *, embedding_dim, kind, lr, b1=0.9,
     r = layout.r
     ids = ids.reshape(-1)
     grads = grads.reshape(-1, grads.shape[-1])
+    if layout.dtype == "int8":
+        # row-space dedupe (the row-sparse requantize contract): here the
+        # bounds count distinct rows
+        uids, g, _valid = dedupe_grads(
+            ids, grads, capacity=capacity, vocab=fat.shape[0] * r,
+            max_distinct=max_distinct)
+        return _fat_apply_int8(
+            fat, slots, uids, g, layout=layout, lr=lr, b1=b1, b2=b2,
+            eps=eps, weight_decay=weight_decay, sr_key=sr_key)
     ulines, seg, _valid = dedupe_ids(
         ids, capacity=capacity, vocab=fat.shape[0] * r,
         max_distinct=max_distinct, rows_per_line=r)
@@ -457,6 +691,10 @@ def fat_apply_unique(fat, slots, uids, g, valid=None, *, embedding_dim, kind,
     int32-max sentinels at the top (the :func:`dedupe_grads` layout).  One
     :func:`fat_line_update` launch.  In place; returns ``(fat, slots)``."""
     layout = line_layout(embedding_dim, kind, fat.dtype)
+    if layout.dtype == "int8":
+        return _fat_apply_int8(
+            fat, slots, uids, g, layout=layout, lr=lr, b1=b1, b2=b2,
+            eps=eps, weight_decay=weight_decay, sr_key=sr_key)
     if valid is None:
         valid = uids < SENTINEL
     ulines, g_slots, touched = _lines_from_unique(uids, g, valid, layout)
@@ -474,10 +712,22 @@ def fat_apply_routed(fat, slots, ulines, g_u, row_lidx, row_slot, lines, *,
     ``lines [CL, T, 128]`` is the forward's gather of ``fat`` at ``ulines``
     (sentinels read line 0), at the table's storage dtype; the kernel reads
     the touched rows' state from it.  One ``fat_line_update_routed``
-    launch; in place; returns ``(fat, slots)``.  The reference's int8 byte
-    lines belong to ``ROADMAP.md`` Queue A item 13 and refuse here
-    (``line_layout``)."""
+    launch; in place; returns ``(fat, slots)``.  int8 byte lines take
+    :func:`_fat_apply_int8` on the distinct row ids rebuilt from the
+    routing (in the plain path's dedupe order, so the requantize draw is
+    the plain path's)."""
     layout = line_layout(embedding_dim, kind, fat.dtype)
+    if layout.dtype == "int8":
+        cl = ulines.shape[0]
+        rl = row_lidx.to(torch.int64)
+        uids = torch.where(
+            rl < cl,
+            ulines.to(torch.int64)[torch.clamp(rl, max=cl - 1)] * layout.r
+            + row_slot.to(torch.int64),
+            SENTINEL)
+        return _fat_apply_int8(
+            fat, slots, uids, g_u, layout=layout, lr=lr, b1=b1, b2=b2,
+            eps=eps, weight_decay=weight_decay, sr_key=sr_key)
     corr = _bias_corrections(layout, slots, b1, b2, fat.device)
     fat_line_update_routed(
         fat, lines, ulines, row_lidx, row_slot, g_u.to(torch.float32), corr,
@@ -545,40 +795,253 @@ class SparseOptimizer:
             weight_decay=self.weight_decay, sr_key=sr_key)
 
     def update_unique(self, table, slots, uids, g, valid, *,
-                      embedding_dim: int | None = None, sr_key=None):
+                      embedding_dim: int | None = None, sr_key=None,
+                      qscale=None):
         """Tier dispatch on PRE-deduplicated ``(uids, g, valid)`` (the
         dedup-lookup step's path): fat lines take :func:`fat_apply_unique`,
         plain tables ``sparse_*`` (the small-vocab dense tier needs raw ids
-        and is bypassed; ``sparse_adam`` has its semantics)."""
+        and is bypassed; ``sparse_adam`` has its semantics).  Plain int8
+        tables pass their sidecar as ``qscale`` and get ``(table, slots,
+        qscale)`` back; int8 fat lines carry it in-line."""
         if table.dim() == 3:
+            if qscale is not None:
+                raise ValueError(_INLINE_QSCALE)
             if embedding_dim is None:
                 raise ValueError("fat-table update needs embedding_dim")
             return fat_apply_unique(
                 table, slots, uids, g, valid, embedding_dim=embedding_dim,
                 kind=self.kind, lr=self.lr, b1=self.b1, b2=self.b2,
                 eps=self.eps, weight_decay=self.weight_decay, sr_key=sr_key)
+        kw = dict(lr=self.lr, weight_decay=self.weight_decay, sr_key=sr_key,
+                  qscale=qscale)
+        tail = () if qscale is None else (qscale,)
+        if self.kind == "sgd":
+            sparse_sgd(table, uids, g, valid, **kw)
+            return (table, slots, *tail)
+        if self.kind == "adagrad":
+            sparse_adagrad(table, slots[0], uids, g, valid, eps=self.eps, **kw)
+            return (table, slots, *tail)
+        if self.kind == "rowwise_adagrad":
+            sparse_rowwise_adagrad(table, slots[0], uids, g, valid,
+                                   eps=self.eps, **kw)
+            return (table, slots, *tail)
+        mu, nu, count = slots
+        sparse_adam(table, mu, nu, count, uids, g, valid, b1=self.b1,
+                    b2=self.b2, eps=self.eps, **kw)
+        return (table, slots, *tail)
+
+    def dense_update(self, table, slots, ids, grads, *, sr_key=None):
+        """The dense tier for a SMALL plain table of any kind (the hot heads
+        of hot/cold tables): per-row summed grads by ``index_add_`` and one
+        masked read-modify-write of the whole ``[K, D]`` table (the
+        reference's one-hot MXU contraction, summed in another order).
+        Negative ids contribute nothing; untouched rows keep their state.
+        In place; returns ``(table, slots)``."""
+        if table.dim() != 2:
+            raise ValueError(
+                f"dense_update needs a plain 2D table (kind {self.kind!r}, "
+                f"ndim {table.dim()})")
         kw = dict(lr=self.lr, weight_decay=self.weight_decay, sr_key=sr_key)
         if self.kind == "sgd":
-            return sparse_sgd(table, uids, g, valid, **kw), slots
-        if self.kind == "adagrad":
-            table, acc = sparse_adagrad(table, slots[0], uids, g, valid,
-                                        eps=self.eps, **kw)
-            return table, (acc,)
-        if self.kind == "rowwise_adagrad":
-            table, acc = sparse_rowwise_adagrad(table, slots[0], uids, g,
-                                                valid, eps=self.eps, **kw)
-            return table, (acc,)
-        mu, nu, count = slots
-        table, mu, nu, count = sparse_adam(
-            table, mu, nu, count, uids, g, valid, b1=self.b1, b2=self.b2,
-            eps=self.eps, **kw)
-        return table, (mu, nu, count)
+            dense_lazy_sgd(table, ids, grads, **kw)
+        elif self.kind == "adagrad":
+            dense_lazy_adagrad(table, slots[0], ids, grads, eps=self.eps, **kw)
+        elif self.kind == "rowwise_adagrad":
+            dense_lazy_rowwise_adagrad(table, slots[0], ids, grads,
+                                       eps=self.eps, **kw)
+        else:
+            mu, nu, count = slots
+            dense_lazy_adam(table, mu, nu, count, ids, grads, b1=self.b1,
+                            b2=self.b2, eps=self.eps, **kw)
+        return table, slots
+
+    # ------------------------------------------------------- update cache
+
+    def cache_init(self, table, cache_rows: int) -> dict:
+        """Empty update cache for a plain 2D ``table``: the sorted-id
+        directory and its physical-slot permutation, value rows at the
+        table's storage dtype, per-kind optimizer-slot mirrors, dirty /
+        frequency / recency per row and the admission-overflow counter;
+        int8 tables add the ``qs`` f32 [C, 2] grid mirror, so the flush
+        stays a bit-copy."""
+        if table.dim() != 2:
+            raise ValueError(
+                "the update cache covers plain 2D tables only (fat-line "
+                "arrays keep their in-place DMA path)")
+        c, d, dev = int(cache_rows), table.shape[1], table.device
+        cache = {
+            "ids": torch.full((c,), _CACHE_OOB, dtype=torch.int32, device=dev),
+            "slot": torch.arange(c, dtype=torch.int32, device=dev),
+            "rows": torch.zeros((c, d), dtype=table.dtype, device=dev),
+            "dirty": torch.zeros((c,), dtype=torch.bool, device=dev),
+            "freq": torch.zeros((c,), dtype=torch.int32, device=dev),
+            "last": torch.zeros((c,), dtype=torch.int32, device=dev),
+            "over": torch.zeros((), dtype=torch.int32, device=dev),
+        }
+        if table.dtype == torch.int8:
+            cache["qs"] = torch.zeros((c, 2), dtype=torch.float32, device=dev)
+        for key in _cache_mirror_keys(self.kind):
+            cache[key] = _cache_slot_mirror(key, self.kind, c, d,
+                                            self.slot_dtype, dev)
+        return cache
+
+    def cache_update_unique(self, cache, table, slots, uids, g, valid, *,
+                            step, sr_key=None, qscale=None):
+        """Cached step on PRE-deduplicated ``(uids, g, valid)``: admit the
+        misses (gathers of the table, its sidecar and slot rows only), then
+        the ``sparse_*`` math on the cached rows and mirrors, written into
+        the cache; the table and its slots are read, never written (adam's
+        step count advances in place).  int8: admission copies codes and
+        grid, the math decodes through the cached grid and every write
+        re-grids the new rows with the plain path's block and key.
+        Returns ``(cache, slots)``."""
+        valid = valid.to(torch.bool)
+        gid = torch.clamp(torch.where(valid, uids.to(torch.int64), 0),
+                          max=table.shape[0] - 1)
+        urows = table[gid]
+        uqs = None if qscale is None else qscale[gid]
+        uslot = {key: slots[_cache_slot_index(key, self.kind)][gid]
+                 for key in _cache_mirror_keys(self.kind)}
+        count = slots[2] if self.kind == "adam" else None
+        cache = self._cache_math(cache, uids, g, valid, urows, uslot, step,
+                                 count, sr_key, uqs)
+        return cache, slots
+
+    def _cache_math(self, cache, uids, g, valid, urows, uslot, step, count,
+                    sr_key, uqs=None):
+        """Admission, then the per-kind update of the cached rows (reference
+        ``_cache_math``).  Returns the new cache dict."""
+        cache = _cache_admit(cache, urows, uslot, uids, valid, self.kind,
+                             step, uqs)
+        c = cache["ids"].shape[0]
+        cs, _ = cache_route(cache, uids)
+        csc = torch.clamp(cs, max=c - 1)
+        keep = cs < c  # the reference's mode="drop" scatters
+        int8 = "qs" in cache
+        if int8:
+            cur = dequantize_rows(cache["rows"][csc], cache["qs"][csc])
+        else:
+            cur = cache["rows"][csc].to(torch.float32)
+        g = g.to(torch.float32)
+        lr, wd, eps = self.lr, self.weight_decay, self.eps
+        tgt = cs[keep]
+
+        def put(name, new, key=None):
+            cache[name] = cache[name].index_copy(
+                0, tgt, quantize(new, cache[name].dtype, key)[keep])
+
+        def put_rows(new, key):
+            # write-time requantize with the plain path's [U, d] block and
+            # key, so the flush stays a bit-copy
+            if int8:
+                data, nqs = quantize_rows(new, key)
+                cache["rows"] = cache["rows"].index_copy(0, tgt, data[keep])
+                cache["qs"] = cache["qs"].index_copy(0, tgt, nqs[keep])
+            else:
+                put("rows", new, key)
+
+        if self.kind == "sgd":
+            put_rows(cur - lr * (g + wd * cur), sr_key)
+        elif self.kind == "adagrad":
+            acc_r = cache["acc"][csc].to(torch.float32)
+            g2 = g + wd * cur
+            acc_n = acc_r + g2 * g2
+            put_rows(cur - lr * g2 / (torch.sqrt(acc_n) + eps),
+                     component_key(sr_key, 0))
+            put("acc", acc_n, component_key(sr_key, 1))
+        elif self.kind == "rowwise_adagrad":
+            acc_r = cache["acc"][csc]  # [U], always f32
+            g2 = g + wd * cur
+            acc_n = acc_r + torch.mean(g2 * g2, dim=-1)
+            put_rows(cur - lr * g2 / (torch.sqrt(acc_n)[:, None] + eps),
+                     component_key(sr_key, 0))
+            put("acc", acc_n)
+        else:
+            mu_r = cache["mu"][csc].to(torch.float32)
+            nu_r = cache["nu"][csc].to(torch.float32)
+            count += 1
+            t = count.to(torch.float32)
+            mu_n = self.b1 * mu_r + (1 - self.b1) * g
+            nu_n = self.b2 * nu_r + (1 - self.b2) * g * g
+            mu_hat = mu_n / (1 - self.b1**t)
+            nu_hat = nu_n / (1 - self.b2**t)
+            delta = lr * (mu_hat / (torch.sqrt(nu_hat) + eps) + wd * cur)
+            put_rows(cur - delta, component_key(sr_key, 0))
+            put("mu", mu_n, component_key(sr_key, 1))
+            put("nu", nu_n, component_key(sr_key, 2))
+        cache["dirty"] = cache["dirty"].index_fill(0, tgt, True)
+        cache["freq"] = cache["freq"].index_add(
+            0, tgt, torch.ones_like(tgt, dtype=torch.int32))
+        cache["last"] = cache["last"].index_fill(0, tgt, int(step))
+        return cache
+
+    def cache_update(self, cache, table, slots, ids, grads, *, step,
+                     capacity: int | None = None,
+                     max_distinct: int | None = None, sr_key=None,
+                     qscale=None):
+        """Cached analogue of :meth:`update` for plain 2D tables: the same
+        :func:`dedupe_grads`, then :meth:`cache_update_unique`.  Returns
+        ``(cache, slots)``."""
+        uids, g, valid = dedupe_grads(
+            ids.reshape(-1), grads.reshape(-1, grads.shape[-1]),
+            capacity=capacity, vocab=table.shape[0],
+            max_distinct=max_distinct)
+        return self.cache_update_unique(cache, table, slots, uids, g, valid,
+                                        step=step, sr_key=sr_key,
+                                        qscale=qscale)
+
+    def cache_flush(self, cache, table, slots, qscale=None):
+        """Write every dirty cached row and its mirrors back into the table
+        (a bit-copy, in place), then keep the hottest ``C // 2`` entries by
+        (frequency, recency, id), halve their frequencies and free the
+        rest.  Returns ``(cache, table, slots, overflow)``, with ``qscale``
+        before ``overflow`` for an int8 table; ``overflow`` is the
+        interval's admission-overflow count, which must be 0."""
+        c = cache["ids"].shape[0]
+        cids = cache["ids"].to(torch.int64)
+        cslot = cache["slot"].to(torch.int64)
+        used = cids < _CACHE_OOB
+        dirty_dir = cache["dirty"][cslot] & used
+        tgt, src = cids[dirty_dir], cslot[dirty_dir]
+        table.index_copy_(0, tgt, cache["rows"][src])
+        if qscale is not None:
+            qscale.index_copy_(0, tgt, cache["qs"][src])
+        for key in _cache_mirror_keys(self.kind):
+            slots[_cache_slot_index(key, self.kind)].index_copy_(
+                0, tgt, cache[key][src])
+        # retention: hottest first by (freq desc, recency desc, id asc);
+        # evicted entries are clean after the write-back, so freeing them
+        # only frees the directory entry and its physical row
+        imax = _CACHE_OOB
+        nf = torch.where(used, -cache["freq"].to(torch.int64)[cslot], imax)
+        nl = torch.where(used, -cache["last"].to(torch.int64)[cslot], imax)
+        order = torch.sort(cids, stable=True)[1]
+        order = order[torch.sort(nl[order], stable=True)[1]]
+        order = order[torch.sort(nf[order], stable=True)[1]]
+        s_ids, s_slot = cids[order], cslot[order]
+        keep = torch.arange(c, device=cids.device) < c // 2
+        new_ids, o2 = torch.sort(torch.where(keep, s_ids, imax), stable=True)
+        retained = torch.zeros((c,), dtype=torch.bool, device=cids.device)
+        retained[s_slot[keep & (s_ids < imax)]] = True
+        over = cache["over"]
+        cache = dict(cache)
+        cache["ids"] = new_ids.to(torch.int32)
+        cache["slot"] = s_slot[o2].to(torch.int32)
+        cache["dirty"] = torch.zeros_like(cache["dirty"])
+        cache["freq"] = torch.where(retained, cache["freq"] // 2, 0)
+        cache["last"] = torch.where(retained, cache["last"], 0)
+        cache["over"] = torch.zeros_like(over)
+        if qscale is not None:
+            return cache, table, slots, qscale, over
+        return cache, table, slots, over
 
     def update(self, table, slots, ids, grads, *,
                embedding_dim: int | None = None,
                capacity: int | None = None, max_distinct: int | None = None,
-               sr_key=None):
+               sr_key=None, qscale=None):
         if table.dim() == 3:
+            if qscale is not None:
+                raise ValueError(_INLINE_QSCALE)
             if embedding_dim is None:
                 raise ValueError("fat-table update needs embedding_dim")
             return fat_update(
@@ -586,8 +1049,10 @@ class SparseOptimizer:
                 kind=self.kind, lr=self.lr, b1=self.b1, b2=self.b2,
                 eps=self.eps, weight_decay=self.weight_decay,
                 capacity=capacity, max_distinct=max_distinct, sr_key=sr_key)
-        if (self.kind == "adam"
+        if (self.kind == "adam" and qscale is None
                 and table.shape[0] <= self.small_vocab_threshold):
+            # the dense sweep's full-block requantize would re-grid every
+            # untouched int8 row, so int8 tables stay on the row path
             mu, nu, count = slots
             table, mu, nu, count = dense_lazy_adam(
                 table, mu, nu, count, ids, grads, lr=self.lr, b1=self.b1,
@@ -598,7 +1063,12 @@ class SparseOptimizer:
             ids.reshape(-1), grads.reshape(-1, grads.shape[-1]),
             capacity=capacity, vocab=table.shape[0], max_distinct=max_distinct)
         return self.update_unique(table, slots, uids, g, valid,
-                                  embedding_dim=embedding_dim, sr_key=sr_key)
+                                  embedding_dim=embedding_dim, sr_key=sr_key,
+                                  qscale=qscale)
+
+
+_INLINE_QSCALE = ("fat-line int8 tables carry their (scale, offset) sidecar "
+                  "in-line — qscale is only for plain 2D int8 tables")
 
 
 def sparse_optimizer(kind: str, lr: float, weight_decay: float = 0.0,

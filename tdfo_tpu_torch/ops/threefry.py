@@ -1,11 +1,11 @@
 """A bitwise copy of the ``jax.random`` pieces that stochastic rounding uses:
-threefry2x32 with ``PRNGKey``, ``fold_in``, ``split``, ``bits`` (uint32)
-and ``randint`` (int32).
+threefry2x32 with ``PRNGKey``, ``fold_in``, ``split``, ``bits`` (uint32),
+``randint`` (int32) and ``uniform`` (f32).
 
 Port of ``jax/_src/prng.py`` (``threefry_seed``, ``_threefry2x32_lowering``,
 ``threefry_fold_in``, ``_threefry_split_foldlike``,
 ``_threefry_random_bits_partitionable``) and ``jax/_src/random.py``
-(``_randint``), in the ``jax_threefry_partitionable = True`` layout that
+(``_randint``, ``_uniform``), in the ``jax_threefry_partitionable = True`` layout that
 jax 0.9 defaults to: ``split`` and ``bits`` hash the 64-bit iota of the
 output shape as (hi, lo) count pairs, and ``bits`` returns ``bits1 ^
 bits2``.
@@ -29,7 +29,7 @@ import math
 import torch
 
 __all__ = ["Key", "PRNGKey", "fold_in", "split", "bits", "randint",
-           "threefry2x32"]
+           "threefry2x32", "uniform"]
 
 Key = tuple[int, int]
 
@@ -113,3 +113,21 @@ def randint(key: Key, shape=(), minval: int = 0, maxval: int = 2**31 - 1,
     offset = offset % span
     out = (minval + offset) & _M32
     return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def uniform(key: Key, shape=(), minval: float = 0.0, maxval: float = 1.0,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, jnp.float32, minval, maxval)``: the
+    top 23 bits of each 32-bit draw become the mantissa of a float in
+    ``[1, 2)``, minus 1, then scaled and clamped below at ``minval``, as jax
+    does.  The scale-and-shift rounds once, as the fused multiply-add XLA
+    compiles it into (the f32 product is exact in f64).  Returns an f32
+    tensor."""
+    b = bits(key, shape, device)
+    fb = (b >> 9) | 0x3F800000  # below 2**31: fits an int32 as it is
+    floats = fb.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    span = (hi - lo).to(torch.float64)
+    out = (floats.to(torch.float64) * span + lo.to(torch.float64)).to(torch.float32)
+    return torch.maximum(lo, out)

@@ -229,9 +229,11 @@ class CheckpointManager:
                 f"compatibility stamps {saved_stamps!r}, but this run "
                 f"expects {(stamps or {})!r}.  The state trees may restore "
                 "cleanly anyway (identical shapes) with values paired to "
-                "the WRONG ids or dtypes — e.g. a bf16-stored table resumed "
-                "into an f32 run — so resuming is refused.  Re-run with the "
-                "matching configuration, or retrain.")
+                "the WRONG ids — e.g. a hot/cold embedding run resumed "
+                "under a different hot-id set — so resuming is refused.  "
+                "Re-run with the matching artifacts (same data_dir "
+                "hot_ids.json), or retrain."
+            )
         path = self._step_dir(step_id) / _PAYLOAD
         try:
             payload = retry_call(torch.load, path, map_location="cpu",

@@ -19,15 +19,31 @@ and ``update_unique``, except small plain adam arrays, which keep the
 raw-id dense tier.  Gathers follow the reference's: a negative id reads
 row 0 of its array, a fat line past the table reads NaN.
 
-Narrow storage: every array whose table or optimizer slot is stored in
-bf16 gets a stochastic-rounding key per step, ``ops.quant.sr_key(step,
-array name)`` (reference ``_sr_key``), derived on the host from
-``state.step``; f32 arrays get None, so their update is what it was.  The
-gathered rows widen to f32 before the model sees them.
+Narrow storage: every array whose table is stored in bf16 or int8, or
+whose optimizer slot is bf16, gets a stochastic-rounding key per step,
+``ops.quant.sr_key(step, array name)`` (reference ``_sr_key``), derived on
+the host from ``state.step``; f32 arrays get None, so their update is what
+it was.  The gathered rows widen to f32 before the model sees them.  A
+plain int8 array's ``__qscale__/`` sidecar is storage, not a parameter: it
+has no slots and is written by its array's update.
 
-Only ``mode = "gspmd"`` is ported; the grouped exchange, hot/cold tables,
-the update cache and the pipelined step are not ported yet (``ROADMAP.md``
-Queue A items 12 and 13).
+Hot/cold collections: each split table's ids route once per step into
+head positions and cold ids (hot hits become -1, padding for every later
+stage); the forward selects the head's rows at hot hits, and the head
+takes ``SparseOptimizer.dense_update`` (``index_add_`` segment sums and one
+dense ``[K, D]`` step, where the reference contracts a one-hot matrix on
+the MXU: the sums run in another order).  Fully hot tables have no cold
+side at all.
+
+Update cache (a state whose slots carry ``coll.init_caches``'s entries):
+each cached array's update runs in its cache
+(``SparseOptimizer.cache_update[_unique]``) and every gather of it is
+overlaid with the cached rows, so nothing reads a stale table row; the
+write-back is :func:`make_cache_flush_fn`'s, which the trainer runs every
+``flush_every`` steps and before every save and eval.
+
+Only ``mode = "gspmd"`` is ported; the grouped exchange and the pipelined
+step are not ported yet (``ROADMAP.md`` Queue A item 12).
 """
 
 from __future__ import annotations
@@ -39,14 +55,23 @@ from typing import Any, Callable
 import torch
 
 from tdfo_tpu_torch.ops.kernels.fat_line_update import SENTINEL
+from tdfo_tpu_torch.ops.quant import bytes_to_f32, dequantize_rows
 from tdfo_tpu_torch.ops.quant import sr_key as _make_sr_key
 from tdfo_tpu_torch.ops.sparse import (
     SparseOptimizer,
     _segment_sum,
+    cache_lookup_rows,
+    cache_overlay_rows,
     dedupe_ids,
     dedupe_rows_and_lines,
 )
-from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection, take_fill
+from tdfo_tpu_torch.parallel.embedding import (
+    CACHE_PREFIX,
+    QSCALE_PREFIX,
+    ShardedEmbeddingCollection,
+    qscale_name,
+    take_fill,
+)
 from tdfo_tpu_torch.train.state import (
     clone_tree,
     load_optimizer_tensors,
@@ -54,15 +79,28 @@ from tdfo_tpu_torch.train.state import (
     optimizer_tensors,
 )
 
-__all__ = ["SparseTrainState", "make_sparse_train_step"]
+__all__ = ["SparseTrainState", "make_cache_flush_fn", "make_sparse_train_step"]
 
 
 def _array_is_narrow(state: "SparseTrainState", aname: str) -> bool:
-    """True when ``aname``'s table or any floating optimizer slot is stored
-    in bf16: the signal that its update needs a stochastic-rounding key."""
-    if state.tables[aname].dtype == torch.bfloat16:
+    """True when ``aname``'s table is stored in bf16 or int8, or any
+    floating optimizer slot in bf16: the signal that its update needs a
+    stochastic-rounding key."""
+    if state.tables[aname].dtype in (torch.bfloat16, torch.int8):
         return True
     return any(t.dtype == torch.bfloat16 for t in state.slots[aname])
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a tensor tree (dicts, lists, tuples) into ``dst``'s tensors."""
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_into(v, src[k])
+    elif isinstance(dst, (list, tuple)):
+        for a, b in zip(dst, src):
+            _copy_into(a, b)
+    else:
+        dst.copy_(src)
 
 
 @dataclass
@@ -86,20 +124,24 @@ class SparseTrainState:
             optimizer=make_adamw(backbone.parameters(), learning_rate,
                                  weight_decay),
             tables=dict(tables),
-            slots={n: sparse_opt.init(t) for n, t in tables.items()},
+            # int8 sidecars are storage, not optimized parameters
+            slots={n: (() if n.startswith(QSCALE_PREFIX) else sparse_opt.init(t))
+                   for n, t in tables.items()},
             sparse_opt=sparse_opt,
         )
 
     def state_dict(self) -> dict:
         """The tensor-dict form ``train/checkpoint.py`` saves: ``step`` (the
         stochastic-rounding keys fold it, so it comes back exactly), the
-        backbone, AdamW's tensors, the tables and their slots."""
+        backbone, AdamW's tensors, the tables (int8 sidecars included) and
+        their slots (update caches included, as dicts)."""
         return {
             "step": self.step,
             "backbone": dict(self.backbone.state_dict()),
             "optimizer": optimizer_tensors(self.optimizer),
             "tables": dict(self.tables),
-            "slots": {k: list(v) for k, v in self.slots.items()},
+            "slots": {k: (dict(v) if isinstance(v, dict) else list(v))
+                      for k, v in self.slots.items()},
         }
 
     def load_state_dict(self, tree: dict) -> None:
@@ -112,8 +154,7 @@ class SparseTrainState:
             for k, v in tree["tables"].items():
                 self.tables[k].copy_(v)
             for k, v in tree["slots"].items():
-                for dst, src in zip(self.slots[k], v):
-                    dst.copy_(src)
+                _copy_into(self.slots[k], v)
 
     def snapshot(self) -> dict:
         """Device copy of everything a step mutates (the non-finite guard's
@@ -147,78 +188,155 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
             "item 12)")
     features = list(coll.features())
     takes_gen = "generator" in inspect.signature(forward).parameters
+    hot_tables = coll.hot_tables()
+    feat_table = {f: coll.resolve(f)[1].name for f in features}
+    hot_by_table = {t: [f for f in features if feat_table[f] == t]
+                    for t in hot_tables}
+    hot_feats = {f for t in hot_tables for f in hot_by_table[t]}
+    # features of fully hot tables have no cold side: no cold gather,
+    # dedupe or update
+    full_hot_feats = {f for f in hot_feats if coll.hot_full(feat_table[f])}
     by_table: dict[str, list[str]] = {}
     for f in features:
-        by_table.setdefault(coll.resolve(f)[0], []).append(f)
+        if f not in full_hot_feats:
+            by_table.setdefault(coll.resolve(f)[0], []).append(f)
 
     def _concat_ids(feats, ids, rows_per_line: int = 1):
         """Stacked ids of ``feats`` (offsets added), per-feature sizes, and
-        the static distinct bound: rows, or with ``rows_per_line`` > 1
-        LINES (+1 per feature: a member may straddle one extra line at an
-        unaligned stack offset)."""
+        the static distinct bound: rows (minus the hot head's rows, which
+        never reach the cold side), or with ``rows_per_line`` > 1 LINES (+1
+        per feature: a member may straddle one extra line at an unaligned
+        stack offset)."""
         id_list, sizes, bound = [], [], 0
         for f in feats:
             _, spec, offset = coll.resolve(f)
             i = ids[f].to(torch.int64)
-            # negative (padding) ids stay negative: an offset would alias
-            # them into the previous stack member's rows
+            # negative (padding or routed-to-hot) ids stay negative: an
+            # offset would alias them into the previous stack member's rows
             flat = torch.where(i >= 0, i + offset, torch.full_like(i, -1)).reshape(-1)
             id_list.append(flat)
             sizes.append(flat.shape[0])
             if rows_per_line == 1:
-                bound += min(flat.shape[0], spec.num_embeddings)
+                cold_rows = spec.num_embeddings - coll.hot_count(spec.name)
+                bound += min(flat.shape[0], cold_rows)
             else:
                 bound += min(flat.shape[0],
                              -(-spec.num_embeddings // rows_per_line) + 1)
         return torch.cat(id_list), sizes, bound
 
-    def _dedup_forward(tables, ids):
-        """The dedup lookup: ``(embs, ctx)`` with ``ctx[array]`` the
-        routing its update reuses."""
-        embs, ctx = {}, {}
-        for aname, feats in by_table.items():
-            table = tables[aname]
-            all_ids, sizes, bound = _concat_ids(feats, ids)
-            total = all_ids.shape[0]
-            # +1: negative ids dedupe to ONE sentinel slot past the bound
-            cap = -(-(bound + 1) // 8) * 8 if bound + 1 < total else None
-            if table.dim() == 3:
-                lay = coll.fat_layout_for(aname)
-                _, _, bound_l = _concat_ids(feats, ids, rows_per_line=lay.r)
-                cap_r = cap if cap is not None else total
-                cap_l = min(cap_r, -(-(bound_l + 1) // 8) * 8)
-                seg, ulines, row_lidx, row_slot = dedupe_rows_and_lines(
-                    all_ids, capacity_rows=cap_r, capacity_lines=cap_l,
-                    rows_per_line=lay.r)
-                # whole lines (sentinel -> line 0), then each distinct row's
-                # slot: the sentinel row reads row 0, as the default lookup
-                lines = take_fill(table, torch.where(
-                    ulines < SENTINEL, ulines, 0)).contiguous()
-                pick = (torch.clamp(row_lidx.to(torch.int64), max=cap_l - 1)
-                        * lay.r + row_slot)
-                rows = lines.view(cap_l * lay.r, lay.w)[pick, :lay.d]
-                ctx[aname] = ("routed", ulines, seg, row_lidx, row_slot, lines)
-            else:
-                uids, seg, valid = dedupe_ids(all_ids, capacity=cap,
-                                              max_distinct=cap)
-                rows = take_fill(table, torch.where(valid, uids.to(torch.int64), 0))
-                ctx[aname] = ("rows", uids, seg, valid)
-            off = 0
-            for f, n_f in zip(feats, sizes):
-                e = take_fill(rows, seg[off:off + n_f]).to(torch.float32)
-                embs[f] = e.reshape(*ids[f].shape, e.shape[-1])
-                off += n_f
-        return embs, ctx
-
     def step(state: SparseTrainState, batch, generator=None):
         if batch_transform is not None:
             batch = batch_transform(batch)
         ids = {f: batch[f] for f in features}
+        # the cache is on when the state carries coll.init_caches's entries
+        cached = {k[len(CACHE_PREFIX):] for k in state.slots
+                  if k.startswith(CACHE_PREFIX)}
+        hot_pos: dict[str, torch.Tensor] = {}
+        cold_ids = dict(ids)
+        for f in hot_feats:
+            hot_pos[f], cold_ids[f] = coll.route_ids(f, ids[f])
+
+        def merge_hot(f, cold_vec):
+            """The hot head's rows at hot hits (identity off hot/cold)."""
+            hp = hot_pos.get(f)
+            if hp is None:
+                return cold_vec
+            hot = state.tables[coll.hot_array_name(feat_table[f])]
+            hot_vec = hot[torch.clamp(hp.to(torch.int64), min=0)].to(torch.float32)
+            if cold_vec is None:  # fully hot: no cold side
+                return hot_vec
+            return torch.where((hp >= 0)[..., None], hot_vec, cold_vec)
+
+        def overlay_lookup(embs, feats):
+            """Serve cached rows into ``coll.lookup``'s vectors, at the row
+            each position's gather read (the reference's clamp rule), so
+            the vector equals the uncached path's."""
+            for f in feats:
+                aname, _, off = coll.resolve(f)
+                if aname not in cached or f in full_hot_feats:
+                    continue
+                cache = state.slots[CACHE_PREFIX + aname]
+                hp = hot_pos.get(f)
+                if hp is None:
+                    v = state.tables[aname].shape[0]
+                    gid = torch.clamp(ids[f].to(torch.int64) + off, 0, v - 1)
+                else:
+                    cold = cold_ids[f].to(torch.int64)
+                    gid = torch.where(cold >= 0, cold + off, 0)
+                cur, hit = cache_lookup_rows(cache, gid)
+                if hp is not None:
+                    hit = hit & (hp < 0)
+                embs[f] = torch.where(hit[..., None], cur.to(embs[f].dtype), embs[f])
+            return embs
+
+        def dedup_forward():
+            """The dedup lookup: ``(embs, ctx)`` with ``ctx[array]`` the
+            routing its update reuses."""
+            embs, ctx = {}, {}
+            for aname, feats in by_table.items():
+                table = state.tables[aname]
+                d = coll.array_embedding_dim(aname)
+                all_ids, sizes, bound = _concat_ids(feats, cold_ids)
+                total = all_ids.shape[0]
+                # +1: negative ids dedupe to ONE sentinel slot past the bound
+                cap = -(-(bound + 1) // 8) * 8 if bound + 1 < total else None
+                if table.dim() == 3:
+                    lay = coll.fat_layout_for(aname)
+                    _, _, bound_l = _concat_ids(feats, cold_ids,
+                                                rows_per_line=lay.r)
+                    cap_r = cap if cap is not None else total
+                    cap_l = min(cap_r, -(-(bound_l + 1) // 8) * 8)
+                    seg, ulines, row_lidx, row_slot = dedupe_rows_and_lines(
+                        all_ids, capacity_rows=cap_r, capacity_lines=cap_l,
+                        rows_per_line=lay.r)
+                    # whole lines (sentinel -> line 0), then each distinct
+                    # row's slot: the sentinel row reads row 0, as the
+                    # default lookup; int8 lines take the codes and their
+                    # sidecar bytes and decode the small block
+                    lidx = torch.where(ulines < SENTINEL, ulines, 0)
+                    lines = (table[lidx.to(torch.int64)]
+                             if table.dtype == torch.int8
+                             else take_fill(table, lidx)).contiguous()
+                    pick = (torch.clamp(row_lidx.to(torch.int64), max=cap_l - 1)
+                            * lay.r + row_slot)
+                    span = d + 8 if lay.dtype == "int8" else d
+                    rows = lines.view(cap_l * lay.r, lay.w)[pick, :span]
+                    if lay.dtype == "int8":
+                        rows = dequantize_rows(rows[:, :d],
+                                               bytes_to_f32(rows[:, d:span]))
+                    ctx[aname] = ("routed", ulines, seg, row_lidx, row_slot, lines)
+                else:
+                    uids, seg, valid = dedupe_ids(all_ids, capacity=cap,
+                                                  max_distinct=cap)
+                    gid = torch.where(valid, uids.to(torch.int64), 0)
+                    if coll.array_is_int8(aname):
+                        rows = dequantize_rows(
+                            table[gid], state.tables[qscale_name(aname)][gid])
+                    else:
+                        rows = take_fill(table, gid)
+                    if aname in cached:
+                        # sentinel slots read row 0, and so overlay row 0
+                        rows = cache_overlay_rows(
+                            state.slots[CACHE_PREFIX + aname], gid, rows)
+                    ctx[aname] = ("rows", uids, seg, valid)
+                rows = rows.to(torch.float32)
+                off = 0
+                for f, n_f in zip(feats, sizes):
+                    e = take_fill(rows, seg[off:off + n_f])
+                    embs[f] = merge_hot(f, e.reshape(*ids[f].shape, e.shape[-1]))
+                    off += n_f
+            for f in full_hot_feats:
+                embs[f] = merge_hot(f, None)
+            return embs, ctx
+
         with torch.no_grad():
             if dedup_lookup:
-                gathered, ctx = _dedup_forward(state.tables, ids)
+                gathered, ctx = dedup_forward()
             else:
-                gathered, ctx = coll.lookup(state.tables, ids, mode=mode), {}
+                # coll.lookup routes hot/cold itself
+                gathered = overlay_lookup(
+                    coll.lookup(state.tables, ids, mode=mode), features)
+                ctx = {}
         embs = {f: v.requires_grad_(True) for f, v in gathered.items()}
         out = (forward(embs, batch, generator=generator) if takes_gen
                else forward(embs, batch))
@@ -237,12 +355,18 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
             return (_make_sr_key(state.step, aname)
                     if _array_is_narrow(state, aname) else None)
 
+        def qscale_of(aname):
+            """A plain int8 array's sidecar (fat int8 carries it in-line)."""
+            return state.tables.get(qscale_name(aname))
+
         with torch.no_grad():
             for aname, feats in by_table.items():
                 table = state.tables[aname]
+                ck = CACHE_PREFIX + aname
                 all_grads = torch.cat([g_embs[f].reshape(-1, g_embs[f].shape[-1])
                                        for f in feats]).to(torch.float32)
-                # small plain adam arrays keep the raw-id dense tier
+                # small plain adam arrays keep the raw-id dense tier (int8
+                # ones then take update's row path, never the dense sweep)
                 small_adam = (opt.kind == "adam" and table.dim() == 2
                               and table.shape[0] <= opt.small_vocab_threshold)
                 if aname in ctx and not small_adam:
@@ -252,27 +376,79 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                     if c[0] == "routed":
                         _, ulines, seg, row_lidx, row_slot, lines = c
                         g_u = _segment_sum(all_grads, seg, row_lidx.shape[0])
-                        state.tables[aname], state.slots[aname] = opt.update_routed(
+                        opt.update_routed(
                             table, state.slots[aname], ulines, g_u, row_lidx,
                             row_slot, lines, embedding_dim=d,
                             sr_key=_sr_key(aname))
-                    else:
-                        _, uids, seg, valid = c
-                        g_u = _segment_sum(all_grads, seg, uids.shape[0])
-                        g_u = torch.where(valid[:, None], g_u, 0.0)
-                        state.tables[aname], state.slots[aname] = opt.update_unique(
-                            table, state.slots[aname], uids, g_u, valid,
-                            embedding_dim=d, sr_key=_sr_key(aname))
+                        continue
+                    _, uids, seg, valid = c
+                    g_u = _segment_sum(all_grads, seg, uids.shape[0])
+                    g_u = torch.where(valid[:, None], g_u, 0.0)
+                    if aname in cached:
+                        # the cached tier: the table and its slots are
+                        # read, never written, until the flush
+                        state.slots[ck], _ = opt.cache_update_unique(
+                            state.slots[ck], table, state.slots[aname], uids,
+                            g_u, valid, step=state.step,
+                            sr_key=_sr_key(aname), qscale=qscale_of(aname))
+                        continue
+                    opt.update_unique(table, state.slots[aname], uids, g_u,
+                                      valid, embedding_dim=d,
+                                      sr_key=_sr_key(aname),
+                                      qscale=qscale_of(aname))
                     continue
-                all_ids, _, bound = _concat_ids(feats, ids)
+                all_ids, _, bound = _concat_ids(feats, cold_ids)
                 # dedupe capacity = the proven distinct bound when tighter
                 # than the id count (reference ``_concat_ids``)
                 md = -(-bound // 8) * 8 if bound < all_ids.shape[0] else None
-                state.tables[aname], state.slots[aname] = coll.sparse_update(
+                if aname in cached and not small_adam:
+                    state.slots[ck], _ = opt.cache_update(
+                        state.slots[ck], table, state.slots[aname], all_ids,
+                        all_grads, step=state.step, capacity=md,
+                        max_distinct=md, sr_key=_sr_key(aname),
+                        qscale=qscale_of(aname))
+                    continue
+                coll.sparse_update(
                     opt, aname, table, state.slots[aname], all_ids, all_grads,
-                    max_distinct=md, sr_key=_sr_key(aname))
+                    max_distinct=md, sr_key=_sr_key(aname),
+                    qscale=qscale_of(aname))
+            # hot heads: one segment sum and one dense [K, D] step per table
+            for tname in hot_tables:
+                hname = coll.hot_array_name(tname)
+                feats = hot_by_table[tname]
+                hp_all = torch.cat([hot_pos[f].reshape(-1) for f in feats])
+                g_all = torch.cat([g_embs[f].reshape(-1, g_embs[f].shape[-1])
+                                   for f in feats])
+                opt.dense_update(state.tables[hname], state.slots[hname],
+                                 hp_all, g_all, sr_key=_sr_key(hname))
         state.step += 1
         loss = loss.detach()
         return state, ((loss, aux.detach()) if with_aux else loss)
 
     return step
+
+
+def make_cache_flush_fn():
+    """The update cache's write-back: ``flush(state) -> (state,
+    overflow)``.  Per cached array it bit-copies every dirty row and its
+    mirrors into the table and slots (int8: codes and sidecar), evicts
+    down to the hottest half and returns the interval's admission-overflow
+    count (``overflow``: array name -> 0-dim device tensor).  A non-zero
+    count means lost updates; the caller must fail.  A state without
+    caches flushes to itself."""
+
+    def flush(state: SparseTrainState):
+        overflow = {}
+        with torch.no_grad():
+            for key in sorted(state.slots):
+                if not key.startswith(CACHE_PREFIX):
+                    continue
+                aname = key[len(CACHE_PREFIX):]
+                qs = state.tables.get(qscale_name(aname))
+                out = state.sparse_opt.cache_flush(
+                    state.slots[key], state.tables[aname], state.slots[aname],
+                    qscale=qs)
+                state.slots[key], overflow[aname] = out[0], out[-1]
+        return state, overflow
+
+    return flush

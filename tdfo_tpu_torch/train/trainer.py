@@ -17,9 +17,18 @@ Regimes:
   them ``"replicated"``, which on one device is the same storage), the
   dense backbone under AdamW.  ``[embeddings] table_dtype`` (and its
   per-table overrides) and ``slot_dtype`` set storage dtypes (bf16 writes
-  stochastically rounded); ``mixed_precision`` computes the backbone in
+  stochastically rounded; int8 rowwise with its (scale, offset) sidecar,
+  or in-line in int8 fat lines); ``hot_vocab > 0`` splits the tables
+  listed in the ETL's ``hot_ids.json`` into hot heads and cold arrays;
+  ``cache_rows > 0`` keeps the row-sparse arrays' updates in a device
+  cache written back every ``flush_every`` steps and before every save
+  and eval (an admission overflow fails the run).  Their checkpoints are
+  stamped (hot-set digests, storage dtypes, the sidecar's layout and
+  storage, the cache's knobs), and a restore under other values refuses.
+  ``mixed_precision`` computes the backbone in
   ``core.precision.compute_dtype`` (f16 on the card, f32 on the CPU).
-* Bert4Rec (``model_parallel`` true, or false: ``"replicated"``): the item
+* Bert4Rec (``model_parallel`` true, or false: ``"replicated"``; f32
+  whatever ``mixed_precision`` says, as the reference): the item
   table (fat lines above ``fused_table_threshold`` rows) under the
   row-sparse optimizer, the transformer under AdamW, attention ``"full"`` or
   ``"flash"`` (the hand-written kernels); masked-LM loss with dropout drawn
@@ -131,6 +140,19 @@ def pad_batch(batch: dict[str, np.ndarray], size: int) -> tuple[dict[str, np.nda
     return out, w
 
 
+def _check_cache_overflow(overflow: dict) -> None:
+    """Fail loudly on update-cache admission overflow: ids past the free
+    capacity never entered the cache, so their updates were lost."""
+    bad = {a: int(v) for a, v in overflow.items() if int(v) > 0}
+    if bad:
+        raise RuntimeError(
+            f"update-cache admission overflow (distinct ids whose updates "
+            f"were LOST): {bad}.  embeddings.cache_rows is too small for "
+            "the per-flush-interval working set — raise cache_rows (the "
+            "retained half must cover the interval's distinct touched "
+            "rows) or lower flush_every.")
+
+
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every knob value whose code path the
     port does not have yet, naming the ``ROADMAP.md`` item that ports it."""
@@ -146,13 +168,6 @@ def refuse_unported(cfg: Config) -> None:
          "a multi-device [mesh]", 12),
         (emb.grouped_a2a, "embeddings.grouped_a2a", 12),
         (cfg.train.pipeline_overlap, "train.pipeline_overlap", 12),
-        (cfg.mixed_precision and cfg.model == "bert4rec",
-         "mixed_precision = true with model = \"bert4rec\"", 13),
-        (emb.table_dtype == "int8"
-         or any(d == "int8" for _, d in emb.table_dtype_overrides),
-         "int8 table storage", 13),
-        (emb.hot_vocab > 0, "hot/cold tables (hot_vocab > 0)", 13),
-        (emb.cache_rows > 0, "the update cache (cache_rows > 0)", 13),
         (bool(cfg.planner.plan), "planner.plan", 14),
         (cfg.write_format != "parquet", f"write_format = {cfg.write_format!r}", 16),
         (cfg.faults.any(), "[faults] injection", 16),
@@ -191,7 +206,9 @@ class Trainer:
         self._seq = config.model == "bert4rec"
         self._dense = config.model == "twotower" and not config.model_parallel
         self._ckpt = None
-        self._ckpt_stamps = None  # compatibility stamps (storage dtypes)
+        self._ckpt_stamps = None  # compatibility stamps (dtypes, hot sets)
+        self._cache_flush = None  # the update cache's write-back
+        self._flush_every = 0  # its cadence in train steps
         self._train_auc = None
         if out_dir is not None:
             _retry.set_failure_log(Path(out_dir) / "retries.jsonl")
@@ -297,16 +314,50 @@ class Trainer:
         specs = [dataclasses.replace(
             s, dtype=storage_dtype(cfg.embeddings.dtype_for(s.name)))
             for s in specs]
-        # a bf16-stored table restored into an f32 run (or the reverse)
-        # would change every later update: stamp the storage dtypes;
-        # defaults-only runs write no stamp (the reference's rule)
+        hot_ids = None
+        if cfg.embeddings.hot_vocab > 0:
+            from tdfo_tpu_torch.data.hot_ids import load_hot_ids
+
+            artifact = load_hot_ids(cfg.data_dir)
+            if artifact is None:
+                raise ValueError(
+                    "embeddings.hot_vocab > 0 but no hot_ids.json under "
+                    f"{cfg.data_dir!r} — re-run preprocessing with this "
+                    "config to emit the hot/cold remap artifact"
+                )
+            # the artifact keys by column; keep the tables this model serves
+            served = {f for s in specs for f in s.features} | {s.name for s in specs}
+            hot_ids = {k: v for k, v in artifact.items() if k in served} or None
+        cache_rows = cfg.embeddings.cache_rows
+        coll = ShardedEmbeddingCollection(specs, fused_kind=cfg.sparse_optimizer,
+                                          stack_tables=cfg.stack_tables,
+                                          hot_ids=hot_ids, cache_rows=cache_rows)
+        # stamps refuse a restore that would pair values with the wrong ids
+        # or dtypes: the hot sets, the storage dtypes (defaults-only runs
+        # write none, the reference's rule), the int8 sidecar's layout and
+        # where it lives, and the update cache's knobs
+        stamps: dict = {}
+        if coll.hot_ids:
+            stamps["hot_ids"] = coll.hot_digest()
         tstamp = {s.name: str(s.dtype).removeprefix("torch.") for s in specs}
         if (any(v != "float32" for v in tstamp.values())
                 or cfg.embeddings.slot_dtype != "float32"):
-            self._ckpt_stamps = {"table_dtype": tstamp,
-                                 "slot_dtype": cfg.embeddings.slot_dtype}
-        coll = ShardedEmbeddingCollection(specs, fused_kind=cfg.sparse_optimizer,
-                                          stack_tables=cfg.stack_tables)
+            stamps["table_dtype"] = tstamp
+            stamps["slot_dtype"] = cfg.embeddings.slot_dtype
+        if any(v == "int8" for v in tstamp.values()):
+            from tdfo_tpu_torch.ops.quant import QSCALE_LAYOUT
+
+            stamps["qscale_layout"] = QSCALE_LAYOUT
+            fat_inline = {s.name: "fat-inline" for s in specs
+                          if s.dtype == torch.int8 and s.fused}
+            if fat_inline:
+                stamps["qscale_storage"] = fat_inline
+        if cache_rows > 0:
+            stamps["update_cache"] = {
+                "cache_rows": int(cache_rows),
+                "flush_every": int(cfg.embeddings.flush_every),
+            }
+        self._ckpt_stamps = stamps or None
         tables = coll.init(cfg.seed, device=self.device)
         gen = torch.Generator().manual_seed(cfg.seed + 1)
         dtype = compute_dtype(cfg.mixed_precision, self.device)
@@ -328,6 +379,17 @@ class Trainer:
                                         weight_decay=cfg.weight_decay,
                                         slot_dtype=cfg.embeddings.slot_dtype),
             learning_rate=cfg.learning_rate, weight_decay=cfg.weight_decay)
+        if cache_rows > 0:
+            # the caches ride in the slots (checkpoints and rollback
+            # snapshots carry them); the write-back runs every flush_every
+            # steps and before every save and eval
+            from tdfo_tpu_torch.train.sparse_step import make_cache_flush_fn
+
+            caches = coll.init_caches(self.state.tables, self.state.sparse_opt)
+            if caches:
+                self.state.slots.update(caches)
+                self._cache_flush = make_cache_flush_fn()
+                self._flush_every = cfg.embeddings.flush_every
         self.train_step = make_sparse_train_step(
             coll, ctr_sparse_forward(backbone, with_logits=True),
             mode=cfg.lookup_mode, with_aux=True, dedup_lookup=cfg.dedup_lookup)
@@ -515,6 +577,9 @@ class Trainer:
         def flush_checks() -> None:
             nonlocal loss_sum, contributed, consec_bad, snap
             nonlocal steps_at_snap, pending_steps
+            for over in pending_over:
+                _check_cache_overflow(over)
+            pending_over.clear()
             rolled = False
             vals = (torch.cat([x.reshape(-1) for x, _, _ in pending]).tolist()
                     if pending else [])  # one host fetch for the window
@@ -547,6 +612,11 @@ class Trainer:
 
         ckpt_n = cfg.checkpoint_every_n_steps if self._ckpt is not None else 0
         next_ckpt = (n_steps // ckpt_n + 1) * ckpt_n if ckpt_n else None
+        # the cache's write-back cadence: the periodic flush's overflow
+        # counts queue like the losses and are checked with them
+        flush_n = self._flush_every if self._cache_flush is not None else 0
+        next_flush = (n_steps // flush_n + 1) * flush_n if flush_n else None
+        pending_over: list[dict] = []
         profiling = cfg.profile and epoch == 0
         prof = None
         try:
@@ -562,6 +632,10 @@ class Trainer:
                 gstep = self._logged_steps + n_steps
                 pending.append((losses, k, gstep))
                 pending_steps += k
+                if next_flush is not None and n_steps >= next_flush:
+                    self.state, over = self._cache_flush(self.state)
+                    pending_over.append(over)
+                    next_flush = (n_steps // flush_n + 1) * flush_n
                 if pending_steps >= flush_every:
                     flush_checks()
                 if prof is not None and n_steps >= 20:
@@ -569,8 +643,10 @@ class Trainer:
                     prof, profiling = None, False
                 if next_ckpt is not None and n_steps >= next_ckpt:
                     # never persist an unverified window: a detected-NaN
-                    # state rolls back BEFORE the save
+                    # state rolls back BEFORE the save; checkpoints hold
+                    # flushed tables
                     flush_checks()
+                    self._flush_cache_sync()
                     self._save(gstep, {"epoch": epoch, "step": n_steps,
                                        "epoch_complete": False,
                                        "global_step": gstep,
@@ -586,6 +662,7 @@ class Trainer:
             if prof is not None:  # the epoch ended (or raised) mid-window
                 self._stop_profile(prof, epoch)
         flush_checks()
+        self._flush_cache_sync()  # epoch boundary: leave the tables flushed
         dt = time.perf_counter() - t0
         ran = n_steps - start_step  # steps executed in this session
         self._logged_steps += n_steps
@@ -597,6 +674,14 @@ class Trainer:
                         examples_per_sec=ran * cfg.per_device_train_batch_size
                         / max(dt, 1e-9), **extra)
         return avg
+
+    def _flush_cache_sync(self) -> None:
+        """Write the update cache back now and check that no admission
+        overflowed (no-op when the cache is off)."""
+        if self._cache_flush is None:
+            return
+        self.state, over = self._cache_flush(self.state)
+        _check_cache_overflow(over)
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -656,7 +741,9 @@ class Trainer:
 
     def evaluate(self, epoch: int) -> dict[str, float]:
         """Eval metrics over the eval split: loss and streaming AUC
-        (TwoTower), Recall/NDCG@k (Bert4Rec); one host fetch at the end."""
+        (TwoTower), Recall/NDCG@k (Bert4Rec); one host fetch at the end.
+        The update cache is flushed first: eval reads the tables."""
+        self._flush_cache_sync()
         if self._seq:
             return self._evaluate_bert4rec(epoch)
         loss_sum = torch.zeros((), device=self.device)

@@ -2,11 +2,12 @@
 the same seed writes a byte-identical ``train.txt``, and
 ``run_criteo_preprocessing`` on it writes byte-identical parquet shards and
 ``size_map.json`` (small chunks, so the streaming passes and the per-chunk
-eval shard rotation are exercised).  ``hot_vocab > 0`` refuses, naming its
-item."""
+eval shard rotation are exercised).  With ``hot_vocab > 0`` both write the
+same ``hot_ids.json`` byte for byte."""
+
+import json
 
 import jax  # noqa: F401
-import pytest
 
 from tdfo_tpu.data import criteo_preprocessing as jprep
 from tdfo_tpu.data import synthetic as jsyn
@@ -35,5 +36,17 @@ def test_synth_and_etl_byte_identical(tmp_path):
 
 
 def test_hot_vocab_refuses(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tprep.run_criteo_preprocessing(tmp_path, hot_vocab=8)
+    """``hot_vocab > 0`` (refused until the hot/cold tables were ported)
+    now writes the reference's ``hot_ids.json`` byte for byte: per table the
+    smallest frequency-ranked prefix covering ``hot_fraction`` of the
+    pass-1 lookup mass (id 0 folding the OOV mass), capped at
+    ``hot_vocab`` ids."""
+    j, t = tmp_path / "jax", tmp_path / "torch"
+    jsyn.write_synthetic_criteo(j, n_rows=400, seed=6)
+    tsyn.write_synthetic_criteo(t, n_rows=400, seed=6)
+    kw = dict(KW, file_num=2, hot_vocab=8, hot_fraction=0.7)
+    assert jprep.run_criteo_preprocessing(j, **kw) == tprep.run_criteo_preprocessing(t, **kw)
+    got = (t / "hot_ids.json").read_bytes()
+    assert got == (j / "hot_ids.json").read_bytes()
+    tables = json.loads(got)["tables"]
+    assert len(tables) == 26 and all(0 < len(v) <= 8 for v in tables.values())

@@ -37,10 +37,14 @@ def test_line_layout_geometry(kind):
 
 
 def test_line_layout_refuses_narrow_storage():
-    """int8 byte lines still refuse (item 13); bf16 lines have the
-    reference's (f32) geometry."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfl.line_layout(16, "adam", "int8")
+    """int8 byte lines refuse rowwise_adagrad in the reference's words and
+    otherwise have the reference's byte geometry (``test_torch_int8.py``
+    holds their bytes); bf16 lines have the reference's (f32) geometry."""
+    with pytest.raises(ValueError, match="rowwise_adagrad"):
+        tfl.line_layout(16, "rowwise_adagrad", "int8")
+    for kind in ("sgd", "adagrad", "adam"):
+        j, t = jpk.line_layout(16, kind, jnp.int8), tfl.line_layout(16, kind, "int8")
+        assert (t.w, t.r, t.tiles, t.need, t.dtype) == (j.w, j.r, j.tiles, j.need, "int8")
     for kind in KINDS:
         for d in (8, 16, 64, 200):
             j = jpk.line_layout(d, kind, jnp.bfloat16)

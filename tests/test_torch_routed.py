@@ -208,8 +208,10 @@ def test_routed_plain_leaves_untouched_bitwise(kind):
 
 
 def test_routed_refusals():
-    """int8 byte lines still refuse naming item 13; bf16 tables need bf16
-    ``lines`` (the forward's gather of the table) and then run."""
+    """int8 byte lines under rowwise_adagrad refuse in the reference's
+    words (the other kinds take the row-space int8 update,
+    ``test_torch_int8.py``); bf16 tables need bf16 ``lines`` (the
+    forward's gather of the table) and then run."""
     lay = line_layout(16, "rowwise_adagrad")
     lines, g_u, corr = torch.zeros((2, 1, 128)), torch.zeros((2, 16)), torch.zeros(2)
     ulines = row_lidx = row_slot = torch.zeros(2, dtype=torch.int32)
@@ -221,7 +223,7 @@ def test_routed_refusals():
         tkr.fat_line_update_routed(
             torch.zeros((4, 1, 128)), torch.zeros((3, 1, 128)), ulines,
             row_lidx, row_slot, g_u, corr, layout=lay, lr=0.1)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="rowwise_adagrad"):
         tsp.fat_apply_routed(torch.zeros((4, 1, 128), dtype=torch.int8), (),
                              ulines, g_u, row_lidx, row_slot, lines,
                              embedding_dim=16, kind="rowwise_adagrad", lr=0.1)

@@ -139,14 +139,14 @@ def test_tier_dispatch():
     assert len(slots) == 1 and int(slots[0]) == 1 and torch.equal(got, want)
     assert tk.fat_line_update.plain_runs == before + 2
     # bf16 slots: adam/adagrad state in bf16, rowwise's accumulator f32;
-    # int8 storage still refuses naming item 13
+    # an int8 table without its sidecar refuses in the reference's words
     plain = torch.zeros((40, d))
     bf = tsp.SparseOptimizer(kind="adam", lr=0.1, slot_dtype="bfloat16")
     assert [t.dtype for t in bf.init(plain)[:2]] == [torch.bfloat16] * 2
     row = tsp.SparseOptimizer(kind="rowwise_adagrad", lr=0.1,
                               slot_dtype="bfloat16")
     assert row.init(plain)[0].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="quantize_rows/dequantize_rows"):
         tsp.SparseOptimizer(kind="adam", lr=0.1).update(
             plain.to(torch.int8), bf.init(plain), ids, g)
 

@@ -248,11 +248,16 @@ def test_unported_step_options_refuse():
         t_step(tc, lambda e, b: None, mode="psum")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_step(tc, lambda e, b: None, mode="alltoall")
-    # int8 storage still refuses naming item 13 (bf16 builds)
+    # narrow storage builds: bf16 everywhere; int8 plain tables with their
+    # f32 sidecars and the fat stack as int8 byte lines
     import dataclasses
 
     specs = t_specs(SIZE_MAP, 8, "row", fused_threshold=100)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TColl([dataclasses.replace(s, dtype=torch.int8) for s in specs])
+    i8 = TColl([dataclasses.replace(s, dtype=torch.int8) for s in specs]).init(
+        0, device="cpu")
+    assert i8["__fatstack_8_row_int8"].dtype == torch.int8
+    assert {k for k in i8 if k.startswith("__qscale__/")} == {
+        f"__qscale__/{k}" for k in i8
+        if not k.startswith("__") and i8[k].dim() == 2}
     bf = TColl([dataclasses.replace(s, dtype=torch.bfloat16) for s in specs])
     assert {t.dtype for t in bf.init(0, device="cpu").values()} == {torch.bfloat16}

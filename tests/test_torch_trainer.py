@@ -13,7 +13,8 @@ step."""
 import json
 from pathlib import Path
 
-import jax  # noqa: F401
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -105,8 +106,7 @@ def test_pad_batch_zero_weights():
 
 
 @pytest.mark.parametrize("extra", [
-    {"tensorboard": True},
-    {"mixed_precision": True, "model": "bert4rec"}, {"lookup_mode": "psum"},
+    {"tensorboard": True}, {"lookup_mode": "psum"},
 ])
 def test_unported_knobs_refuse(tmp_path, extra):
     cfg = read_configs(_write_config(tmp_path, **extra))
@@ -248,17 +248,126 @@ def _with_embeddings(path: Path, **emb) -> Path:
 
 @pytest.mark.parametrize("extra,emb", [
     ({}, {"table_dtype": "int8"}),
-    ({}, {"table_dtype_overrides": {"user_embed": "int8"}}),
-    ({}, {"hot_vocab": 8}),
-    ({}, {"cache_rows": 64}),
-    ({"model": "bert4rec", "mixed_precision": True}, {}),
-])
-def test_item13_knobs_refuse(tmp_path, extra, emb):
-    """int8 storage, hot/cold tables, the update cache and Bert4Rec under
-    ``mixed_precision`` still refuse, naming ROADMAP item 13."""
-    cfg = read_configs(_with_embeddings(_write_config(tmp_path, **extra), **emb))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 13\\)"):
-        Trainer(cfg, device="cpu")
+    ({"fused_table_threshold": -1}, {"table_dtype_overrides": {"user_embed": "int8"}}),
+    ({"fused_table_threshold": -1}, {"hot_vocab": 8}),
+    ({"fused_table_threshold": -1, "sparse_optimizer": "adagrad"},
+     {"cache_rows": 512, "flush_every": 3}),
+], ids=["int8_fat", "int8_override", "hot_vocab", "cache_rows"])
+def test_item13_knobs_train_one_epoch(tmp_path, extra, emb):
+    """int8 storage (every table fat: int8 byte lines; or one plain table by
+    override, with its sidecar), hot/cold tables (``preprocess-ctr`` writes
+    ``hot_ids.json``) and the update cache each train one CPU epoch through
+    ``launch`` with finite losses and an eval AUC in range."""
+    from tdfo_tpu_torch import launch
+
+    cfg = _with_embeddings(_write_config(tmp_path, **extra), **emb)
+    for cmd in ("synth", "preprocess-ctr"):
+        assert launch.main([cmd, "--config", str(cfg)]) == 0
+    tr = launch.run(["train", "--config", str(cfg), "--log-dir",
+                     str(tmp_path / "logs"), "--device", "cpu"])
+    recs = [json.loads(x) for x in
+            (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
+    epoch = [r for r in recs if "train_loss_epoch" in r]
+    assert len(epoch) == 1 and epoch[0]["steps"] > 0
+    assert np.isfinite(epoch[0]["train_loss_epoch"])
+    assert [0.0 <= r["auc"] <= 1.0 for r in recs if "auc" in r] == [True]
+    tables = tr.state.tables
+    if "table_dtype" in emb:
+        assert tables["__fatstack_16_row_int8"].dtype == torch.int8
+    if "table_dtype_overrides" in emb:
+        assert tables["user_embed"].dtype == torch.int8
+        assert tables["__qscale__/user_embed"].shape == (tables["user_embed"].shape[0], 2)
+    if "hot_vocab" in emb:
+        assert (Path(tr.config.data_dir) / "hot_ids.json").exists()
+        assert {"user_embed__hot", "item_embed__hot"} <= set(tables)
+    if "cache_rows" in emb:
+        assert any(k.startswith("__cache__/") for k in tr.state.slots)
+        assert tr._flush_every == 3
+
+
+def test_bert4rec_mixed_precision_trains_f32_as_the_reference(tmp_path):
+    """``model = "bert4rec"`` with ``mixed_precision = true``: the reference
+    accepts the toml and its ``_build_bert4rec`` never reads the flag, so
+    Bert4Rec trains in f32; the port's trainer builds the arrays the
+    reference's build (traced as ``_build_bert4rec`` calls it) makes, all
+    f32, and from the same initial arrays two steps of the two packages
+    agree at the trajectory rung."""
+    import optax
+
+    from tdfo_tpu.core.config import read_configs as j_read_configs
+    from tdfo_tpu.models.bert4rec import Bert4RecConfig, make_sharded_bert4rec
+    from tdfo_tpu.ops.sparse import sparse_optimizer as j_opt
+    from tdfo_tpu.train.seq import bert4rec_sparse_forward
+    from tdfo_tpu.train.sparse_step import SparseTrainState as JState
+    from tdfo_tpu.train.sparse_step import make_sparse_train_step as j_step
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.interop import TOL
+
+    cfg_path = _write_config(tmp_path, model="bert4rec", mixed_precision=True,
+                             attn="full", n_layers=1, n_heads=2, dropout=0.0,
+                             fused_table_threshold=20,
+                             per_device_train_batch_size=32)
+    for cmd in ("synth", "preprocess-seq"):
+        assert launch.main([cmd, "--config", str(cfg_path)]) == 0
+    size_map = json.loads((tmp_path / "data" / "size_map_bert4rec.json").read_text())
+    jcfg = j_read_configs(str(cfg_path), size_map=size_map)
+    assert jcfg.mixed_precision and jcfg.model == "bert4rec"
+    ttr = Trainer(read_configs(str(cfg_path), size_map=size_map),
+                  log_dir=tmp_path / "tl", device="cpu")
+    built = {}
+
+    def build(key):
+        built["coll"], tables, built["backbone"], dense = make_sharded_bert4rec(
+            key, Bert4RecConfig(n_items=size_map["n_items"], max_len=jcfg.max_len,
+                                embed_dim=jcfg.embed_dim, n_heads=jcfg.n_heads,
+                                n_layers=jcfg.n_layers, dropout=jcfg.dropout),
+            None, sharding="row", attn=jcfg.attn,
+            fused_threshold=jcfg.effective_fused_threshold,
+            fused_kind=jcfg.sparse_optimizer)
+        return tables, dense
+
+    # the reference's build, traced (its arrays' shapes and dtypes); the
+    # values both packages then start from are the port trainer's
+    want_tables, want_dense = jax.eval_shape(build, jax.random.key(jcfg.seed))
+    coll, backbone = built["coll"], built["backbone"]
+    jtables = {k: jnp.asarray(v.numpy()) for k, v in ttr.state.tables.items()}
+    dense = {}
+    for name, v in ttr.state.backbone.state_dict().items():
+        *path, leaf = name.split(".")
+        node = dense
+        for part in path:
+            node = node.setdefault(part, {})
+        v = v.numpy()
+        if leaf == "weight":  # Linear [out, in] -> kernel [in, out]; LayerNorm -> scale
+            leaf, v = ("kernel", v.T) if v.ndim == 2 else ("scale", v)
+        node[leaf] = jnp.asarray(v)
+    assert jax.tree.structure(dense) == jax.tree.structure(want_dense)
+    assert [(x.shape, x.dtype) for x in jax.tree.leaves(dense)] == [
+        (x.shape, x.dtype) for x in jax.tree.leaves(want_dense)]
+    assert {k: (v.shape, v.dtype) for k, v in jtables.items()} == {
+        k: (v.shape, v.dtype) for k, v in want_tables.items()}
+    jstate = JState.create(
+        dense_params=dense, tx=optax.adamw(jcfg.learning_rate,
+                                           weight_decay=jcfg.weight_decay),
+        tables=jtables, sparse_opt=j_opt(jcfg.sparse_optimizer,
+                                         lr=jcfg.learning_rate,
+                                         weight_decay=jcfg.weight_decay))
+    assert {x.dtype for x in jax.tree.leaves((want_tables, want_dense))} == {
+        np.dtype(np.float32)}
+    assert {t.dtype for t in ttr.state.tables.values()} == {torch.float32}
+    assert {p.dtype for p in ttr.state.backbone.parameters()} == {torch.float32}
+    jrun = j_step(coll, bert4rec_sparse_forward(backbone), donate=False)
+    jl, tl = [], []
+    for (batch, _), _ in zip(ttr._train_batches(0), range(2)):
+        jstate, loss = jrun(jstate, {k: v.numpy() for k, v in batch.items()})
+        jl.append(float(loss))
+        ttr.state, loss = ttr._one_step(ttr.state, batch)
+        tl.append(float(loss))
+    rtol, atol = TOL["trajectory"]
+    np.testing.assert_allclose(tl, jl, rtol=rtol, atol=atol)
+    for k, v in jstate.tables.items():
+        np.testing.assert_allclose(ttr.state.tables[k].numpy(), np.asarray(v),
+                                   rtol=rtol, atol=atol, err_msg=k)
 
 
 def test_bf16_storage_cli_cpu(tmp_path):
