@@ -323,6 +323,22 @@ class ParquetStream:
             min_rows = n // self.process_count
         return min_rows // self.batch_size
 
+    def max_batches_per_host(self) -> int:
+        """The LARGEST per-host batch count this epoch (ceil division, no
+        drop_last): the eval loop's budget.  Every host runs this many
+        steps, topping up with zero-weight template batches, so the ranks'
+        collectives stay in lockstep (reference ``max_batches_per_host``)."""
+        counts = []
+        p = max(self.process_count, 1)
+        for r in range(p):
+            if self._shard_by_file:
+                rows = sum(self._row_count_safe(f) for f in self.files[r::p])
+            else:
+                n = sum(self._row_count_safe(f) for f in self.files)
+                rows = (n - r + p - 1) // p
+            counts.append(-(-rows // self.batch_size))
+        return max(counts)
+
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle order for a new epoch; clears a pending resume
         fast-forward (call :meth:`load_state_dict` after it)."""
@@ -437,14 +453,18 @@ class MapStream:
     interface as :class:`ParquetStream` (``config streaming = false``;
     ``jax-flax/train.py:52-70`` full-permutation loader parity).
 
-    Single-process only: the whole table lives on this host, so multi-host
+    One data slice only: the whole table lives on this host, so multi-host
     budget logic does not apply (use the streaming loader on pods).
+    ``process_count`` (default: the process group's size) is the number of
+    data slices; ranks that share one (model shards) all read the table.
     """
 
     def __init__(self, files: Sequence[str], batch_size: int, *,
                  shuffle: bool = True, seed: int = 42, drop_last: bool = True,
-                 columns: Sequence[str] | None = None):
-        if _process_index_count()[1] > 1:
+                 columns: Sequence[str] | None = None,
+                 process_count: int | None = None):
+        if (_process_index_count()[1] if process_count is None
+                else process_count) > 1:
             raise ValueError(
                 "streaming=false (map-style) loading is single-process only; "
                 "multi-host runs need the streaming loader's per-host budgets"
@@ -462,6 +482,12 @@ class MapStream:
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
         self._skip = 0
+
+    def max_batches_per_host(self) -> int:
+        """Batches of an epoch (one host): drop_last floors, else ceils."""
+        if self.drop_last:
+            return self._n // self.batch_size
+        return -(-self._n // self.batch_size)
 
     def state_dict(self) -> dict[str, int]:
         """Same cursor contract as :meth:`ParquetStream.state_dict`."""

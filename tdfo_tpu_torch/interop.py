@@ -29,6 +29,11 @@ JAX package:
   heads carry over as they are.  :func:`tree_from_numpy` does the same for
   any tree of arrays: optimizer slots, and update caches (dicts), whose
   keys are the reference's.
+* :func:`shard_from_numpy` carries global arrays to a rank under a mesh:
+  the JAX package's tables and slots (padded as its sharded ``init`` pads
+  them, or in the single-device layout) become this rank's shards of the
+  port's collection; :func:`gather_to_numpy` gathers the port's shards back
+  into global numpy arrays (in the single-device layout) for comparisons.
 * :func:`to_torch` carries one array over bit for bit, bf16 included: an
   ``ml_dtypes`` bfloat16 array (what ``np.asarray`` of a JAX bf16 array
   gives) is viewed as uint16 and then as ``torch.bfloat16``.
@@ -48,7 +53,8 @@ import torch
 
 __all__ = ["TOL", "backbone_params_from_flax", "bf16_bits",
            "dense_params_from_flax", "flax_params_from_module",
-           "tables_from_numpy", "to_numpy", "to_torch", "tree_from_numpy"]
+           "gather_to_numpy", "shard_from_numpy", "tables_from_numpy",
+           "to_numpy", "to_torch", "tree_from_numpy"]
 
 # what is compared -> (rtol, atol); "exact" comparisons use equality
 TOL = {
@@ -158,3 +164,22 @@ def tree_from_numpy(tree, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_from_numpy(v, device) for v in tree)
     return to_torch(tree).to(device)
+
+
+def shard_from_numpy(coll, tables: Mapping[str, np.ndarray], slots=None,
+                     device="cpu"):
+    """``(tables, slots)``: this rank's shards of global table and slot
+    arrays under ``coll``'s mesh (whole arrays without one), bit for bit.
+    Rows past the port's global padding must be absent; rows short of it
+    are zero-padded."""
+    t = tables_from_numpy(tables, device)
+    s = tree_from_numpy(slots or {}, device)
+    return coll.local_arrays(t, s)
+
+
+def gather_to_numpy(coll, tables, slots=None):
+    """``(tables, slots)`` as global numpy arrays in the single-device
+    layout, gathered over ``coll``'s model axis (every rank calls this)."""
+    gt, gs = coll.global_arrays(tables, slots or {})
+    return ({k: to_numpy(v) for k, v in gt.items()},
+            {k: type(v)(to_numpy(x) for x in v) for k, v in gs.items()})

@@ -21,7 +21,16 @@ Port of ``tdfo_tpu/launch.py`` for the ported subcommands:
     the stats dict.
 
 ``train`` and ``serve`` run on the card unless ``--device cpu`` is given,
-and refuse to start when CUDA is asked for and absent.  The other
+and refuse to start when CUDA is asked for and absent.
+
+Several ranks (the reference's ``--distributed``, ``tdfo_tpu/launch.py:80``):
+``python -m torch.distributed.run --nproc-per-node N -m tdfo_tpu_torch.launch
+train --config ... [--device cpu]``.  ``--distributed auto`` (the default)
+starts the process group when torchrun's ``WORLD_SIZE`` is above 1,
+``always`` also at one rank (the distributed code path on one process),
+``never`` not at all; NCCL on the card (one rank per card), gloo on the
+CPU.  The ``[mesh]`` table lays the ranks out; only rank 0 writes logs,
+metrics and checkpoints.  The other
 subcommands of the reference (serve-fleet, loadgen, online, plan, ...)
 arrive with their slices (``ROADMAP.md``).
 """
@@ -50,6 +59,10 @@ def run(argv: list[str] | None = None):
     p.add_argument("--log-dir", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device for train and serve (default: the card)")
+    p.add_argument("--distributed", default="auto",
+                   choices=["auto", "always", "never"],
+                   help="start torch.distributed from torchrun's environment: "
+                        "auto when WORLD_SIZE > 1 (default), always, or never")
     args = p.parse_args(argv)
 
     from tdfo_tpu_torch.core.config import read_configs
@@ -125,11 +138,25 @@ def run(argv: list[str] | None = None):
                for k, v in stats.items()})
         return stats
 
+    import os
+
     from tdfo_tpu_torch.train.trainer import Trainer
 
+    import torch.distributed as dist
+
+    started = False
+    if not dist.is_initialized() and (args.distributed == "always" or (
+            args.distributed == "auto" and int(os.environ.get("WORLD_SIZE", "1")) > 1)):
+        from tdfo_tpu_torch.core.mesh import initialize_distributed
+
+        started = initialize_distributed(args.device, force=True)
     trainer = Trainer(cfg, log_dir=args.log_dir, device=args.device)
     metrics = trainer.fit()
-    print({k: round(v, 5) for k, v in metrics.items()})
+    if trainer.rank == 0:
+        print({k: round(v, 5) for k, v in metrics.items()})
+    if started:  # every rank done, then the group's teardown
+        dist.barrier()
+        dist.destroy_process_group()
     return trainer
 
 

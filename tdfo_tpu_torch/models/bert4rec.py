@@ -171,7 +171,7 @@ def make_sharded_bert4rec(cfg: Bert4RecConfig, *, seed: int = 0,
     if attn in ("ring", "ring_flash"):
         raise NotImplementedError(
             f"attn = {attn!r} (ring attention over a sequence mesh axis) is not "
-            "ported to tdfo_tpu_torch yet (ROADMAP.md Queue A item 12)")
+            "ported to tdfo_tpu_torch yet (ROADMAP.md Queue A item 12b)")
     attn_fns = {"full": dot_product_attention, "flash": flash_attn_fn}
     if attn not in attn_fns:
         raise ValueError(f"unknown attn {attn!r}")

@@ -7,8 +7,8 @@ quickstart's): it owns its 7 tables as ``[V, d]`` embeddings and trains
 every parameter under AdamW.  A lookup is ``jnp.take``'s default
 (``mode="fill"``, ``parallel.embedding.embedding_lookup``): an id in
 ``[-V, V)`` indexes numpy-style, any other reads NaN; its gradient is a
-row-wise ``index_add_`` (no host sync, so the step can be captured in a
-CUDA graph).  In the DMP regime the backbone
+row-wise segment sum in input order (``ops/kernels/segment_sum.py``; no
+host sync, so the step can be captured in a CUDA graph).  In the DMP regime the backbone
 consumes already-gathered embedding vectors keyed by input
 column (``user_id``, ``item_id``, ...) plus the raw batch for the two
 continuous features; the tables live in a

@@ -35,6 +35,7 @@ KERNEL_SOURCES = {
     "fat_line_update_routed": "fat_line_update_routed.cu",
     "flash_attn_fwd": "flash_attn_fwd.cu",
     "flash_attn_bwd": "flash_attn_bwd.cu",
+    "segment_sum": "segment_sum.cu",
 }
 
 # -fmad=false: no contracted multiply-adds, so each kernel rounds exactly

@@ -74,6 +74,7 @@ from tdfo_tpu_torch.ops.kernels.fat_line_update import (
 from tdfo_tpu_torch.ops.kernels.fat_line_update_routed import (
     fat_line_update_routed,
 )
+from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
 from tdfo_tpu_torch.ops.quant import (
     bytes_to_f32,
     component_key,
@@ -118,17 +119,21 @@ def _check_capacity(b, capacity, vocab_bound, max_distinct, what):
             "the largest-id updates, so it is rejected.")
 
 
-def _dedupe_ids_impl(ids: torch.Tensor, capacity: int, r: int = 1):
+def _dedupe_ids_impl(ids: torch.Tensor, capacity: int, r: int = 1,
+                     with_plan: bool = False):
     """Sort-based dedupe (the reference's single-sort formulation): ranks
     the ids, assigns each sorted position its group slot by a cumsum over
     first occurrences, and carries the slot back to the original position.
     Negative ids map to the int32-max sentinel, which sorts to the top and
-    never becomes a valid slot.  Integer outputs equal the reference's."""
+    never becomes a valid slot.  Integer outputs equal the reference's.
+    The sort is stable, and slots grow along it, so ``with_plan`` appends
+    ``(order, sorted slots)``: the segment order :func:`_segment_sum`
+    needs, without a second sort."""
     ids = ids.to(torch.int64)
     b = ids.shape[0]
     oob = SENTINEL
     clean = torch.where(ids >= 0, ids, torch.full_like(ids, oob))
-    sorted_ids, order = torch.sort(clean)
+    sorted_ids, order = torch.sort(clean, stable=True)
     ok = sorted_ids < oob
     if r > 1:
         key = torch.where(ok, sorted_ids // r, torch.full_like(sorted_ids, oob))
@@ -146,30 +151,32 @@ def _dedupe_ids_impl(ids: torch.Tensor, capacity: int, r: int = 1):
     keep = uidx < capacity  # overflow past a licensed capacity drops
     uids[uidx[keep]] = key[keep]
     valid = uids < oob
+    if with_plan:
+        return uids.to(torch.int32), seg, valid, (order, segidx)
     return uids.to(torch.int32), seg, valid
 
 
 def dedupe_ids(ids: torch.Tensor, *, capacity: int | None = None,
                vocab: int | None = None, max_distinct: int | None = None,
-               rows_per_line: int = 1):
+               rows_per_line: int = 1, with_plan: bool = False):
     """``ids[B] -> (uids[C] int32, seg[B] int64, valid[C] bool)`` with
     ``ids == uids[seg]`` for non-negative ids (reference
     ``dedupe_ids``).  With ``rows_per_line`` R > 1 the grouping key is the
     LINE id and ``seg`` indexes the ``C x R`` line-slot space
-    (``seg = line_slot * R + row % R``).  Sentinel = int32 max."""
+    (``seg = line_slot * R + row % R``).  Sentinel = int32 max.
+    ``with_plan`` appends the segment plan ``_segment_sum`` takes."""
     b = ids.shape[0]
     capacity = capacity or b
     r = rows_per_line
     vocab_bound = None if vocab is None else -(-vocab // r)
     _check_capacity(b, capacity, vocab_bound, max_distinct, "dedupe_ids")
-    return _dedupe_ids_impl(ids, capacity, r)
+    return _dedupe_ids_impl(ids, capacity, r, with_plan)
 
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.ops.segment_sum`` with out-of-range segments dropped."""
-    keep = (seg >= 0) & (seg < n)
-    out = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, seg[keep], x[keep])
+# ``jax.ops.segment_sum`` with out-of-range segments dropped, each segment
+# summed in input order (bitwise the CPU's ``index_add_`` on the card too);
+# a dedupe's ``with_plan`` output spares its sort
+_segment_sum = segment_sum
 
 
 def dedupe_grads(ids: torch.Tensor, grads: torch.Tensor, *,
@@ -181,8 +188,8 @@ def dedupe_grads(ids: torch.Tensor, grads: torch.Tensor, *,
     b = ids.shape[0]
     capacity = capacity or b
     _check_capacity(b, capacity, vocab, max_distinct, "dedupe_grads")
-    uids, seg, valid = _dedupe_ids_impl(ids, capacity)
-    g = _segment_sum(grads.to(torch.float32), seg, capacity)
+    uids, seg, valid, plan = _dedupe_ids_impl(ids, capacity, with_plan=True)
+    g = _segment_sum(grads.to(torch.float32), seg, capacity, plan)
     g = torch.where(valid[:, None], g, torch.zeros_like(g))
     return uids, g, valid
 
@@ -281,14 +288,13 @@ def sparse_adagrad(table, accum, uids, g, valid, *, lr, eps=1e-10,
 
 def _dense_gsum(table, ids, grads):
     """The dense lazy tier's front half: per-row summed grads ``[V, D]``
-    (``index_add_``) and the touched mask ``[V, 1]``; negative or
-    out-of-range ids contribute nothing."""
+    (:func:`_segment_sum`, in input order) and the touched mask ``[V, 1]``;
+    negative or out-of-range ids contribute nothing."""
     v = table.shape[0]
     ids = ids.reshape(-1).to(torch.int64)
     grads = grads.reshape(-1, grads.shape[-1]).to(torch.float32)
     ok = (ids >= 0) & (ids < v)
-    gsum = torch.zeros((v, grads.shape[1]), dtype=torch.float32,
-                       device=table.device).index_add_(0, ids[ok], grads[ok])
+    gsum = _segment_sum(grads, torch.where(ok, ids, -1), v)
     touched = torch.zeros((v,), dtype=torch.bool, device=table.device)
     touched[ids[ok]] = True
     return gsum, touched[:, None]
@@ -302,7 +308,7 @@ def _masked_write(dst, touched, new, key=None):
 
 def dense_lazy_adam(table, mu, nu, count, ids, grads, *, lr, b1=0.9,
                     b2=0.999, eps=1e-8, weight_decay=0.0, sr_key=None):
-    """Small-vocab tier: per-row summed grads (``index_add_``) and the
+    """Small-vocab tier: per-row summed grads (in input order) and the
     touched mask, then one dense masked sweep over the whole [V, D] table.
     Semantics equal :func:`sparse_adam`: untouched rows do not decay
     (moments, weight decay), bias correction uses the global step, and
@@ -472,7 +478,8 @@ def _cache_admit(cache, urows, uslot, uids, valid, kind, step, uqs=None):
 
 
 def dedupe_rows_and_lines(ids: torch.Tensor, *, capacity_rows: int,
-                          capacity_lines: int, rows_per_line: int):
+                          capacity_lines: int, rows_per_line: int,
+                          with_plan: bool = False):
     """Row- AND line-level dedupe from one sort (reference
     ``dedupe_rows_and_lines``, the routed fat-line path): ``ids[B] ->
     (seg_row[B] int64, ulines[CL] int32, row_lidx[CR] int32, row_slot[CR]
@@ -482,11 +489,12 @@ def dedupe_rows_and_lines(ids: torch.Tensor, *, capacity_rows: int,
     and its slot within the line, and unused row slots hold
     ``capacity_lines``.  Negative ids group under the sentinel line with
     slot 0.  Groups past a capacity drop, as the reference's
-    ``mode="drop"`` scatters do.  Integer outputs equal the reference's."""
+    ``mode="drop"`` scatters do.  Integer outputs equal the reference's.
+    ``with_plan`` appends ``seg_row``'s plan for ``_segment_sum``."""
     r = rows_per_line
     ids = ids.to(torch.int64)
     clean = torch.where(ids >= 0, ids, torch.full_like(ids, SENTINEL))
-    sorted_ids, order = torch.sort(clean)
+    sorted_ids, order = torch.sort(clean, stable=True)
     ok = sorted_ids < SENTINEL
 
     def group_index(key):
@@ -510,8 +518,9 @@ def dedupe_rows_and_lines(ids: torch.Tensor, *, capacity_rows: int,
     keep = uidx < capacity_rows
     row_lidx[uidx[keep]] = lidx[keep]
     row_slot[uidx[keep]] = slot[keep]
-    return (seg_row, ulines.to(torch.int32), row_lidx.to(torch.int32),
-            row_slot.to(torch.int32))
+    out = (seg_row, ulines.to(torch.int32), row_lidx.to(torch.int32),
+           row_slot.to(torch.int32))
+    return out + ((order, uidx),) if with_plan else out
 
 
 def _bias_corrections(layout, slots, b1, b2, device):
@@ -647,13 +656,13 @@ def fat_update(fat, slots, ids, grads, *, embedding_dim, kind, lr, b1=0.9,
         return _fat_apply_int8(
             fat, slots, uids, g, layout=layout, lr=lr, b1=b1, b2=b2,
             eps=eps, weight_decay=weight_decay, sr_key=sr_key)
-    ulines, seg, _valid = dedupe_ids(
+    ulines, seg, _valid, plan = dedupe_ids(
         ids, capacity=capacity, vocab=fat.shape[0] * r,
-        max_distinct=max_distinct, rows_per_line=r)
+        max_distinct=max_distinct, rows_per_line=r, with_plan=True)
     c = ulines.shape[0]
-    g_slots = _segment_sum(grads.to(torch.float32), seg, c * r)
+    g_slots = _segment_sum(grads.to(torch.float32), seg, c * r, plan)
     touched = None if r == 1 else _segment_sum(
-        (ids >= 0).to(torch.float32), seg, c * r)
+        (ids >= 0).to(torch.float32), seg, c * r, plan)
     return _fat_apply_lines(
         fat, slots, ulines, g_slots, touched, layout=layout, lr=lr, b1=b1,
         b2=b2, eps=eps, weight_decay=weight_decay, sr_key=sr_key)
@@ -832,7 +841,7 @@ class SparseOptimizer:
 
     def dense_update(self, table, slots, ids, grads, *, sr_key=None):
         """The dense tier for a SMALL plain table of any kind (the hot heads
-        of hot/cold tables): per-row summed grads by ``index_add_`` and one
+        of hot/cold tables): per-row summed grads in input order and one
         masked read-modify-write of the whole ``[K, D]`` table (the
         reference's one-hot MXU contraction, summed in another order).
         Negative ids contribute nothing; untouched rows keep their state.
@@ -1038,7 +1047,13 @@ class SparseOptimizer:
     def update(self, table, slots, ids, grads, *,
                embedding_dim: int | None = None,
                capacity: int | None = None, max_distinct: int | None = None,
-               sr_key=None, qscale=None):
+               sr_key=None, qscale=None, vocab_rows: int | None = None):
+        """One row-sparse step on ``table`` (in place): fat lines through
+        :func:`fat_update`, small plain adam tables (``vocab_rows``, the
+        global rows of a sharded table, else its own, at most
+        ``small_vocab_threshold``) through the dense tier, the rest through
+        :func:`dedupe_grads` and :meth:`update_unique`."""
+        rows = table.shape[0] if vocab_rows is None else vocab_rows
         if table.dim() == 3:
             if qscale is not None:
                 raise ValueError(_INLINE_QSCALE)
@@ -1050,7 +1065,7 @@ class SparseOptimizer:
                 eps=self.eps, weight_decay=self.weight_decay,
                 capacity=capacity, max_distinct=max_distinct, sr_key=sr_key)
         if (self.kind == "adam" and qscale is None
-                and table.shape[0] <= self.small_vocab_threshold):
+                and rows <= self.small_vocab_threshold):
             # the dense sweep's full-block requantize would re-grid every
             # untouched int8 row, so int8 tables stay on the row path
             mu, nu, count = slots

@@ -1,0 +1,128 @@
+"""The collectives of the sharded embedding programs, each a
+``torch.autograd.Function`` where a gradient flows through it.
+
+The reference writes these programs inside ``shard_map`` with ``psum``,
+``all_gather`` and ``all_to_all`` (``tdfo_tpu/parallel/embedding.py:1579-1706``)
+and lets JAX transpose them.  Here each is a ``torch.distributed`` call on
+a process group, and its backward is written out:
+
+* :class:`AllReduceSum` (the psum lookup's assembly): forward sums over the
+  group; backward passes the gradient through unchanged, because the
+  downstream work is replicated over the group, so every rank already holds
+  the whole gradient of the assembled vectors.  A psum lookup's gradient
+  therefore reaches each owned row exactly once (the reference pins the
+  same: ``tests/test_embedding_collection.py:92-101``).
+* :class:`AllGatherLast` (the column lookup): forward concatenates the
+  ranks' column blocks; backward keeps this rank's block of the gradient.
+* :class:`AllToAll` (the alltoall lookup's return trip): forward sends
+  block ``j`` to rank ``j``; backward sends the gradient blocks back the
+  same way (an equal-split all-to-all is its own transpose).
+
+The plain helpers (:func:`all_gather_cat`, :func:`all_reduce_`,
+:func:`all_to_all`, :func:`gather_to_host`) serve the update, the metrics
+and the checkpoints, where nothing is differentiated.  Every call moves
+the tensors as they are (a CUDA tensor stays on its card; only
+:func:`gather_to_host`'s result lands on the host, where a checkpoint is
+written from): a backend that refuses a collective on that device raises,
+and nothing copies to the host to get round it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["AllGatherLast", "AllReduceSum", "AllToAll", "all_gather_cat",
+           "all_reduce_", "all_reduce_tensors", "all_to_all", "gather_to_host"]
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place sum over ``group``; returns ``x``."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def all_reduce_tensors(tensors, group) -> list[torch.Tensor]:
+    """Sums of ``tensors`` over ``group``: one collective per dtype (the
+    tensors flattened into one buffer)."""
+    tensors = list(tensors)
+    out = list(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = all_reduce_(torch.cat([tensors[i].reshape(-1) for i in idx]), group)
+        for i, part in zip(idx, torch.split(flat, [tensors[i].numel() for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's tensors (equal shapes), concatenated along ``dim`` in
+    group-rank order."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def gather_to_host(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor | None:
+    """The group's tensors (equal shapes) concatenated along ``dim`` in
+    group-rank order, on the host of group rank 0; the other ranks get
+    None.  One rank's tensor at a time (a broadcast each, which both NCCL
+    and gloo take on the card), so no rank holds more than one extra
+    tensor of ``x``'s size on its device."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return x.cpu()
+    parts = []
+    for k in range(n):
+        buf = x.contiguous() if k == me else torch.empty_like(x)
+        dist.broadcast(buf, src=dist.get_global_rank(group, k), group=group)
+        if me == 0:
+            parts.append(buf.cpu())
+    return torch.cat(parts, dim=dim) if me == 0 else None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x [n * k, ...]``: block ``j`` (rows ``j*k .. (j+1)*k``) goes to
+    group rank ``j``; returns the blocks received, in rank order."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class AllGatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.width = x.shape[-1]
+        ctx.rank = dist.get_rank(group)
+        return all_gather_cat(x, group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.rank * ctx.width
+        return grad[..., lo:lo + ctx.width].contiguous(), None
+
+
+class AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad, ctx.group), None

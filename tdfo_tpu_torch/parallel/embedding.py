@@ -31,16 +31,39 @@ update cache (``cache_rows=``) covers the plain arrays that take
 row-sparse updates (:meth:`~ShardedEmbeddingCollection.cached_array_names`);
 its state rides in the train state's slots under ``CACHE_PREFIX``.
 
-Ported: ``make_embedding_specs``, ``EmbeddingSpec`` and, on the
-collection, ``init``, ``init_caches``, ``features``, ``resolve``,
-``resolve_table``, ``route_ids`` and the hot-set members, ``fat_layout``,
-``fat_layout_for``, ``array_embedding_dim``, ``array_is_int8``,
-``lookup(mode="gspmd")`` and ``sparse_update``.  Not ported yet: meshes,
-column/table sharding, the psum/alltoall lookups and the grouped exchange
-(``ROADMAP.md`` Queue A item 12).  Refused, not ignored.  As in the
-reference, bf16 and int8 fused tables under ``rowwise_adagrad`` refuse:
-a fat line holds the table and its optimizer state together, and the
-per-row accumulator is f32 by contract.
+Sharding (``mesh=``, a ``DeviceMesh`` from ``core/mesh.py``; the tables
+shard over its ``model`` axis, M ranks, and replicate over ``data``): each
+rank's tables dict holds its own shard.
+
+* ``row``: the vocab is padded to M x R rows (fat stacks to whole lines
+  per shard) and rank k holds rows ``[k R, (k+1) R)``;
+* ``table``: tables sharing a dim stack into ``__stack_{dim}``, slot i of M
+  holding tables i, i+M, ...; each shard's rows cover whole tables;
+* ``column``: every rank holds all rows and ``d / M`` columns;
+* ``replicated``: every rank holds the whole table.
+
+``init`` draws the global tables exactly as the single-device ``init``
+with the same seed does (each table whole, from one generator stream) and
+keeps each rank's rows or columns, so a sharded run can be held to a
+single-device one from one seed.  Lookups (:meth:`lookup`): ``psum`` (a
+masked local gather, then a sum over the model axis), ``alltoall`` (ids
+bucketed by owner, ``all_to_all_single`` out and back, capacity
+``a2a_capacity_factor``; the ids are this rank's share of the batch), and
+``gspmd``, which on a sharded table runs the psum program with ``jnp.take``'s
+fill rule on the global padded table (the port has no partitioner; the
+results are the reference's).  Column tables gather their columns and
+all-gather them.  :meth:`sparse_update` takes the global batch's ids and
+grads: row-sharded arrays (fat ones through the ``fat_line_update``
+kernel on the local lines) keep the ids they own, rebased by ``k R``,
+foreign ids becoming -1 with zero grads; narrow storage folds the
+stochastic-rounding key with k.  Column shards update their columns.
+
+Not ported yet (``ROADMAP.md`` Queue A item 12b): the grouped exchange
+(``grouped_a2a``), and hot/cold tables, the update cache and int8 storage
+under a mesh.  Refused, not ignored.  As in the reference, bf16 and int8
+fused tables under ``rowwise_adagrad`` refuse: a fat line holds the table
+and its optimizer state together, and the per-row accumulator is f32 by
+contract.
 
 ``init`` draws from a ``torch.Generator`` (the reference uses
 ``jax.random``, so same-seed tables differ between the packages; the
@@ -57,13 +80,30 @@ import numpy as np
 import torch
 
 from tdfo_tpu_torch.core.device import resolve_device
+from tdfo_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    axis_group,
+    axis_index,
+    axis_size,
+)
 from tdfo_tpu_torch.ops.fat_lines import (
     _dtype_name,
     fat_gather_rows,
     fat_pack,
     line_layout,
 )
+from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
+from tdfo_tpu_torch.ops import threefry
 from tdfo_tpu_torch.ops.quant import dequantize_rows, quantize_rows, storage_dtype
+from tdfo_tpu_torch.parallel.collectives import (
+    AllGatherLast,
+    AllReduceSum,
+    AllToAll,
+    all_gather_cat,
+    all_reduce_,
+    gather_to_host,
+)
 
 __all__ = ["CACHE_PREFIX", "EmbeddingSpec", "QSCALE_PREFIX",
            "ShardedEmbeddingCollection", "embedding_lookup",
@@ -77,6 +117,22 @@ CACHE_PREFIX = "__cache__/"
 # tables key prefix of a plain int8 array's f32 [V, 2] (scale, offset)
 # sidecar (column 0 = scale, column 1 = offset, ``ops/quant.py``)
 QSCALE_PREFIX = "__qscale__/"
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _a2a_bucket_cap(n: int, m: int, cf: float | None) -> int:
+    """Per-owner send-bucket capacity of the alltoall lookup for a local
+    batch of ``n`` ids over ``m`` shards under capacity factor ``cf``
+    (``None``: the exact worst case ``n``); bounded buckets round up to a
+    multiple of 8, never past ``n`` (reference ``_a2a_bucket_cap``, shared
+    by the lookup and :meth:`ShardedEmbeddingCollection.a2a_overflow`)."""
+    cap = n if cf is None else min(n, max(1, int(cf * n / m)))
+    if cap < n:
+        cap = min(n, -(-cap // 8) * 8)
+    return cap
 
 
 def qscale_name(array_name: str) -> str:
@@ -103,8 +159,9 @@ def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 class _TakeFill(torch.autograd.Function):
-    """:func:`take_fill` whose gradient is a row-wise ``index_add_`` (ids
-    outside the table get none, as under ``jnp.take``'s fill mode)."""
+    """:func:`take_fill` whose gradient is a row-wise segment sum in input
+    order (``ops/kernels/segment_sum.py``; ids outside the table get none,
+    as under ``jnp.take``'s fill mode)."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -119,10 +176,9 @@ class _TakeFill(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         rows, inside = ctx.saved_tensors
-        g = torch.where(inside[..., None], grad, 0.0).reshape(-1, grad.shape[-1])
-        out = torch.zeros((ctx.num_rows, grad.shape[-1]), dtype=grad.dtype,
-                          device=grad.device)
-        return out.index_add_(0, rows.reshape(-1), g), None
+        seg = torch.where(inside, rows, -1).reshape(-1)
+        return segment_sum(grad.reshape(-1, grad.shape[-1]), seg,
+                           ctx.num_rows), None
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -185,13 +241,34 @@ class ShardedEmbeddingCollection:
     def __init__(self, specs: list[EmbeddingSpec], *, fused_kind: str = "adam",
                  stack_tables: bool = False,
                  hot_ids: Mapping[str, np.ndarray] | None = None,
-                 cache_rows: int = 0):
+                 cache_rows: int = 0, mesh=None,
+                 a2a_capacity_factor: float | None = None):
         """``hot_ids``: table or feature name -> that table's sorted hot ids
         (the frequency-partitioned mode); ``cache_rows``: rows of the
-        update cache of every row-sparse plain array (0: off)."""
+        update cache of every row-sparse plain array (0: off); ``mesh``: a
+        ``DeviceMesh`` whose ``model`` axis shards the tables (None: one
+        device); ``a2a_capacity_factor``: the alltoall lookup's per-owner
+        send capacity as a multiple of ``local batch / M`` (None or <= 0:
+        the exact worst case; ids past a full bucket read zeros)."""
         line_layout(1, fused_kind)  # validates the kind eagerly
         if cache_rows < 0:
             raise ValueError("cache_rows must be >= 0")
+        self.mesh = mesh
+        self.n_shards = axis_size(mesh, MODEL_AXIS)
+        self.shard = axis_index(mesh, MODEL_AXIS)
+        if a2a_capacity_factor is not None and a2a_capacity_factor <= 0:
+            a2a_capacity_factor = None
+        self.a2a_capacity_factor = a2a_capacity_factor
+        if mesh is not None:
+            unported = [what for what, bad in (
+                ("the update cache (cache_rows > 0)", cache_rows > 0),
+                ("hot/cold tables", bool(hot_ids)),
+                ("int8 storage", any(_spec_is_int8(sp) for sp in specs)),
+            ) if bad]
+            if unported:
+                raise NotImplementedError(
+                    f"{unported[0]} under a device mesh is not ported to "
+                    "tdfo_tpu_torch yet (ROADMAP.md Queue A item 12b)")
         self.cache_rows = cache_rows
         self.fused_kind = fused_kind
         self.specs = {s.name: s for s in specs}
@@ -199,10 +276,22 @@ class ShardedEmbeddingCollection:
             raise ValueError("duplicate table names")
         self._feature_to_table: dict[str, str] = {}
         for s in specs:
-            if s.sharding not in ("row", "replicated"):
+            if s.sharding not in ("row", "replicated", "table", "column"):
+                raise ValueError(f"table {s.name!r}: unknown sharding "
+                                 f"{s.sharding!r}")
+            if s.fused and s.sharding not in ("row", "replicated"):
+                raise ValueError(
+                    f"table {s.name!r}: fused storage supports row/replicated "
+                    f"sharding, not {s.sharding!r}")
+            if _spec_is_int8(s) and s.sharding == "column":
+                raise ValueError(
+                    f"table {s.name!r}: int8 storage supports row/"
+                    "replicated/table sharding, not 'column'")
+            if s.sharding == "column" and fused_kind == "rowwise_adagrad":
                 raise NotImplementedError(
-                    f"table {s.name!r}: {s.sharding!r} sharding is not ported "
-                    "yet (ROADMAP.md Queue A item 12)")
+                    f"table {s.name!r}: column sharding under rowwise_adagrad "
+                    "(a per-row accumulator over split columns) is not ported "
+                    "to tdfo_tpu_torch yet (ROADMAP.md Queue A item 12b)")
             dt = storage_dtype(s.dtype)  # float32, bfloat16 or int8
             if (s.fused and dt == torch.bfloat16
                     and fused_kind == "rowwise_adagrad"):
@@ -248,7 +337,9 @@ class ShardedEmbeddingCollection:
                          else f"{prefix}{dim}_{shard_kind}_{dt}")
                 total = sum(s.num_embeddings for s in group)
                 unit = self.fat_layout(dim, group[0].dtype).r if fused else 1
-                total = -(-total // unit) * unit
+                if shard_kind == "row":  # shards own whole lines
+                    unit *= self.n_shards
+                total = _round_up(total, unit)
                 off = 0
                 for s in group:
                     self._stack_rows[s.name] = (off, total)
@@ -258,7 +349,32 @@ class ShardedEmbeddingCollection:
 
         build_stacks([s for s in specs if s.fused], fused=True)
         if stack_tables:
-            build_stacks([s for s in specs if not s.fused], fused=False)
+            build_stacks([s for s in specs if not s.fused
+                          and s.sharding in ("row", "replicated")], fused=False)
+        # table-wise: same-dim tables stack into one array whose shard i of
+        # M holds tables i, i+M, ... (each slot padded to the tallest)
+        table_wise = [s for s in specs if s.sharding == "table"]
+        if table_wise and mesh is None:
+            raise ValueError("table-wise sharding requires a mesh")
+        by_dim: dict[int, list[EmbeddingSpec]] = {}
+        for s in table_wise:
+            by_dim.setdefault(s.embedding_dim, []).append(s)
+        for dim, group in by_dim.items():
+            if len({s.dtype for s in group}) > 1:
+                raise ValueError(
+                    "table-wise tables stacked into one array must share "
+                    f"a dtype; got {[(s.name, s.dtype) for s in group]}")
+            m = self.n_shards
+            slots = [group[i::m] for i in range(m)]
+            slot_rows = max(1, max(sum(s.num_embeddings for s in sl)
+                                   for sl in slots))
+            for i, sl in enumerate(slots):
+                off = i * slot_rows
+                for s in sl:
+                    self._stack_rows[s.name] = (off, slot_rows * m)
+                    self._member_to_stack[s.name] = f"__stack_{dim}"
+                    off += s.num_embeddings
+            self._stacks[f"__stack_{dim}"] = ("table", dim, group, False)
 
         # hot/cold split: table name -> sorted hot ids, and whether the set
         # is the [0, K) prefix (one compare) or the whole vocab (no cold
@@ -375,19 +491,96 @@ class ShardedEmbeddingCollection:
         spec = self._array_spec(array_name)
         return self.fat_layout(spec.embedding_dim, spec.dtype)
 
+    # ------------------------------------------------------------ sharding
+
+    def array_placement(self, array_name: str) -> str:
+        """How an array lies over the model axis: ``"row"`` (rows split;
+        row and table sharding), ``"column"`` or ``"replicated"`` (always
+        ``"replicated"`` without a mesh)."""
+        if self.mesh is None or array_name.startswith(QSCALE_PREFIX):
+            return "replicated"
+        if array_name in self._stacks:
+            kind = self._stacks[array_name][0]
+        elif array_name in self.specs:
+            kind = self.specs[array_name].sharding
+        else:  # hot heads (refused under a mesh)
+            return "replicated"
+        return {"table": "row"}.get(kind, kind)
+
+    def array_rows(self, array_name: str) -> int:
+        """Global padded vocab rows of an array (fat arrays count rows, not
+        lines), from the specs alone."""
+        if array_name in self._stacks:
+            return self._stack_rows[self._stacks[array_name][2][0].name][1]
+        spec = self.specs[array_name]
+        unit = self.fat_layout(spec.embedding_dim, spec.dtype).r if spec.fused else 1
+        if spec.sharding == "row":
+            unit *= self.n_shards
+        return _round_up(spec.num_embeddings, unit)
+
+    def single_device_rows(self, array_name: str) -> int:
+        """The rows the same array has on one device (no mesh): the
+        checkpoint layout.  Table-wise stacks exist only under a mesh and
+        keep their rows."""
+        if array_name in self._stacks:
+            kind, dim, group, fused = self._stacks[array_name]
+            if kind == "table":
+                return self.array_rows(array_name)
+            unit = self.fat_layout(dim, group[0].dtype).r if fused else 1
+            return _round_up(sum(s.num_embeddings for s in group), unit)
+        spec = self.specs[array_name]
+        unit = self.fat_layout(spec.embedding_dim, spec.dtype).r if spec.fused else 1
+        return _round_up(spec.num_embeddings, unit)
+
+    def rows_per_shard(self, array_name: str) -> int:
+        """Vocab rows each model shard of a row-placed array owns."""
+        return self.array_rows(array_name) // self.n_shards
+
+    def _model_group(self):
+        return axis_group(self.mesh, MODEL_AXIS)
+
     def init(self, seed: int = 0, *, device="cuda") -> dict[str, torch.Tensor]:
         """Create all tables on ``device`` (default the card; ``"cpu"`` must
         be asked for).  Uniform(-init_scale, init_scale) per table from a
-        ``torch.Generator`` seeded with ``seed``, drawn in f32 and stored at
-        the spec's dtype; optimizer state in fat lines starts at zero; stack
-        padding rows are zero."""
+        ``torch.Generator`` seeded with ``seed``, drawn in f32 (one draw a
+        table) and stored at the spec's dtype; optimizer
+        state in fat lines starts at zero; stack padding rows are zero.
+        Under a mesh every rank draws each whole table as the single-device
+        init does and keeps its shard (rows past the single-device padding
+        are zero)."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(int(seed))
+        m, k = self.n_shards, self.shard
 
-        def draw(spec, rows):
+        def draw_into(dst, lo, cols, spec, rows, at):
+            """Draw ``rows`` rows of ``spec`` as array rows ``[at, at +
+            rows)``; keep the part inside ``dst`` (array rows ``[lo, lo +
+            len(dst))``, columns ``cols``)."""
             t = torch.rand((rows, spec.embedding_dim), generator=gen,
                            device=device, dtype=torch.float32)
-            return t.mul_(2 * spec.init_scale).sub_(spec.init_scale)
+            t.mul_(2 * spec.init_scale).sub_(spec.init_scale)
+            a, b = max(at, lo), min(at + rows, lo + dst.shape[0])
+            if a < b:
+                dst[a - lo:b - lo] = t[a - at:b - at, cols]
+
+        def local_block(aname, dim):
+            """Zeros of this rank's part of array ``aname`` and where it
+            lies: ``(dst, first row, column slice)``."""
+            place = self.array_placement(aname)
+            rows = self.array_rows(aname)
+            lo, n_rows, cols = 0, rows, slice(0, dim)
+            if place == "row":
+                n_rows = rows // m
+                lo = k * n_rows
+            elif place == "column":
+                if dim % m:
+                    raise ValueError(
+                        f"table {aname}: embedding_dim {dim} not divisible "
+                        f"by {m} column shards")
+                cols = slice(k * dim // m, (k + 1) * dim // m)
+            dst = torch.zeros((n_rows, cols.stop - cols.start),
+                              dtype=torch.float32, device=device)
+            return dst, lo, cols
 
         tables: dict[str, torch.Tensor] = {}
 
@@ -406,16 +599,14 @@ class ShardedEmbeddingCollection:
         for name, spec in self.specs.items():
             if name in self._member_to_stack:
                 continue
-            lay = self.fat_layout(spec.embedding_dim, spec.dtype)
-            unit = lay.r if spec.fused else 1
-            rows = -(-spec.num_embeddings // unit) * unit
-            place(name, draw(spec, rows), spec, spec.fused)
+            t, lo, cols = local_block(name, spec.embedding_dim)
+            draw_into(t, lo, cols, spec, self.single_device_rows(name), 0)
+            place(name, t, spec, spec.fused)
         for gname, (_, dim, group, fused) in self._stacks.items():
-            total = self._stack_rows[group[0].name][1]
-            t = torch.zeros((total, dim), dtype=torch.float32, device=device)
+            t, lo, cols = local_block(gname, dim)
             for s in group:
-                off, _ = self._stack_rows[s.name]
-                t[off:off + s.num_embeddings] = draw(s, s.num_embeddings)
+                draw_into(t, lo, cols, s, s.num_embeddings,
+                          self._stack_rows[s.name][0])
             place(gname, t, group[0], fused)
             del t
         # hot heads: a gather of the initialised cold rows (at the table's
@@ -498,20 +689,136 @@ class ShardedEmbeddingCollection:
         """ids -> f32 vectors for every feature (ids any shape; the output
         gains a trailing ``embedding_dim`` axis).  Out-of-range ids read
         what the reference's ``jnp.take`` (jax's default ``mode="fill"``)
-        reads: see :func:`take_fill` and ``fat_gather_rows``."""
-        if mode != "gspmd":
-            raise NotImplementedError(
-                f"lookup mode {mode!r} is not ported yet (ROADMAP.md Queue A "
-                "item 12)")
+        reads: see :func:`take_fill` and ``fat_gather_rows``.  Under a
+        mesh, row-placed arrays run the ``psum`` program (``gspmd`` too,
+        with the fill rule on the global padded table) or the
+        ``alltoall`` one, whose ids are this rank's share of the batch;
+        column arrays gather their columns and all-gather them (``gspmd``
+        only, as in the reference); replicated arrays gather locally.  The
+        vectors are differentiable with respect to the local shards
+        (:mod:`~tdfo_tpu_torch.parallel.collectives`)."""
+        if mode not in ("gspmd", "psum", "alltoall"):
+            raise ValueError(f"unknown lookup mode {mode!r}")
         out: dict[str, torch.Tensor] = {}
         for feat, ids in features.items():
             if self._feature_to_table.get(feat) in self.hot_ids:
+                if mode != "gspmd":
+                    raise ValueError(
+                        "hot/cold tables compose with lookup mode 'gspmd' "
+                        f"only, got {mode!r} for feature {feat!r}")
                 out[feat] = self._lookup_hotcold(tables, feat, ids)
                 continue
             aname, spec, offset = self.resolve(feat)
             gid = ids.to(torch.int64) + offset
-            out[feat] = self._gather(tables, aname, spec, gid)
+            place = self.array_placement(aname)
+            if place != "replicated" and mode != "gspmd" and place != "row":
+                raise ValueError(
+                    f"lookup mode {mode!r} requires row/table sharding, "
+                    f"but table {spec.name!r} is {spec.sharding!r}")
+            if place == "row" and mode == "alltoall":
+                out[feat] = self._lookup_alltoall(tables, aname, spec, gid)
+            elif place == "row":
+                out[feat] = self._lookup_psum(tables, aname, spec, gid,
+                                              fill=mode == "gspmd")
+            elif place == "column":
+                out[feat] = AllGatherLast.apply(
+                    self._gather(tables, aname, spec, gid), self._model_group())
+            else:
+                out[feat] = self._gather(tables, aname, spec, gid)
         return out
+
+    def _lookup_psum(self, tables, aname, spec, gid, fill: bool = False):
+        """The psum program: this rank gathers the rows it owns, zeros
+        elsewhere, and one sum over the model axis assembles the vectors
+        (a sum with zeros, so exact).  ``fill``: ``jnp.take``'s rule on the
+        global padded table (negatives wrap, ids past it read NaN);
+        otherwise the reference's psum rule (any id no shard owns reads
+        zeros)."""
+        rps = self.rows_per_shard(aname)
+        if fill:
+            v = rps * self.n_shards
+            gid = torch.where(gid < 0, gid + v, gid)
+            inside = (gid >= 0) & (gid < v)
+        local = gid - self.shard * rps
+        mine = (local >= 0) & (local < rps)
+        rows = self._gather(tables, aname, spec, local.clamp(0, rps - 1))
+        rows = torch.where(mine[..., None], rows, 0.0)
+        rows = AllReduceSum.apply(rows, self._model_group())
+        if fill:
+            rows = torch.where(inside[..., None], rows, float("nan"))
+        return rows
+
+    def _lookup_alltoall(self, tables, aname, spec, gid):
+        """The alltoall program (torchrec input/output dist): bucket this
+        rank's ids by owner (a stable sort), send each owner its bucket
+        (``-1`` past the bucket's end), gather the received ids' rows,
+        send the rows back and put them in the ids' order.  Buckets hold
+        ``_a2a_bucket_cap`` ids; ids past a full bucket read zeros."""
+        shape = gid.shape
+        flat = gid.reshape(-1)
+        n, m = flat.shape[0], self.n_shards
+        rps = self.rows_per_shard(aname)
+        cap = _a2a_bucket_cap(n, m, self.a2a_capacity_factor)
+        dev = flat.device
+        owner = torch.clamp(torch.div(flat, rps, rounding_mode="floor"), 0, m - 1)
+        sorted_owner, order = torch.sort(owner, stable=True)
+        sorted_ids = flat[order]
+        start = torch.searchsorted(sorted_owner, torch.arange(m, device=dev))
+        end = torch.cat([start[1:], torch.tensor([n], device=dev)])
+        src = start[:, None] + torch.arange(cap, device=dev)[None, :]
+        send = torch.where(src < end[:, None],
+                           sorted_ids[torch.clamp(src, max=n - 1)], -1)
+        group = self._model_group()
+        from tdfo_tpu_torch.parallel.collectives import all_to_all
+
+        recv = all_to_all(send.reshape(-1), group)
+        local = recv - self.shard * rps
+        rows = self._gather(tables, aname, spec, local.clamp(0, rps - 1))
+        rows = torch.where((recv >= 0)[:, None], rows, 0.0)
+        back = AllToAll.apply(rows, group)
+        pos = torch.arange(n, device=dev) - start[sorted_owner]
+        slot = torch.where(pos < cap, sorted_owner * cap + pos, -1)
+        slot_inv = torch.empty_like(slot)
+        slot_inv[order] = slot
+        out = torch.where((slot_inv >= 0)[:, None],
+                          back[slot_inv.clamp_min(0)], 0.0)
+        return out.reshape(*shape, out.shape[-1])
+
+    def a2a_fill_stats(self, tables, features):
+        """Send-bucket use of the alltoall lookup for this batch:
+        ``(fill, dropped)``, the f32 share of the buckets' capacity that
+        carried ids and the int32 count of ids past a full bucket (read as
+        zeros), both summed over the ranks that split the batch (the
+        reference's ``a2a_fill_stats`` sums over the model axis, its only
+        split; ``features`` hold each rank's share)."""
+        dev = next(iter(features.values())).device
+        stats = torch.zeros((3,), dtype=torch.int64, device=dev)
+        if self.mesh is None:
+            return torch.zeros((), device=dev), torch.zeros((), dtype=torch.int32, device=dev)
+        m = self.n_shards
+        for feat, ids in features.items():
+            aname, spec, offset = self.resolve(feat)
+            if self.array_placement(aname) != "row":
+                continue
+            flat = ids.reshape(-1).to(torch.int64) + offset
+            cap = _a2a_bucket_cap(flat.shape[0], m, self.a2a_capacity_factor)
+            owner = torch.clamp(torch.div(flat, self.rows_per_shard(aname),
+                                          rounding_mode="floor"), 0, m - 1)
+            counts = (owner[None, :] == torch.arange(m, device=dev)[:, None]).sum(1)
+            stats += torch.stack([counts.clamp(max=cap).sum(),
+                                  torch.full((), m * cap, device=dev),
+                                  (counts - cap).clamp_min(0).sum()])
+        all_reduce_(stats, self._model_group())
+        all_reduce_(stats, axis_group(self.mesh, DATA_AXIS))
+        fill = stats[0].to(torch.float32) / stats[1].clamp_min(1).to(torch.float32)
+        return fill, stats[2].to(torch.int32)
+
+    def a2a_overflow(self, tables, features):
+        """Ids of this batch that the alltoall lookup drops under a finite
+        ``a2a_capacity_factor`` (they read zeros), summed over the ranks
+        that split the batch: an int32 0-dim tensor (reference
+        ``a2a_overflow``)."""
+        return self.a2a_fill_stats(tables, features)[1]
 
     def _gather(self, tables, aname, spec, gid):
         """Rows ``gid`` of array ``aname``, f32: fat lines slot-select (int8
@@ -550,11 +857,139 @@ class ShardedEmbeddingCollection:
                       max_distinct: int | None = None, sr_key=None,
                       qscale=None):
         """Apply the row-sparse optimizer to one array (in place; returns
-        ``(table, slots)``, ``+ (qscale,)`` for a plain int8 array).  On one
-        device every array takes ``opt.update`` directly (the reference's
-        shard_map branch serves row-sharded fat tables on a real model
-        axis)."""
+        ``(table, slots)``, ``+ (qscale,)`` for a plain int8 array).
+        ``ids`` / ``grads`` are the GLOBAL batch's (the step gathers them
+        over the ranks that split it).  Replicated arrays update whole; a
+        row-placed shard keeps the ids it owns, rebased by ``k R``, and
+        turns the others into -1 with zero grads (the reference's
+        ``shard_map`` update, ``sparse_update``; a fat shard launches the
+        ``fat_line_update`` kernel on its own lines); a column shard
+        updates its columns.  Narrow storage folds the stochastic-rounding
+        key with the model index, so shards draw their own bits.  The small
+        adam tier is chosen by the global rows, as on one device."""
         d = self.array_embedding_dim(array_name)
-        return opt.update(table, slots, ids, grads, embedding_dim=d,
-                          capacity=max_distinct, max_distinct=max_distinct,
-                          sr_key=sr_key, qscale=qscale)
+        place = self.array_placement(array_name)
+        kw = dict(capacity=max_distinct, max_distinct=max_distinct,
+                  qscale=qscale, vocab_rows=self.array_rows(array_name))
+        if place == "replicated":
+            return opt.update(table, slots, ids, grads, embedding_dim=d,
+                              sr_key=sr_key, **kw)
+        if sr_key is not None:
+            sr_key = threefry.fold_in(sr_key, self.shard)
+        ids = ids.reshape(-1).to(torch.int64)
+        grads = grads.reshape(-1, grads.shape[-1])
+        if place == "column":
+            w = d // self.n_shards
+            return opt.update(table, slots, ids,
+                              grads[:, self.shard * w:(self.shard + 1) * w],
+                              embedding_dim=w, sr_key=sr_key, **kw)
+        rps = self.rows_per_shard(array_name)
+        local = ids - self.shard * rps
+        mine = (local >= 0) & (local < rps)
+        return opt.update(table, slots, torch.where(mine, local, -1),
+                          torch.where(mine[:, None], grads, 0.0),
+                          embedding_dim=d, sr_key=sr_key, **kw)
+
+    # ---------------------------------------------------------- checkpoint
+
+    def _slot_placement(self, array_name: str, table, t) -> str:
+        """A slot tensor lies like its table when it has the table's rows
+        (moments, row accumulators); scalars (adam's count) replicate."""
+        if t.dim() == 0 or t.shape[0] != table.shape[0]:
+            return "replicated"
+        place = self.array_placement(array_name)
+        return "row" if place == "column" and t.dim() == 1 else place
+
+    def _global_shape(self, array_name: str, t, place: str) -> tuple:
+        """The single-device layout's shape of this rank's array ``t``."""
+        if place == "replicated" or self.mesh is None:
+            return tuple(t.shape)
+        if place == "column":
+            return (t.shape[0], t.shape[1] * self.n_shards, *t.shape[2:])
+        r = self.fat_layout_for(array_name).r if t.dim() == 3 else 1
+        return (self.single_device_rows(array_name) // r, *t.shape[1:])
+
+    def _gather_one(self, array_name: str, t, place: str, root_only: bool):
+        if place == "replicated" or self.mesh is None:
+            return t
+        group, dim = self._model_group(), 1 if place == "column" else 0
+        full = (gather_to_host(t, group, dim) if root_only
+                else all_gather_cat(t, group, dim=dim))
+        if full is None or place == "column":
+            return full
+        return full[:self._global_shape(array_name, t, place)[0]]
+
+    def _each_array(self, tables, slots, fn):
+        """``fn(array name, tensor, placement)`` over every table and slot
+        tensor, in one order on every rank."""
+        gt = {n: fn(n, t, self.array_placement(n)) for n, t in tables.items()}
+        gs = {n: type(sl)(fn(n, t, self._slot_placement(n, tables[n], t))
+                          for t in sl)
+              for n, sl in slots.items()}
+        return gt, gs
+
+    def _shard_one(self, array_name: str, t, place: str):
+        if place == "replicated" or self.mesh is None:
+            return t
+        m, k = self.n_shards, self.shard
+        if place == "column":
+            w = t.shape[1] // m
+            return t[:, k * w:(k + 1) * w].contiguous()
+        r = self.fat_layout_for(array_name).r if t.dim() == 3 else 1
+        n = self.array_rows(array_name) // r
+        if t.shape[0] > n:
+            raise ValueError(f"array {array_name!r}: {t.shape[0]} saved rows "
+                             f"do not fit {n} under this mesh")
+        pad = t.new_zeros((n - t.shape[0], *t.shape[1:]))
+        full = torch.cat([t, pad]) if pad.shape[0] else t
+        return full[k * (n // m):(k + 1) * (n // m)].contiguous()
+
+    def global_arrays(self, tables, slots, *, root_only: bool = False):
+        """``(tables, slots)`` in the single-device layout, each sharded
+        array gathered over the model axis, padding past the single-device
+        rows dropped.  Table-wise stacks keep this mesh's layout.  Every
+        rank calls this.  By default each gets the whole arrays on its
+        device (for comparisons); with ``root_only`` (a checkpoint) only
+        global rank 0 gets them, the sharded ones on its host, gathered a
+        shard at a time, and the ranks off its model line take no part
+        and get ``(None, None)``."""
+        if self.mesh is None:
+            return dict(tables), dict(slots)
+        if root_only and axis_index(self.mesh, DATA_AXIS) != 0:
+            return None, None
+        return self._each_array(tables, slots, lambda n, t, place: self._gather_one(
+            n, t, place, root_only))
+
+    def global_template(self, tables, slots):
+        """Stand-ins for :meth:`global_arrays`'s result that take no memory:
+        each sharded array as a zero-stride host tensor of its single-device
+        shape and dtype (a checkpoint restore's template; the values are
+        not the state's).  No collective runs."""
+        if self.mesh is None:
+            return dict(tables), dict(slots)
+
+        def stand_in(n, t, place):
+            if place == "replicated":
+                return t
+            return torch.empty((), dtype=t.dtype).expand(self._global_shape(n, t, place))
+
+        return self._each_array(tables, slots, stand_in)
+
+    def local_arrays(self, tables, slots):
+        """The inverse of :meth:`global_arrays`: this rank's shards of
+        single-device-layout arrays (padding rows added as zeros), so a
+        checkpoint written at one world size restores at another."""
+        if self.mesh is None:
+            return dict(tables), dict(slots)
+
+        def local_like(n, t, full_table):
+            if t.dim() == 0 or t.shape[0] != full_table.shape[0]:
+                return t
+            place = self.array_placement(n)
+            place = "row" if place == "column" and t.dim() == 1 else place
+            return self._shard_one(n, t, place)
+
+        lt = {n: local_like(n, t, t) for n, t in tables.items()}
+        ls = {n: type(sl)(local_like(n, t, tables[n]) for t in sl)
+              for n, sl in slots.items()}
+        return lt, ls

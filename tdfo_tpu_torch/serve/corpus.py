@@ -82,7 +82,7 @@ def build_corpus(scorer: Scorer, item_features: Mapping[str, np.ndarray], *,
     column as an aligned ``[N]`` array; ``item_id`` defaults to
     ``arange(N)``) -> :class:`Corpus` on the scorer's device, stored at
     ``dtype`` (``float32`` exact, ``bfloat16``, or ``int8`` with its
-    sidecar).  ``mesh`` (a sharded corpus) refuses: item 12."""
+    sidecar).  ``mesh`` (a sharded corpus) refuses: item 12b."""
     refuse_mesh(mesh)
     if dtype not in STORAGE_DTYPES:
         raise ValueError(f"corpus dtype {dtype!r} not in {STORAGE_DTYPES}")

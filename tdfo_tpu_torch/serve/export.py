@@ -475,7 +475,7 @@ def load_corpus(corpus_dir: str | Path, *, mesh=None, device="cuda"):
     ``bundle_version`` mismatch, an unknown dtype, a content-digest
     mismatch, shape drift, an int8 corpus without (or with another)
     ``qscale_layout`` or without its sidecar, and a float corpus that
-    carries one.  ``mesh`` (a sharded corpus) refuses: item 12."""
+    carries one.  ``mesh`` (a sharded corpus) refuses: item 12b."""
     from tdfo_tpu_torch.serve.corpus import Corpus
     from tdfo_tpu_torch.serve.scoring import refuse_mesh
 

@@ -26,7 +26,7 @@
   does not hold a 6.5 GB score matrix.
 
 A ``mesh`` (corpus sharded over devices) waits for the multi-GPU slice
-(``ROADMAP.md`` Queue A item 12).
+(``ROADMAP.md`` Queue A item 12b).
 """
 
 from __future__ import annotations

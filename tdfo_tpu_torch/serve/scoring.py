@@ -41,7 +41,7 @@ def refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "serving over a device mesh is not ported to tdfo_tpu_torch yet "
-            "(ROADMAP.md Queue A item 12)")
+            "(ROADMAP.md Queue A item 12b)")
 
 
 def to_device_batch(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor]:

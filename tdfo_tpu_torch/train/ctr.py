@@ -29,15 +29,22 @@ def ctr_sparse_forward(backbone, with_logits: bool = False) -> Callable:
 
 
 def make_ctr_sparse_eval_step(coll, backbone, *, mode: str = "gspmd"):
-    """``(state, batch) -> (loss, logits)`` without autograd."""
+    """``(state, batch) -> (loss, logits)`` without autograd; under a mesh
+    ``batch`` is the rank's data slice and the logits are that slice's
+    (an ``alltoall`` lookup splits it over the model axis and the logits
+    are gathered back), the loss its share's."""
+    from tdfo_tpu_torch.train.sparse_step import BatchGroup
+
     features = list(coll.features())
+    bg = BatchGroup(coll.mesh, mode)
 
     @torch.no_grad()
     def step(state, batch):
+        batch = bg.split(batch)
         embs = coll.lookup(state.tables, {f: batch[f] for f in features},
                            mode=mode)
         logits = backbone(embs, batch)
         loss = bce_with_logits_loss(logits, batch["label"].to(torch.float32))
-        return loss, logits
+        return loss, bg.join(logits)
 
     return step

@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
+
 __all__ = ["binary_auc", "AUC", "recalls_and_ndcgs_for_ks"]
 
 
@@ -71,8 +73,8 @@ class AUC:
         w = (torch.ones_like(labels) if weights is None
              else weights.reshape(-1).to(torch.float32))
         bins = torch.clamp((scores * n).to(torch.int64), 0, n - 1)
-        pos = torch.zeros_like(self.pos_hist).index_add_(0, bins, w * labels)
-        neg = torch.zeros_like(self.neg_hist).index_add_(0, bins, w * (1.0 - labels))
+        pos = segment_sum(w * labels, bins, n)
+        neg = segment_sum(w * (1.0 - labels), bins, n)
         return AUC(pos_hist=self.pos_hist + pos, neg_hist=self.neg_hist + neg)
 
     def merge(self, other: "AUC") -> "AUC":

@@ -30,7 +30,7 @@ has no slots and is written by its array's update.
 Hot/cold collections: each split table's ids route once per step into
 head positions and cold ids (hot hits become -1, padding for every later
 stage); the forward selects the head's rows at hot hits, and the head
-takes ``SparseOptimizer.dense_update`` (``index_add_`` segment sums and one
+takes ``SparseOptimizer.dense_update`` (input-order segment sums and one
 dense ``[K, D]`` step, where the reference contracts a one-hot matrix on
 the MXU: the sums run in another order).  Fully hot tables have no cold
 side at all.
@@ -42,8 +42,21 @@ overlaid with the cached rows, so nothing reads a stale table row; the
 write-back is :func:`make_cache_flush_fn`'s, which the trainer runs every
 ``flush_every`` steps and before every save and eval.
 
-Only ``mode = "gspmd"`` is ported; the grouped exchange and the pipelined
-step are not ported yet (``ROADMAP.md`` Queue A item 12).
+Meshes (``coll.mesh``; ``core/mesh.py``): each rank runs the step on its
+data slice of the global batch, and the collection's lookups run the
+``gspmd`` / ``psum`` / ``alltoall`` programs (``parallel/embedding.py``).
+Under ``alltoall`` the data slice splits again over the model axis, so
+each rank computes the backbone on its share and the logits are gathered
+back.  The ranks that split the batch (the data axis; data x model under
+``alltoall``) are the batch group, of G ranks: the loss is divided by G
+before the backward, the dense gradients are summed over the group (the
+global batch's mean, as GSPMD computes it) and every array's ids and row
+gradients are gathered over it, in global batch order, before
+``coll.sparse_update`` keeps the rows this rank owns.  At G = 1 nothing is
+scaled or gathered, so a ``gspmd`` or ``psum`` step on model shards sums
+exactly what the single-device step sums.  The grouped exchange, the
+pipelined step and ``dedup_lookup`` under a mesh are not ported yet
+(``ROADMAP.md`` Queue A item 12b).
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from typing import Any, Callable
 
 import torch
 
+from tdfo_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, axis_group, axis_index, axis_size
 from tdfo_tpu_torch.ops.kernels.fat_line_update import SENTINEL
 from tdfo_tpu_torch.ops.quant import bytes_to_f32, dequantize_rows
 from tdfo_tpu_torch.ops.quant import sr_key as _make_sr_key
@@ -64,6 +78,11 @@ from tdfo_tpu_torch.ops.sparse import (
     cache_overlay_rows,
     dedupe_ids,
     dedupe_rows_and_lines,
+)
+from tdfo_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    all_reduce_,
+    all_reduce_tensors,
 )
 from tdfo_tpu_torch.parallel.embedding import (
     CACHE_PREFIX,
@@ -79,7 +98,71 @@ from tdfo_tpu_torch.train.state import (
     optimizer_tensors,
 )
 
-__all__ = ["SparseTrainState", "make_cache_flush_fn", "make_sparse_train_step"]
+__all__ = ["BatchGroup", "SparseTrainState", "make_cache_flush_fn",
+           "make_sparse_train_step"]
+
+
+class BatchGroup:
+    """The ranks that split the global batch under ``mesh`` and lookup
+    ``mode``: the data axis, and under ``alltoall`` the model axis too (the
+    lookup's ids are each rank's share).  ``size`` is 1 without a mesh."""
+
+    def __init__(self, mesh, mode: str):
+        self.mesh = mesh
+        self.model_split = (mesh is not None and mode == "alltoall")
+        self.m = axis_size(mesh, MODEL_AXIS) if self.model_split else 1
+        self.size = axis_size(mesh, DATA_AXIS) * self.m
+        if self.size == 1:
+            self.group = None
+        elif not self.model_split:
+            self.group = axis_group(mesh, DATA_AXIS)
+        elif axis_size(mesh, DATA_AXIS) == 1:
+            self.group = axis_group(mesh, MODEL_AXIS)
+        else:  # data x model (seq is 1): every rank, data-major
+            self.group = torch.distributed.group.WORLD
+
+    def split(self, batch):
+        """This rank's share of a data-local batch (every tensor's rows)."""
+        if not self.model_split:
+            return batch
+        k = axis_index(self.mesh, MODEL_AXIS)
+
+        def part(v):
+            n = v.shape[0]
+            if n % self.m:
+                raise ValueError(f"batch of {n} rows does not split over "
+                                 f"model = {self.m} (lookup mode 'alltoall')")
+            return v[k * (n // self.m):(k + 1) * (n // self.m)]
+
+        return {key: part(v) for key, v in batch.items()}
+
+    def join(self, x):
+        """Rows of the shares back into the data-local batch's order."""
+        if not self.model_split:
+            return x
+        return all_gather_cat(x, axis_group(self.mesh, MODEL_AXIS))
+
+    def gather(self, parts):
+        """``parts`` ([n_i, ...] tensors of one dtype and trailing shape,
+        this rank's rows) -> the same tensors over the whole group's batch,
+        rows in global batch order; one collective."""
+        if self.size == 1:
+            return list(parts)
+        flat = [p.reshape(p.shape[0], -1) for p in parts]
+        n = sum(p.shape[0] for p in flat)
+        allb = all_gather_cat(torch.cat(flat), self.group).view(self.size, n, -1)
+        out, off = [], 0
+        for p, f in zip(parts, flat):
+            out.append(allb[:, off:off + f.shape[0]].reshape(
+                self.size * f.shape[0], *p.shape[1:]))
+            off += f.shape[0]
+        return out
+
+    def mean(self, x):
+        """The group's mean of a per-rank value (a loss)."""
+        if self.size == 1:
+            return x
+        return all_reduce_(x.detach().clone(), self.group) / self.size
 
 
 def _array_is_narrow(state: "SparseTrainState", aname: str) -> bool:
@@ -182,10 +265,15 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
     ``batch_transform`` (run first, on the device: the jagged path's
     ``(values, lengths) -> [B, T]``).  Returned losses are detached device
     tensors: reading one is the caller's (only) host sync."""
-    if mode != "gspmd":
+    if mode not in ("gspmd", "psum", "alltoall"):
+        raise ValueError(f"unknown lookup mode {mode!r}")
+    if dedup_lookup and mode != "gspmd":
+        raise ValueError("dedup_lookup composes with lookup mode 'gspmd' only")
+    if dedup_lookup and coll.mesh is not None:
         raise NotImplementedError(
-            f"lookup mode {mode!r} is not ported yet (ROADMAP.md Queue A "
-            "item 12)")
+            "dedup_lookup under a device mesh is not ported to tdfo_tpu_torch "
+            "yet (ROADMAP.md Queue A item 12b)")
+    bg = BatchGroup(coll.mesh, mode)
     features = list(coll.features())
     takes_gen = "generator" in inspect.signature(forward).parameters
     hot_tables = coll.hot_tables()
@@ -227,6 +315,7 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
     def step(state: SparseTrainState, batch, generator=None):
         if batch_transform is not None:
             batch = batch_transform(batch)
+        batch = bg.split(batch)
         ids = {f: batch[f] for f in features}
         # the cache is on when the state carries coll.init_caches's entries
         cached = {k[len(CACHE_PREFIX):] for k in state.slots
@@ -286,9 +375,9 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                                                 rows_per_line=lay.r)
                     cap_r = cap if cap is not None else total
                     cap_l = min(cap_r, -(-(bound_l + 1) // 8) * 8)
-                    seg, ulines, row_lidx, row_slot = dedupe_rows_and_lines(
+                    seg, ulines, row_lidx, row_slot, plan = dedupe_rows_and_lines(
                         all_ids, capacity_rows=cap_r, capacity_lines=cap_l,
-                        rows_per_line=lay.r)
+                        rows_per_line=lay.r, with_plan=True)
                     # whole lines (sentinel -> line 0), then each distinct
                     # row's slot: the sentinel row reads row 0, as the
                     # default lookup; int8 lines take the codes and their
@@ -304,10 +393,11 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                     if lay.dtype == "int8":
                         rows = dequantize_rows(rows[:, :d],
                                                bytes_to_f32(rows[:, d:span]))
-                    ctx[aname] = ("routed", ulines, seg, row_lidx, row_slot, lines)
+                    ctx[aname] = ("routed", ulines, seg, plan, row_lidx,
+                                  row_slot, lines)
                 else:
-                    uids, seg, valid = dedupe_ids(all_ids, capacity=cap,
-                                                  max_distinct=cap)
+                    uids, seg, valid, plan = dedupe_ids(
+                        all_ids, capacity=cap, max_distinct=cap, with_plan=True)
                     gid = torch.where(valid, uids.to(torch.int64), 0)
                     if coll.array_is_int8(aname):
                         rows = dequantize_rows(
@@ -318,7 +408,7 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                         # sentinel slots read row 0, and so overlay row 0
                         rows = cache_overlay_rows(
                             state.slots[CACHE_PREFIX + aname], gid, rows)
-                    ctx[aname] = ("rows", uids, seg, valid)
+                    ctx[aname] = ("rows", uids, seg, plan, valid)
                 rows = rows.to(torch.float32)
                 off = 0
                 for f, n_f in zip(feats, sizes):
@@ -342,13 +432,33 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                else forward(embs, batch))
         loss, aux = out if with_aux else (out, None)
         params = list(state.backbone.parameters())
-        grads = torch.autograd.grad(loss, params + [embs[f] for f in features])
-        for p, g in zip(params, grads[:len(params)]):
+        # the batch group's mean: each rank's share weighs 1 / G
+        loss_g = loss if bg.size == 1 else loss / bg.size
+        grads = torch.autograd.grad(loss_g, params + [embs[f] for f in features])
+        dense = list(grads[:len(params)])
+        if bg.size > 1:
+            dense = all_reduce_tensors(dense, bg.group)
+        for p, g in zip(params, dense):
             p.grad = g
         state.optimizer.step()
         for p in params:
             p.grad = None
         g_embs = dict(zip(features, grads[len(params):]))
+        if bg.size > 1:
+            # the global batch's ids and row grads, in its order: one
+            # gather for the ids, one per (dim, dtype) of the grads
+            up = [f for f in features if f not in full_hot_feats]
+            for f, v in zip(up, bg.gather([cold_ids[f].reshape(-1).to(torch.int64)
+                                           for f in up])):
+                cold_ids[f] = v
+            by_kind: dict = {}
+            for f in up:
+                g = g_embs[f]
+                by_kind.setdefault((g.shape[-1], g.dtype), []).append(f)
+            for fs in by_kind.values():
+                for f, v in zip(fs, bg.gather([g_embs[f].reshape(-1, g_embs[f].shape[-1])
+                                               for f in fs])):
+                    g_embs[f] = v
         opt = state.sparse_opt
 
         def _sr_key(aname):
@@ -374,15 +484,16 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                     c = ctx[aname]
                     d = coll.array_embedding_dim(aname)
                     if c[0] == "routed":
-                        _, ulines, seg, row_lidx, row_slot, lines = c
-                        g_u = _segment_sum(all_grads, seg, row_lidx.shape[0])
+                        _, ulines, seg, plan, row_lidx, row_slot, lines = c
+                        g_u = _segment_sum(all_grads, seg, row_lidx.shape[0],
+                                           plan)
                         opt.update_routed(
                             table, state.slots[aname], ulines, g_u, row_lidx,
                             row_slot, lines, embedding_dim=d,
                             sr_key=_sr_key(aname))
                         continue
-                    _, uids, seg, valid = c
-                    g_u = _segment_sum(all_grads, seg, uids.shape[0])
+                    _, uids, seg, plan, valid = c
+                    g_u = _segment_sum(all_grads, seg, uids.shape[0], plan)
                     g_u = torch.where(valid[:, None], g_u, 0.0)
                     if aname in cached:
                         # the cached tier: the table and its slots are
@@ -422,8 +533,8 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                 opt.dense_update(state.tables[hname], state.slots[hname],
                                  hp_all, g_all, sr_key=_sr_key(hname))
         state.step += 1
-        loss = loss.detach()
-        return state, ((loss, aux.detach()) if with_aux else loss)
+        loss = bg.mean(loss.detach())
+        return state, ((loss, bg.join(aux.detach())) if with_aux else loss)
 
     return step
 

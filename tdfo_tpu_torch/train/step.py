@@ -12,7 +12,15 @@ rollback, with ``torch.where`` in place of a branch: no host sync).
 :func:`make_multi_step` runs a stacked ``[K, B, ...]`` chunk as K steps and
 keeps the K losses on the device.  On the card, :class:`CudaGraphStep`
 captures the dense step once over static batch buffers and each step of a
-chunk is one graph replay; a capture that fails raises.
+chunk is one graph replay; a capture that fails raises.  It is single-rank:
+under a multi-rank process group it refuses (capture across NCCL calls is
+``ROADMAP.md`` Queue A item 12b).
+
+Data parallelism (``make_train_step(mesh=...)``): each rank steps on its
+data slice; the loss is divided by the data axis size D before the
+backward and the gradients are summed over the data axis (the global
+batch's mean), so every replica applies the same update; the returned loss
+is the global mean.  At D = 1 nothing changes.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ from typing import Callable
 import torch
 from torch.nn import functional as F
 
+from tdfo_tpu_torch.core.mesh import DATA_AXIS, axis_group, axis_size
 from tdfo_tpu_torch.core.precision import scale_loss, unscale_grads
+from tdfo_tpu_torch.parallel.collectives import all_reduce_, all_reduce_tensors
 
 __all__ = ["CudaGraphStep", "bce_with_logits_loss", "make_eval_step",
            "make_multi_step", "make_train_step"]
@@ -46,19 +56,27 @@ def _default_loss(model, batch):
     return bce_with_logits_loss(logits, batch["label"].to(torch.float32)), logits
 
 
-def make_train_step(loss_fn: Callable | None = None, *, with_aux: bool = False):
+def make_train_step(loss_fn: Callable | None = None, *, with_aux: bool = False,
+                    mesh=None):
     """``step(state, batch) -> (state, loss)`` (``(state, (loss, aux))``
     with ``with_aux``) for a :class:`~tdfo_tpu_torch.train.state.TrainState`.
     ``loss_fn(model, batch)`` returns ``(loss, aux)``; the default is the
     sigmoid BCE on ``batch["label"]`` with the logits as aux.  The state
-    updates in place; returned tensors are detached device tensors."""
+    updates in place; returned tensors are detached device tensors.
+    ``mesh``: data-parallel over its data axis (the module note); ``aux``
+    stays the rank's."""
     loss_fn = loss_fn or _default_loss
+    n_data = axis_size(mesh, DATA_AXIS)
+    group = axis_group(mesh, DATA_AXIS) if n_data > 1 else None
 
     def step(state, batch):
         loss, aux = loss_fn(state.model, batch)
         params = list(state.model.parameters())
         ls = state.loss_scale
-        grads = torch.autograd.grad(scale_loss(loss, ls), params)
+        grads = torch.autograd.grad(
+            scale_loss(loss if group is None else loss / n_data, ls), params)
+        if group is not None:
+            grads = all_reduce_tensors(grads, group)
         grads, finite = unscale_grads(grads, ls)
         opt = state.optimizer
         kept = None
@@ -79,6 +97,8 @@ def make_train_step(loss_fn: Callable | None = None, *, with_aux: bool = False):
                 ls.growth_counter.copy_(new.growth_counter)
         state.step += 1
         loss = loss.detach()
+        if group is not None:
+            loss = all_reduce_(loss.clone(), group) / n_data
         return state, ((loss, aux.detach()) if with_aux else loss)
 
     return step
@@ -127,6 +147,13 @@ class CudaGraphStep:
     that fails raises: nothing falls back to eager steps."""
 
     def __init__(self, step_fn: Callable):
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                "CudaGraphStep under a multi-rank process group (graph "
+                "capture across NCCL calls) is not ported to tdfo_tpu_torch "
+                "yet (ROADMAP.md Queue A item 12b)")
         self.step_fn = step_fn
         self.graph = None
         self._static_in: dict[str, torch.Tensor] = {}

@@ -58,6 +58,23 @@ mismatched restore refuses.  ``profile = true`` traces steps 10-20 of
 epoch 0 with ``torch.profiler`` into ``<checkpoint_dir or .>/profile``;
 ``use_tpu = true`` refuses (this package never runs on a TPU).
 
+Several ranks (``launch.py --distributed``, ``core/mesh.py``): with a
+process group running, the trainer lays the ranks out as the ``[mesh]``
+table says and each rank streams its data slice of the global batch
+(``per_device_train_batch_size`` rows; ranks that share a data index read
+the same rows).  The CTR regimes shard the tables over the model axis
+(``embedding_sharding``: row, table or column) and look them up with
+``lookup_mode``; the dense TwoTower regime is data-parallel.  Train losses,
+the train AUC and every eval metric are the global batch's on every rank
+(histograms, sums and counts summed over the data axis); eval tops each
+rank up with zero-weight template batches to the longest slice's count, so
+the collectives stay in lockstep.  Only rank 0 writes logs,
+``metrics.jsonl`` and checkpoints; a checkpoint holds the single-device
+layout (each sharded array gathered onto rank 0's host a shard at a
+time, so no rank's device holds a whole sharded table), and restore takes
+each rank's shard
+of it, so a run saved at one world size resumes at another.
+
 Knobs whose code paths are not ported yet raise ``NotImplementedError``
 naming the ``ROADMAP.md`` item that ports them (see
 :func:`refuse_unported`); nothing is silently ignored.
@@ -116,9 +133,8 @@ def _ctr_columns(cfg: Config) -> tuple[tuple[str, ...], tuple[str, ...]]:
 def _ctr_eval_schema(cat_columns: tuple[str, ...],
                      cont_columns: tuple[str, ...]) -> dict[str, type]:
     """Eval-batch schema of the CTR family: column -> numpy dtype, as the
-    CTR ETLs write them.  (The reference also keeps each column's trailing
-    shape, for the zero-weight template batches of hosts without eval rows:
-    multi-host, ``ROADMAP.md`` Queue A item 12.)"""
+    CTR ETLs write them (every column ``[B]``, so a zero-weight template
+    batch is zeros of these dtypes)."""
     schema: dict[str, type] = {c: np.int32 for c in cat_columns}
     schema.update({c: np.float32 for c in cont_columns})
     schema["label"] = np.int8
@@ -153,21 +169,39 @@ def _check_cache_overflow(overflow: dict) -> None:
             "rows) or lower flush_every.")
 
 
-def refuse_unported(cfg: Config) -> None:
+def refuse_unported(cfg: Config, world: int | None = None) -> None:
     """Raise ``NotImplementedError`` for every knob value whose code path the
-    port does not have yet, naming the ``ROADMAP.md`` item that ports it."""
+    port does not have yet, naming the ``ROADMAP.md`` item that ports it.
+    ``world``: the ranks of the process group (default: the running one's,
+    1 without one); the mesh is multi-device when it or ``[mesh]`` says so."""
+    import torch.distributed as dist
+
+    if world is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
     emb = cfg.embeddings
     tele = cfg.telemetry
+    multi = world > 1 or cfg.mesh.model > 1 or cfg.mesh.data > 1
     checks = [
-        (cfg.attn in ("ring", "ring_flash"), f"attn = {cfg.attn!r}", 12),
-        (cfg.tensor_parallel, "tensor_parallel = true", 12),
-        (cfg.embedding_sharding not in ("row", "replicated"),
-         f"embedding_sharding = {cfg.embedding_sharding!r}", 12),
-        (cfg.lookup_mode != "gspmd", f"lookup_mode = {cfg.lookup_mode!r}", 12),
-        (cfg.mesh.model != 1 or cfg.mesh.seq != 1 or cfg.mesh.data not in (-1, 1),
-         "a multi-device [mesh]", 12),
-        (emb.grouped_a2a, "embeddings.grouped_a2a", 12),
-        (cfg.train.pipeline_overlap, "train.pipeline_overlap", 12),
+        (cfg.attn in ("ring", "ring_flash"), f"attn = {cfg.attn!r}", "12b"),
+        (cfg.tensor_parallel, "tensor_parallel = true", "12b"),
+        (cfg.mesh.seq != 1, "[mesh] seq > 1", "12b"),
+        (emb.grouped_a2a, "embeddings.grouped_a2a", "12b"),
+        (cfg.train.pipeline_overlap, "train.pipeline_overlap", "12b"),
+        (multi and emb.cache_rows > 0,
+         "embeddings.cache_rows > 0 under a multi-device mesh", "12b"),
+        (multi and emb.hot_vocab > 0,
+         "embeddings.hot_vocab > 0 under a multi-device mesh", "12b"),
+        (multi and (emb.table_dtype == "int8" or any(
+            v == "int8" for _, v in emb.table_dtype_overrides)),
+         "int8 storage under a multi-device mesh", "12b"),
+        (multi and cfg.model == "bert4rec", "bert4rec under a multi-device mesh",
+         "12b"),
+        (multi and cfg.dedup_lookup, "dedup_lookup under a multi-device mesh",
+         "12b"),
+        (multi and cfg.model == "twotower" and not cfg.model_parallel
+         and cfg.mesh.model > 1,
+         "the dense regime (model_parallel = false) with [mesh] model > 1",
+         "12b"),
         (bool(cfg.planner.plan), "planner.plan", 14),
         (cfg.write_format != "parquet", f"write_format = {cfg.write_format!r}", 16),
         (cfg.faults.any(), "[faults] injection", 16),
@@ -182,15 +216,63 @@ def refuse_unported(cfg: Config) -> None:
                 f"Queue A item {item})")
 
 
+class _Quiet:
+    """The logger of ranks other than 0: writes nothing."""
+
+    def log(self, **record) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class _GlobalView:
+    """A sharded state in the single-device layout (what a checkpoint
+    holds).  ``gathered`` gives global rank 0 the whole state, each sharded
+    table and slot gathered onto its host a shard at a time (the other
+    ranks get None); ``state_dict`` is the restore template, the layout's
+    shapes and dtypes with zero-memory stand-ins for the sharded arrays;
+    ``load_state_dict`` keeps this rank's shards."""
+
+    def __init__(self, state, coll):
+        self.state, self.coll = state, coll
+
+    def gathered(self) -> dict | None:
+        sd = self.state.state_dict()
+        tables, slots = self.coll.global_arrays(sd["tables"], sd["slots"],
+                                                root_only=True)
+        if torch.distributed.get_rank() != 0:
+            return None
+        sd["tables"], sd["slots"] = tables, slots
+        return sd
+
+    def state_dict(self) -> dict:
+        sd = self.state.state_dict()
+        sd["tables"], sd["slots"] = self.coll.global_template(sd["tables"],
+                                                              sd["slots"])
+        return sd
+
+    def load_state_dict(self, tree: dict) -> None:
+        tree = dict(tree)
+        tree["tables"], tree["slots"] = self.coll.local_arrays(tree["tables"],
+                                                               tree["slots"])
+        self.state.load_state_dict(tree)
+
+
 class Trainer:
     """Config-driven trainer for the TwoTower (dense and DMP), DLRM and
     Bert4Rec regimes on one device (``device`` defaults to the card; pass
-    ``"cpu"`` explicitly).  ``log_dir`` defaults to ``checkpoint_dir``."""
+    ``"cpu"`` explicitly), or on every rank of a running process group (the
+    module note).  ``log_dir`` defaults to ``checkpoint_dir``."""
 
     _METRIC_KS = (10, 20, 50)
 
     def __init__(self, config: Config, *, log_dir: str | Path | None = None,
                  device="cuda"):
+        import torch.distributed as dist
+
+        from tdfo_tpu_torch.core.mesh import _resolve_sizes, make_mesh
+
         refuse_unported(config)
         if config.use_tpu:
             raise RuntimeError(
@@ -199,8 +281,15 @@ class Trainer:
                 "to silently train a TPU config elsewhere)")
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = None
+        if dist.is_initialized():
+            self.mesh = make_mesh(config.mesh, self.device)
+        else:  # a [mesh] that asks for more ranks than this one fails here
+            _resolve_sizes(config.mesh, 1)
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.last_metrics: dict[str, float] = {}
         out_dir = log_dir or config.checkpoint_dir
-        self.logger = MetricLogger(out_dir)
+        self.logger = MetricLogger(out_dir) if self.rank == 0 else _Quiet()
         self._logged_steps = 0  # run-global data-step counter
         self._map_streams: dict = {}
         self._seq = config.model == "bert4rec"
@@ -210,7 +299,8 @@ class Trainer:
         self._cache_flush = None  # the update cache's write-back
         self._flush_every = 0  # its cadence in train steps
         self._train_auc = None
-        if out_dir is not None:
+        self._a2a_watch = None  # the alltoall capacity's overflow counter
+        if out_dir is not None and self.rank == 0:
             _retry.set_failure_log(Path(out_dir) / "retries.jsonl")
         if config.checkpoint_dir:
             self._ckpt = CheckpointManager(config.checkpoint_dir)
@@ -221,14 +311,15 @@ class Trainer:
         else:
             self._build_ctr_sparse()
         self._multi_step = make_multi_step(self._one_step)
-        if self._dense:
-            summary = param_summary(self.state.model,
-                                    title=f"{config.model} parameters")
-        else:
-            summary = param_summary(self.state.backbone, tables=self.state.tables,
-                                    coll=self.coll,
-                                    title=f"{config.model} parameters")
-        print(summary, flush=True)
+        if self.rank == 0:
+            if self._dense:
+                summary = param_summary(self.state.model,
+                                        title=f"{config.model} parameters")
+            else:
+                summary = param_summary(self.state.backbone,
+                                        tables=self.state.tables, coll=self.coll,
+                                        title=f"{config.model} parameters")
+            print(summary, flush=True)
 
     def restore_latest(self):
         """``(step, state)`` of the newest checkpoint under
@@ -237,8 +328,32 @@ class Trainer:
         is left as it is."""
         if self._ckpt is None or self._ckpt.latest_step() is None:
             return 0, self.state
-        step, state, _ = self._ckpt.restore(self.state, stamps=self._ckpt_stamps)
-        return step, state
+        step, _, _ = self._ckpt.restore(self._ckpt_view(),
+                                        stamps=self._ckpt_stamps)
+        return step, self.state
+
+    # ------------------------------------------------------------- ranks
+
+    def _ckpt_view(self):
+        """What checkpoints save and restore: the state, in the
+        single-device layout under a mesh."""
+        if self.mesh is None or self._dense:
+            return self.state
+        return _GlobalView(self.state, self.coll)
+
+    def _data_sum(self, tensors):
+        """Sums over the data axis (the global batch's totals); identity
+        without a mesh."""
+        from tdfo_tpu_torch.core.mesh import DATA_AXIS, axis_group, axis_size
+        from tdfo_tpu_torch.parallel.collectives import all_reduce_tensors
+
+        if axis_size(self.mesh, DATA_AXIS) == 1:
+            return list(tensors)
+        return all_reduce_tensors(tensors, axis_group(self.mesh, DATA_AXIS))
+
+    def _global_auc(self, auc: AUC) -> AUC:
+        pos, neg = self._data_sum([auc.pos_hist, auc.neg_hist])
+        return AUC(pos_hist=pos, neg_hist=neg)
 
     # ------------------------------------------------------------- building
 
@@ -270,7 +385,7 @@ class Trainer:
             model=model, learning_rate=cfg.learning_rate,
             weight_decay=cfg.weight_decay, loss_scale=loss_scale,
             capturable=on_card)
-        inner = make_train_step(with_aux=True)
+        inner = make_train_step(with_aux=True, mesh=self.mesh)
         self.train_step = (CudaGraphStep(inner)
                            if on_card and cfg.steps_per_execution > 1 else inner)
         self.eval_step = make_eval_step()
@@ -339,9 +454,10 @@ class Trainer:
             served = {f for s in specs for f in s.features} | {s.name for s in specs}
             hot_ids = {k: v for k, v in artifact.items() if k in served} or None
         cache_rows = cfg.embeddings.cache_rows
-        coll = ShardedEmbeddingCollection(specs, fused_kind=cfg.sparse_optimizer,
-                                          stack_tables=cfg.stack_tables,
-                                          hot_ids=hot_ids, cache_rows=cache_rows)
+        coll = ShardedEmbeddingCollection(
+            specs, fused_kind=cfg.sparse_optimizer, stack_tables=cfg.stack_tables,
+            hot_ids=hot_ids, cache_rows=cache_rows, mesh=self.mesh,
+            a2a_capacity_factor=cfg.a2a_capacity_factor or None)
         # stamps refuse a restore that would pair values with the wrong ids
         # or dtypes: the hot sets, the storage dtypes (defaults-only runs
         # write none, the reference's rule), the int8 sidecar's layout and
@@ -403,6 +519,15 @@ class Trainer:
         self.train_step = make_sparse_train_step(
             coll, ctr_sparse_forward(backbone, with_logits=True),
             mode=cfg.lookup_mode, with_aux=True, dedup_lookup=cfg.dedup_lookup)
+        if (self.mesh is not None and cfg.lookup_mode == "alltoall"
+                and coll.a2a_capacity_factor is not None):
+            # ids a finite capacity dropped (they read zeros): logged at
+            # every log boundary, as the reference does
+            from tdfo_tpu_torch.train.sparse_step import BatchGroup
+
+            bg, feats = BatchGroup(self.mesh, "alltoall"), list(coll.features())
+            self._a2a_watch = lambda b: coll.a2a_overflow(
+                self.state.tables, bg.split({f: b[f] for f in feats}))
         self.eval_step = make_ctr_sparse_eval_step(coll, backbone,
                                                    mode=cfg.lookup_mode)
         self._eval_schema = _ctr_eval_schema(cat_cols, cont_cols)
@@ -464,21 +589,27 @@ class Trainer:
     # ------------------------------------------------------------- streams
 
     def _stream(self, pattern: str, *, train: bool):
+        """This rank's stream: its data slice (ranks that share a data
+        index read the same rows)."""
+        from tdfo_tpu_torch.core.mesh import DATA_AXIS, axis_index, axis_size
+
         cfg = self.config
         files = resolve_files(cfg.data_dir, pattern)
         bsz = (cfg.per_device_train_batch_size if train
                else cfg.per_device_eval_batch_size)
+        n_data = axis_size(self.mesh, DATA_AXIS)
         if not cfg.streaming:
             key = (pattern, bsz, train)
             if key not in self._map_streams:
                 self._map_streams[key] = MapStream(
                     files, batch_size=bsz, shuffle=train, seed=cfg.seed,
-                    drop_last=train)
+                    drop_last=train, process_count=n_data)
             return self._map_streams[key]
         return ParquetStream(
             files, batch_size=bsz, shuffle=train,
             buffer_size=cfg.shuffle_buffer_size, seed=cfg.seed,
             drop_last=train, num_workers=cfg.num_workers,
+            process_index=axis_index(self.mesh, DATA_AXIS), process_count=n_data,
             max_bad_shards=cfg.max_bad_shards,
             # eval shards are fixed-width; only the jagged TRAIN stream
             # carries ragged windows
@@ -554,8 +685,18 @@ class Trainer:
         return state, loss
 
     def _save(self, gstep: int, cursor: dict) -> None:
-        self._ckpt.save(gstep, self.state, force=True, cursor=cursor,
-                        stamps=self._ckpt_stamps)
+        """Rank 0 gathers the sharded arrays onto its host and writes; the
+        others send their shards and wait for it."""
+        import torch.distributed as dist
+
+        view = self._ckpt_view()
+        tree = (view.gathered() if isinstance(view, _GlobalView)
+                else view.state_dict())
+        if self.rank == 0:
+            self._ckpt.save(gstep, tree, force=True, cursor=cursor,
+                            stamps=self._ckpt_stamps)
+        if dist.is_initialized():
+            dist.barrier()
 
     def train_epoch(self, epoch: int, *, start_step: int = 0,
                     loss_sum: float = 0.0, contributed: int = 0) -> float:
@@ -664,9 +805,11 @@ class Trainer:
                                        "contributed": contributed})
                     next_ckpt = (n_steps // ckpt_n + 1) * ckpt_n
                 if n_steps >= next_log:
+                    extra = ({} if self._a2a_watch is None or k > 1 else
+                             {"a2a_overflow": int(self._a2a_watch(batch))})
                     self.logger.log(epoch=epoch, step=n_steps,
                                     train_loss=float(losses[-1]),
-                                    global_step=gstep)
+                                    global_step=gstep, **extra)
                     next_log = n_steps + cfg.log_every_n_steps
         finally:
             if prof is not None:  # the epoch ended (or raised) mid-window
@@ -679,7 +822,7 @@ class Trainer:
         avg = loss_sum / contributed if contributed else 0.0
         extra = {}
         if n_steps and self._train_auc is not None:
-            extra["train_auc"] = float(self._train_auc.result())
+            extra["train_auc"] = float(self._global_auc(self._train_auc).result())
         self.logger.log(epoch=epoch, train_loss_epoch=avg, steps=n_steps,
                         examples_per_sec=ran * cfg.per_device_train_batch_size
                         / max(dt, 1e-9), **extra)
@@ -725,9 +868,19 @@ class Trainer:
         bsz = stream.batch_size
         schema = self._eval_schema
         rename = self._eval_rename
+        # every rank runs the longest slice's count (the lookups are
+        # collectives): short ranks top up with zero-weight templates
+        budget = stream.max_batches_per_host() if self.mesh is not None else 0
+
+        def template():
+            t = {k: np.zeros((bsz,), dt) for k, dt in schema.items()}
+            t["_weight"] = np.zeros((bsz,), np.float32)
+            return t
 
         def gen():
+            n = 0
             for raw in stream:
+                n += 1
                 if rename is not None:
                     try:
                         raw = rename(raw)
@@ -746,6 +899,8 @@ class Trainer:
                         for k, dt in schema.items()}
                 batch, w = pad_batch(real, bsz)
                 yield dict(batch, _weight=w)
+            for _ in range(n, budget):
+                yield template()
 
         yield from prefetch_to_device(gen(), self.device)
 
@@ -771,9 +926,10 @@ class Trainer:
             w_sum = w_sum + w.sum()
             auc = auc.update(labels, torch.sigmoid(torch.where(ok, logits, 0.0)),
                              w * ok.to(torch.float32))
+        loss_sum, w_sum = self._data_sum([loss_sum, w_sum])
         metrics = {
             "eval_loss": float(loss_sum) / max(float(w_sum), 1.0),
-            "auc": float(auc.result()),
+            "auc": float(self._global_auc(auc).result()),
         }
         self.logger.log(epoch=epoch, **metrics)
         return metrics
@@ -840,10 +996,11 @@ class Trainer:
         resume = {"step": 0, "loss_sum": 0.0, "contributed": 0}
         metrics: dict[str, float] = {}
         try:
-            restored = (self._ckpt.restore(self.state, stamps=self._ckpt_stamps)
+            restored = (self._ckpt.restore(self._ckpt_view(),
+                                           stamps=self._ckpt_stamps)
                         if self._ckpt is not None else None)
             if restored is not None:
-                step_id, self.state, cursor = restored
+                step_id, _, cursor = restored
                 if cursor is None:
                     start_epoch = step_id + 1
                     self.logger.log(resumed_from_epoch=step_id)
@@ -879,6 +1036,7 @@ class Trainer:
                                        "epoch_complete": True,
                                        "global_step": gstep})
             metrics.update(self.evaluate_test())
+            self.last_metrics = metrics
         finally:
             self.logger.close()
             if self._ckpt is not None:

@@ -242,12 +242,23 @@ def test_dedup_forward_gathers_what_the_lookup_gathers():
     assert torch.isnan(seen["c3"][3]).all() and torch.isnan(seen["c4"][5]).all()
 
 
+class _OneRankMesh:
+    """A stand-in mesh of one rank (the step only reads its axis sizes)."""
+
+    def size(self, dim):
+        return 1
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 def test_unported_step_options_refuse():
     tc = TColl(t_specs(SIZE_MAP, 8, "row"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_step(tc, lambda e, b: None, mode="psum")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_step(tc, lambda e, b: None, mode="alltoall")
+    for mode in ("psum", "alltoall"):  # ported: on one device a local gather
+        t_step(tc, lambda e, b: None, mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 12b"):
+        t_step(TColl(t_specs(SIZE_MAP, 8, "row"), mesh=_OneRankMesh()),
+               lambda e, b: None, dedup_lookup=True)
     # narrow storage builds: bf16 everywhere; int8 plain tables with their
     # f32 sidecars and the fat stack as int8 byte lines
     import dataclasses

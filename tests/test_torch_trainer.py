@@ -106,7 +106,7 @@ def test_pad_batch_zero_weights():
 
 
 @pytest.mark.parametrize("extra", [
-    {"tensorboard": True}, {"lookup_mode": "psum"},
+    {"tensorboard": True}, {"tensor_parallel": True},
 ])
 def test_unported_knobs_refuse(tmp_path, extra):
     cfg = read_configs(_write_config(tmp_path, **extra))
@@ -223,8 +223,9 @@ def test_bert4rec_flash_fit_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"attn": "ring_flash"}, 12),
-    ({"attn": "ring"}, 12), ({"tensor_parallel": True}, 12),
+    pytest.param({"attn": "ring_flash"}, "12b", id="extra0-12"),
+    pytest.param({"attn": "ring"}, "12b", id="extra1-12"),
+    pytest.param({"tensor_parallel": True}, "12b", id="extra2-12"),
 ])
 def test_bert4rec_unported_knobs_name_their_item(tmp_path, extra, item):
     cfg = read_configs(_write_config(tmp_path, model="bert4rec", **extra))

@@ -85,5 +85,5 @@ def test_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             coll.init(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TColl(t_specs(SIZE_MAP, 8, "column"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 12b"):
+        TColl(t_specs(SIZE_MAP, 8, "column"), fused_kind="rowwise_adagrad")

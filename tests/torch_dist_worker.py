@@ -1,0 +1,427 @@
+"""Rank process of the port's multi-process tests (gloo on the CPU).
+
+Imports torch and the port only.  A test starts one process per rank
+(:class:`Ranks`, torchrun's environment variables set by hand); they join
+their process group while the test builds its cases, then read the pickle
+of cases it sends, and each rank runs every case in order: it builds
+the case's ``DeviceMesh``, carries the case's global numpy arrays to its
+shard (``interop.shard_from_numpy``), runs the port, and writes what it got
+back as global numpy arrays (``interop.gather_to_numpy``) into
+``rank<k>.pkl``.  The test compares those with the JAX package.  A case
+whose ``expect`` names an exception type records the message it raised.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """``world`` gloo rank processes, started before their cases exist: they
+    import torch and the port and join their process group while the test
+    builds the cases (the JAX side); :meth:`send` hands them the cases, and
+    :meth:`wait` returns each rank's results."""
+
+    def __init__(self, world: int, tmp: Path, timeout: float = 240.0):
+        self.world, self.tmp, self.timeout = world, Path(tmp), timeout
+        self.tmp.mkdir(parents=True, exist_ok=True)
+        self.inp = self.tmp / f"cases_{world}.pkl"
+        env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1")
+        env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), str(self.inp),
+             str(self.tmp), str(timeout)],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+    def send(self, cases: dict) -> "Ranks":
+        tmp = self.inp.with_suffix(".part")
+        tmp.write_bytes(pickle.dumps(cases))
+        os.replace(tmp, self.inp)  # the ranks see the whole file or none
+        return self
+
+    def wait(self) -> list[dict]:
+        logs = []
+        for p in self.procs:
+            try:
+                out, _ = p.communicate(timeout=self.timeout)
+            except subprocess.TimeoutExpired:
+                for q in self.procs:
+                    q.kill()
+                raise
+            logs.append(out)
+        for r, p in enumerate(self.procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} exited {p.returncode}:\n{logs[r][-4000:]}")
+        return [pickle.loads((self.tmp / f"rank{r}_{self.world}.pkl").read_bytes())
+                for r in range(self.world)]
+
+
+def run_ranks(world: int, cases: dict, tmp: Path, timeout: float = 240.0) -> list[dict]:
+    """Run ``cases`` on ``world`` gloo ranks; returns each rank's results."""
+    return Ranks(world, tmp, timeout).send(cases).wait()
+
+
+# ------------------------------------------------------------------ cases
+
+_MESHES: dict = {}
+
+
+def _mesh(case):
+    """The case's mesh, built once per shape (each build makes its groups)."""
+    from tdfo_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    d, m = case["mesh"]
+    if (d, m) not in _MESHES:
+        _MESHES[d, m] = make_mesh(MeshSpec(data=d, model=m, seq=1), device="cpu")
+    return _MESHES[d, m]
+
+
+def _coll(case, mesh):
+    from tdfo_tpu_torch.parallel.embedding import (
+        EmbeddingSpec,
+        ShardedEmbeddingCollection,
+    )
+
+    specs = [EmbeddingSpec(**s) for s in case["specs"]]
+    return ShardedEmbeddingCollection(
+        specs, mesh=mesh, fused_kind=case.get("kind", "adam"),
+        stack_tables=case.get("stack_tables", False),
+        a2a_capacity_factor=case.get("cf"))
+
+
+def _local_ids(mesh, mode, feats):
+    import torch
+
+    from tdfo_tpu_torch.core.mesh import data_slice
+    from tdfo_tpu_torch.train.sparse_step import BatchGroup
+
+    bg = BatchGroup(mesh, mode)
+    out = {}
+    for f, v in feats.items():
+        v = torch.from_numpy(v)
+        out[f] = v[data_slice(mesh, v.shape[0])]
+    return bg, bg.split(out)
+
+
+def case_mesh_info(case):
+    """This rank's coordinates, the axis names, and the ranks of its line
+    along each axis (an all-gather of the global rank over that group)."""
+    import torch
+    import torch.distributed as dist
+
+    from tdfo_tpu_torch.core.mesh import AXES, axis_group, axis_index, axis_size
+    from tdfo_tpu_torch.parallel.collectives import all_gather_cat
+
+    mesh = _mesh(case)
+    me = torch.tensor([dist.get_rank()])
+    return {"names": tuple(mesh.mesh_dim_names),
+            "coords": tuple(axis_index(mesh, a) for a in AXES),
+            "sizes": tuple(axis_size(mesh, a) for a in AXES),
+            "lines": {a: all_gather_cat(me, axis_group(mesh, a)).tolist()
+                      for a in AXES}}
+
+
+def case_init(case):
+    """``init`` under the mesh, gathered into the single-device layout."""
+    from tdfo_tpu_torch.interop import gather_to_numpy
+
+    coll = _coll(case, _mesh(case))
+    return {"tables": gather_to_numpy(coll, coll.init(case["seed"], device="cpu"))[0]}
+
+
+def case_ckpt_gather(case):
+    """A checkpoint's gather of ``init``'s tables and adam slots (random
+    values): on rank 0, ``global_arrays(root_only=True)`` on the host,
+    bitwise the all-gather, and ``global_template`` of the same shapes and
+    dtypes without memory behind its sharded arrays; on the other ranks,
+    what they got (nothing, or None for every sharded array)."""
+    import torch
+    import torch.distributed as dist
+
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+
+    coll = _coll(case, _mesh(case))
+    tables = coll.init(case["seed"], device="cpu")
+    gen = torch.Generator().manual_seed(dist.get_rank())
+    slots = {n: tuple(torch.rand(s.shape, generator=gen) if s.dim() else s
+                      for s in sparse_optimizer("adam", lr=1e-2).init(t))
+             for n, t in tables.items()}
+    full = coll.global_arrays(tables, slots)
+    root = coll.global_arrays(tables, slots, root_only=True)
+    if dist.get_rank() != 0:
+        return {"root": None if root[0] is None else
+                sorted(k for k, v in root[0].items() if v is not None)}
+    tmpl = coll.global_template(tables, slots)
+    flat = lambda ts: [*ts[0].values(), *(x for sl in ts[1].values() for x in sl)]  # noqa: E731
+    return {"root": "all",
+            "bitwise": all(torch.equal(a, b) for a, b in zip(flat(root), flat(full))),
+            "on_host": all(a.device.type == "cpu" for a in flat(root)),
+            "template": [(tuple(a.shape), a.dtype) for a in flat(tmpl)]
+            == [(tuple(b.shape), b.dtype) for b in flat(full)],
+            # each stand-in's storage, in elements (zero-stride tensors)
+            "stand_ins": [a.untyped_storage().nbytes() // a.element_size()
+                          for a in flat(tmpl) if a.dim() and not any(a.stride())]}
+
+
+def case_lookup(case):
+    """Lookups of the case's global ids, gathered back in batch order; the
+    a2a overflow count and fill; the local table shapes."""
+    from tdfo_tpu_torch.interop import shard_from_numpy, to_numpy
+
+    mesh = _mesh(case)
+    coll = _coll(case, mesh)
+    tables, _ = shard_from_numpy(coll, case["tables"])
+    bg, ids = _local_ids(mesh, case["mode"], case["features"])
+    out = coll.lookup(tables, ids, mode=case["mode"])
+    feats = sorted(out)
+    got = dict(zip(feats, bg.gather([out[f] for f in feats])))
+    fill, dropped = coll.a2a_fill_stats(tables, ids)
+    return {"out": {f: to_numpy(v) for f, v in got.items()},
+            "overflow": int(coll.a2a_overflow(tables, ids)),
+            "dropped": int(dropped), "fill": float(fill),
+            "shapes": {k: tuple(v.shape) for k, v in tables.items()}}
+
+
+def case_grad(case):
+    """The gradient of the sum of the lookups with respect to the tables,
+    gathered (summed over the data axis, as the reference's grad is)."""
+    import torch
+
+    from tdfo_tpu_torch.core.mesh import DATA_AXIS, axis_group
+    from tdfo_tpu_torch.interop import gather_to_numpy, shard_from_numpy
+    from tdfo_tpu_torch.parallel.collectives import all_reduce_
+
+    mesh = _mesh(case)
+    coll = _coll(case, mesh)
+    tables, _ = shard_from_numpy(coll, case["tables"])
+    for t in tables.values():
+        t.requires_grad_(True)
+    _, ids = _local_ids(mesh, case["mode"], case["features"])
+    out = coll.lookup(tables, ids, mode=case["mode"])
+    sum(v.sum() for v in out.values()).backward()
+    grads = {k: all_reduce_(t.grad, axis_group(mesh, DATA_AXIS))
+             for k, t in tables.items()}
+    with torch.no_grad():
+        return {"grad": gather_to_numpy(coll, grads)[0]}
+
+
+def case_update(case):
+    """One ``sparse_update`` of every array with the case's global ids and
+    grads (and SR key), gathered."""
+    import torch
+
+    from tdfo_tpu_torch.interop import gather_to_numpy, shard_from_numpy
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.quant import sr_key
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+
+    mesh = _mesh(case)
+    coll = _coll(case, mesh)
+    tables, slots = shard_from_numpy(coll, case["tables"], case["slots"])
+    opt = sparse_optimizer(case.get("kind", "adam"), lr=case["lr"],
+                           weight_decay=case.get("wd", 0.0))
+    before = kl.fat_line_update.plain_runs
+    for name, (ids, g) in case["updates"].items():
+        key = sr_key(case["step"], name) if case.get("sr") else None
+        coll.sparse_update(opt, name, tables[name], slots[name],
+                           torch.from_numpy(ids), torch.from_numpy(g), sr_key=key)
+    t, s = gather_to_numpy(coll, tables, slots)
+    return {"tables": t, "slots": s,
+            "fat_runs": kl.fat_line_update.plain_runs - before}
+
+
+def _backbone(case):
+    import torch
+
+    from tdfo_tpu_torch.interop import backbone_params_from_flax
+
+    if case["model"] == "dlrm":
+        from tdfo_tpu_torch.models.dlrm import DLRMBackbone
+
+        b = DLRMBackbone(case["d"], cat_columns=case["cats"],
+                         cont_columns=case["conts"])
+    else:
+        from tdfo_tpu_torch.models.twotower import TwoTowerBackbone
+
+        b = TwoTowerBackbone(case["d"])
+    b.load_state_dict(backbone_params_from_flax(case["dense"]))
+    return b.to(torch.float32)
+
+
+def case_step(case):
+    """K sparse train steps on the rank's data slice of each global batch;
+    the losses (the global batch's) and the gathered state."""
+    import torch
+
+    from tdfo_tpu_torch.core.mesh import data_slice
+    from tdfo_tpu_torch.interop import gather_to_numpy, shard_from_numpy, to_numpy
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.train.ctr import ctr_sparse_forward
+    from tdfo_tpu_torch.train.sparse_step import (
+        SparseTrainState,
+        make_sparse_train_step,
+    )
+
+    mesh = _mesh(case)
+    coll = _coll(case, mesh)
+    tables, _ = shard_from_numpy(coll, case["tables"])
+    backbone = _backbone(case)
+    kind, lr, wd = case.get("kind", "adam"), case["lr"], case["wd"]
+    state = SparseTrainState.create(
+        backbone=backbone, tables=tables,
+        sparse_opt=sparse_optimizer(kind, lr=case.get("sparse_lr", lr),
+                                    weight_decay=case.get("sparse_wd", wd)),
+        learning_rate=lr, weight_decay=wd)
+    step = make_sparse_train_step(coll, ctr_sparse_forward(backbone),
+                                  mode=case["mode"])
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+
+    before = kl.fat_line_update.plain_runs
+    losses = []
+    for b in case["batches"]:
+        local = {k: torch.from_numpy(v)[data_slice(mesh, v.shape[0])]
+                 for k, v in b.items()}
+        state, loss = step(state, local)
+        losses.append(float(loss))
+    t, s = gather_to_numpy(coll, state.tables, state.slots)
+    return {"losses": losses, "tables": t, "slots": s,
+            "fat_runs": kl.fat_line_update.plain_runs - before,
+            "backbone": {k: to_numpy(v) for k, v in backbone.state_dict().items()}}
+
+
+def case_dense_step(case):
+    """K dense-regime steps (every parameter under AdamW) on the rank's
+    data slice; the global losses and the parameters."""
+    import torch
+
+    from tdfo_tpu_torch.core.mesh import data_slice
+    from tdfo_tpu_torch.interop import dense_params_from_flax, to_numpy
+    from tdfo_tpu_torch.models.twotower import init_twotower
+    from tdfo_tpu_torch.train.state import TrainState
+    from tdfo_tpu_torch.train.step import make_train_step
+
+    mesh = _mesh(case)
+    model = init_twotower(0, case["size_map"], case["d"], device="cpu")
+    model.load_state_dict(dense_params_from_flax(case["dense"]))
+    state = TrainState.create(model=model, learning_rate=case["lr"],
+                              weight_decay=case["wd"])
+    step = make_train_step(mesh=mesh)
+    losses = []
+    for b in case["batches"]:
+        local = {k: torch.from_numpy(v)[data_slice(mesh, v.shape[0])]
+                 for k, v in b.items()}
+        state, loss = step(state, local)
+        losses.append(float(loss))
+    return {"losses": losses,
+            "params": {k: to_numpy(v) for k, v in model.state_dict().items()}}
+
+
+class _Killed(Exception):
+    pass
+
+
+def case_fit(case):
+    """A ``Trainer.fit`` of the case's config (``launch.run`` of a ``train``
+    command line when ``cli``; ``evaluate``: one evaluation of the fresh
+    trainer instead); ``kill_at``: the run dies before that train step and
+    a second trainer resumes from its checkpoints.  The metrics and the
+    gathered tables."""
+    import torch
+
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.interop import gather_to_numpy
+    from tdfo_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(0)
+    if case.get("cli"):
+        from tdfo_tpu_torch import launch
+
+        trainer = launch.run(case["argv"])
+    else:
+        if case.get("kill_at"):
+            tr = Trainer(read_configs(None, **case["body"]), device="cpu")
+            inner, calls = tr.train_step, [0]
+
+            def dying(*args):
+                calls[0] += 1
+                if calls[0] == case["kill_at"]:
+                    raise _Killed
+                return inner(*args)
+
+            tr.train_step = dying
+            try:
+                tr.fit()
+            except _Killed:
+                pass
+            else:
+                raise AssertionError("the run was not killed")
+        trainer = Trainer(read_configs(None, **case["body"]), device="cpu")
+        if not case.get("evaluate"):
+            trainer.fit()
+    out = {"metrics": trainer.last_metrics, "step": trainer.state.step}
+    if case.get("evaluate"):
+        out["eval"] = trainer.evaluate(epoch=99)
+    if hasattr(trainer, "coll"):
+        out["tables"] = gather_to_numpy(trainer.coll, trainer.state.tables)[0]
+    return out
+
+
+def main() -> None:
+    import torch
+
+    from tdfo_tpu_torch.core.mesh import initialize_distributed
+
+    torch.set_num_threads(1)
+    inp, out_dir, timeout = Path(sys.argv[1]), Path(sys.argv[2]), float(sys.argv[3])
+    initialize_distributed("cpu")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    deadline = time.monotonic() + timeout
+    while not inp.exists():  # the test is still building the cases
+        if time.monotonic() > deadline:
+            sys.exit(f"rank {rank}: no cases in {inp} after {timeout} s")
+        time.sleep(0.02)
+    cases = pickle.loads(inp.read_bytes())
+    results = {}
+    for name, case in cases.items():
+        fn = globals()["case_" + case["fn"]]
+        expect = case.get("expect")
+        if expect is None:
+            results[name] = fn(case)
+            continue
+        try:
+            fn(case)
+        except Exception as e:  # noqa: BLE001 (the expected refusal is checked)
+            if type(e).__name__ != expect:
+                traceback.print_exc()
+                raise
+            results[name] = {"raised": type(e).__name__, "message": str(e)}
+        else:
+            results[name] = {"raised": None}
+    (out_dir / f"rank{rank}_{world}.pkl").write_bytes(pickle.dumps(results))
+    # every rank done with its collectives, then out without the process
+    # group's teardown (gloo's threads can abort a tearing-down process)
+    torch.distributed.barrier()
+    sys.stdout.flush()
+    os._exit(0)
+
+
+if __name__ == "__main__":
+    main()
