@@ -267,18 +267,31 @@ Phases (each prints its lines; any failure raises, so the script never exits
 29. dist_main — phase 3's regime (SIZE_MAP, B = 8192, d = 64, adam +
    AdamW lr 3e-4 wd 1e-4, ``embedding_sharding = "row"``, the same initial
    state and batches) in rank processes of this script on the card, each
-   lookup mode (``gspmd``, ``psum``, ``alltoall``): world 1 over NCCL
-   (mesh 1 x 1 x 1, the distributed code path) bitwise the single-device
-   step over 3 steps; world 2 over gloo on the one card (NCCL refuses two
-   ranks on a device), data 1 x model 2, after probing which collectives
-   gloo takes on CUDA tensors (a refusal fails by name): ``gspmd`` and
-   ``psum`` bitwise, ``alltoall`` (the batch split over the ranks) within
-   rtol 1e-4; NCCL at world = the card count where there are several.
-   Each rank prints step ms, the collectives' CUDA-event ms a step,
-   ``fat_line_update`` launches on its shard and peak memory.
+   mode of ``DIST_MODES``: the lookup modes ``gspmd``, ``psum`` and
+   ``alltoall``, the grouped exchange (``grouped``: one f32 group of the
+   fat stack and the five plain tables) and its pipelined step
+   (``pipelined``), and the int8 arm (every table plain int8, per-table
+   ``int8_alltoall`` and ``int8_grouped``): world 1 over NCCL (mesh 1 x 1
+   x 1, the distributed code path), the f32 modes bitwise the
+   single-device step over 3 steps; world 2 over gloo on the one card
+   (NCCL refuses two ranks on a device), data 1 x model 2, after probing
+   which collectives gloo takes on CUDA tensors (``all_to_all_single`` in
+   int32, f32, bf16 and int8 and async; a refusal fails by name):
+   ``gspmd`` and ``psum`` bitwise, the split-batch modes within rtol
+   1e-4; NCCL at world = the card count where there are several.  At
+   every world the grouped forward is bitwise the per-table ``alltoall``
+   forward, the pipelined step bitwise the eager grouped one (losses,
+   tables, slots), the int8 arm within the narrow-storage rule of the
+   single-device int8 step spanning the two runs' grid steps (each draws
+   its own rounding bits; the initial rows as the control, which must
+   fail), and ``all_to_all_single`` runs as often a step as ``DIST_A2A``
+   says.  Each rank prints step ms, the collectives' CUDA-event ms a step,
+   ``fat_line_update`` launches on its shard (once a step in the f32
+   modes), ``segment_sum`` launches and peak memory.
 30. dist_cli — ``python -m torch.distributed.run --nproc-per-node 1 -m
-   tdfo_tpu_torch.launch train --distributed always`` on a DMP TwoTower
-   toml (synthetic data, ``lookup_mode = "alltoall"``): SIGKILLed after a
+   tdfo_tpu_torch.launch train --distributed always`` on two DMP TwoTower
+   tomls (synthetic data, ``lookup_mode = "alltoall"``; the second with
+   ``grouped_a2a`` and ``pipeline_overlap``): each SIGKILLed after a
    mid-epoch save, run again, and its final checkpoint bitwise an
    uninterrupted run's.
 
@@ -2961,7 +2974,14 @@ def phase_quickstart_cli(torch) -> dict:
 # ---------------------------------------------------------------- several ranks
 
 DIST_STEPS, DIST_TIMED = 3, 5      # compared steps, then timed steps
-DIST_MODES = ("gspmd", "psum", "alltoall")
+# the per-table lookup modes, then the grouped exchange (eager and
+# pipelined), then the int8 arm (every table plain int8: codes on the wire)
+DIST_MODES = ("gspmd", "psum", "alltoall", "grouped", "pipelined",
+              "int8_alltoall", "int8_grouped")
+# all_to_all_single calls a step: ids + vectors out and back, ids + grads
+# for the update; int8 adds the (scale, offset) rows on the return trip
+DIST_A2A = {"grouped": 4, "pipelined": 4, "int8_grouped": 5,
+            "alltoall": 14, "int8_alltoall": 14}
 DIST_TIMEOUT_S = 300
 
 
@@ -3011,7 +3031,9 @@ def _spawn_ranks(world: int, spec: dict, tag: str) -> list[dict]:
 
 def _probe_collectives(torch, dist) -> dict:
     """Which of the port's collectives the running backend takes on CUDA
-    tensors; a refusal is printed and fails the run by name."""
+    tensors, ``all_to_all_single`` in every dtype the exchanges ship
+    (int32 ids, f32, bf16 and int8 payloads) and in its async form; a
+    refusal is printed and fails the run by name."""
     rank, world = dist.get_rank(), dist.get_world_size()
     x = torch.full((4,), float(rank + 1), device="cuda")
     checks = {}
@@ -3031,15 +3053,25 @@ def _probe_collectives(torch, dist) -> dict:
         dist.all_gather_into_tensor(y, x)
         return float(y[-1]) == float(world)
 
-    def all_to_all_single():
-        src = torch.arange(world, device="cuda", dtype=torch.float32) + 10 * rank
-        dst = torch.empty_like(src)
-        dist.all_to_all_single(dst, src)
-        return [float(v) for v in dst] == [rank + 10.0 * r for r in range(world)]
+    def all_to_all_single(dtype, async_op=False):
+        def check():
+            src = (torch.arange(world, device="cuda") + 10 * rank).to(dtype)
+            dst = torch.empty_like(src)
+            work = dist.all_to_all_single(dst, src, async_op=async_op)
+            if async_op:
+                work.wait()
+            return [float(v) for v in dst.float()] == [rank + 10.0 * r
+                                                      for r in range(world)]
+        return check
 
     for name, fn in (("all_reduce", all_reduce), ("all_gather", all_gather),
                      ("all_gather_into_tensor", all_gather_into_tensor),
-                     ("all_to_all_single", all_to_all_single)):
+                     ("all_to_all_single", all_to_all_single(torch.float32)),
+                     ("all_to_all_single[int32]", all_to_all_single(torch.int32)),
+                     ("all_to_all_single[bfloat16]", all_to_all_single(torch.bfloat16)),
+                     ("all_to_all_single[int8]", all_to_all_single(torch.int8)),
+                     ("all_to_all_single[async]",
+                      all_to_all_single(torch.int64, async_op=True))):
         try:
             checks[name] = "ok" if fn() else "wrong result"
         except RuntimeError as e:
@@ -3048,10 +3080,22 @@ def _probe_collectives(torch, dist) -> dict:
     return checks
 
 
+def _decoded(torch, tables, aname, ids):
+    """Rows ``ids`` of the global int8 array ``aname`` decoded (CPU), and
+    their grid steps (the scales)."""
+    from tdfo_tpu_torch.ops.quant import dequantize_rows
+    from tdfo_tpu_torch.parallel.embedding import qscale_name
+
+    idx = torch.from_numpy(ids).to(tables[aname].device)
+    qs = tables[qscale_name(aname)][idx]
+    return dequantize_rows(tables[aname][idx], qs).cpu(), qs[:, 0].cpu()
+
+
 def dist_rank_main(spec: dict) -> int:
     """One rank of ``dist_main``: the TwoTower headline regime (phase 3's
-    initial state and batches) on this rank's shards through each lookup
-    mode, held to the single-device step that this rank also runs."""
+    initial state and batches) on this rank's shards through each mode of
+    ``DIST_MODES``, held to the single-device step that this rank also
+    runs (the int8 arm to the single-device int8 step)."""
     import copy
 
     import torch
@@ -3063,10 +3107,16 @@ def dist_rank_main(spec: dict) -> int:
     from tdfo_tpu_torch.interop import TOL
     from tdfo_tpu_torch.models.twotower import TwoTowerBackbone, ctr_embedding_specs
     from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
     from tdfo_tpu_torch.ops.sparse import sparse_optimizer
     from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
     from tdfo_tpu_torch.train.ctr import ctr_sparse_forward
-    from tdfo_tpu_torch.train.sparse_step import SparseTrainState, make_sparse_train_step
+    from tdfo_tpu_torch.train.sparse_step import (
+        BatchGroup,
+        SparseTrainState,
+        make_pipelined_sparse_train_step,
+        make_sparse_train_step,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3085,6 +3135,11 @@ def dist_rank_main(spec: dict) -> int:
                      "cuda")
     specs = ctr_embedding_specs(SIZE_MAP, DIM, "row")
     tables0 = ShardedEmbeddingCollection(specs).init(0, device="cpu")
+    # the int8 arm: bench.py's int8 TwoTower (every table plain int8)
+    specs8 = _with_dtype(ctr_embedding_specs(SIZE_MAP, DIM, "row", fused_threshold=None),
+                         torch.int8)
+    coll8 = ShardedEmbeddingCollection(specs8)
+    tables8 = coll8.init(0, device="cpu")
     backbone0 = TwoTowerBackbone(DIM, generator=torch.Generator().manual_seed(1))
     rng = np.random.default_rng(7)
     host = [make_host_batch(rng, BATCH) for _ in range(DIST_STEPS + DIST_TIMED)]
@@ -3096,44 +3151,133 @@ def dist_rank_main(spec: dict) -> int:
     ref_tables = {k: v.detach().cpu() for k, v in ref.tables.items()}
     ref_bb = {k: v.detach().cpu() for k, v in ref.backbone.state_dict().items()}
     del ref
+    # the single-device int8 step: its losses and touched user rows
+    modes8 = [m for m in spec["modes"] if m.startswith("int8_")]
+    if modes8:
+        user8, _, off8 = coll8.resolve("user_id")
+        touched = np.unique(np.concatenate(
+            [h["user_id"] for h in host[:DIST_STEPS]])).astype(np.int64) + off8
+        bb8 = copy.deepcopy(backbone0).cuda()
+        st8 = SparseTrainState.create(
+            backbone=bb8, tables={k: v.to("cuda", copy=True) for k, v in tables8.items()},
+            sparse_opt=sparse_optimizer("adam", lr=LR, weight_decay=WD),
+            learning_rate=LR, weight_decay=WD)
+        step8 = make_sparse_train_step(coll8, ctr_sparse_forward(bb8))
+        ref8_losses = []
+        for h in host[:DIST_STEPS]:
+            st8, loss = step8(st8, to_device(torch, h, "cuda"))
+            ref8_losses.append(float(loss))
+        ref8_rows, ref8_step = _decoded(torch, st8.tables, user8, touched)
+        base8, _ = _decoded(torch, tables8, user8, touched)
+        del st8, bb8
     torch.cuda.empty_cache()
     rows = data_slice(mesh, BATCH)
     res["modes"] = {}
+    grouped_run = None  # the eager grouped run's losses, tables and slots
     for mode in spec["modes"]:
-        coll = ShardedEmbeddingCollection(specs, mesh=mesh)
+        int8 = mode.startswith("int8_")
+        lookup = mode if mode in ("gspmd", "psum") else "alltoall"
+        grouped = mode in ("grouped", "pipelined", "int8_grouped")
+        mspecs, mtables = (specs8, tables8) if int8 else (specs, tables0)
+        coll = ShardedEmbeddingCollection(mspecs, mesh=mesh, grouped_a2a=grouped)
         local, _ = coll.local_arrays({k: v.to("cuda", copy=True)
-                                      for k, v in tables0.items()}, {})
+                                      for k, v in mtables.items()}, {})
         backbone = copy.deepcopy(backbone0).cuda()
         state = SparseTrainState.create(
             backbone=backbone, tables=local,
             sparse_opt=sparse_optimizer("adam", lr=LR, weight_decay=WD),
             learning_rate=LR, weight_decay=WD)
-        step = make_sparse_train_step(coll, ctr_sparse_forward(backbone), mode=mode)
+        fwd = ctr_sparse_forward(backbone)
         batches = [{k: v[rows] for k, v in to_device(torch, h, "cuda").items()}
                    for h in host]
+        forward_bitwise = None
+        if grouped and mode != "pipelined":
+            # the grouped forward against the per-table program's
+            per_table = ShardedEmbeddingCollection(mspecs, mesh=mesh)
+            share = BatchGroup(mesh, "alltoall").split(batches[0])
+            ids = {f: share[f] for f in coll.features()}
+            with torch.no_grad():
+                a = coll.lookup(state.tables, ids, mode="alltoall")
+                b = per_table.lookup(state.tables, ids, mode="alltoall")
+            forward_bitwise = all(torch.equal(a[f], b[f]) for f in ids)
+            if not forward_bitwise:
+                raise AssertionError(f"dist {mode} world {world}: the grouped forward "
+                                     "is not bitwise the per-table alltoall forward")
+        if mode == "pipelined":
+            pipe = make_pipelined_sparse_train_step(coll, fwd)
+
+            def train(st, bs):
+                carry, out = pipe.prime(bs[0]), []
+                for b in bs[1:]:
+                    st, loss, carry = pipe.step(st, b, carry)
+                    out.append(loss)
+                st, loss = pipe.flush(st, carry)
+                return st, out + [loss]
+        else:
+            step = make_sparse_train_step(coll, fwd, mode=lookup)
+
+            def train(st, bs):
+                out = []
+                for b in bs:
+                    st, loss = step(st, b)
+                    out.append(loss)
+                return st, out
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kl.fat_line_update.launches = 0
-        losses = []
-        for b in batches[:DIST_STEPS]:
-            state, loss = step(state, b)
-            losses.append(float(loss))
-        got, _ = coll.global_arrays(state.tables, {})
-        bitwise = losses == ref_losses and all(
-            torch.equal(got[k].cpu(), v) for k, v in ref_tables.items()) and all(
-            torch.equal(v.detach().cpu(), ref_bb[k])
-            for k, v in backbone.state_dict().items())
-        worst = max(float((got[k].cpu().double() - v.double()).abs().max())
-                    for k, v in ref_tables.items())
-        want_bitwise = world == 1 or mode != "alltoall"
-        if want_bitwise and not bitwise:
-            raise AssertionError(
-                f"dist {mode} world {world}: not bitwise the single-device step "
-                f"(losses {losses} vs {ref_losses}, max |table diff| {worst:.3e})")
+        segment_sum.launches = 0
+        state, losses = train(state, batches[:DIST_STEPS])
+        losses = [float(x) for x in losses]
+        got, got_slots = coll.global_arrays(state.tables, state.slots)
+        # host copies (at world 1 the gathers return the live shards)
+        got = {k: v.to("cpu", copy=True) for k, v in got.items()}
+        rec = {"losses": losses, "forward_bitwise": forward_bitwise}
         rtol, atol = TOL["trajectory"]
-        np.testing.assert_allclose(losses, ref_losses, rtol=rtol, atol=atol)
-        for k, v in ref_tables.items():
-            torch.testing.assert_close(got[k].cpu(), v, rtol=rtol, atol=atol)
+        if int8:
+            np.testing.assert_allclose(losses, ref8_losses, rtol=BF16_LOSS_RTOL)
+            # the sharded update draws its own stochastic-rounding bits (the
+            # key folds the model index; grouped, the table id too): each
+            # run lands within its own grid step of one value, so the rule
+            # spans the two runs' steps
+            rows8, step8 = _decoded(torch, got, user8, touched)
+            rec["rule"] = _check_int8_rows(torch, "user rows", rows8, ref8_rows,
+                                           base8, ref8_step + step8,
+                                           apart="the two runs' grid steps")
+            bitwise = False
+            worst = float((rows8.double() - ref8_rows.double()).abs().max())
+        else:
+            bitwise = losses == ref_losses and all(
+                torch.equal(got[k], v) for k, v in ref_tables.items()) and all(
+                torch.equal(v.detach().cpu(), ref_bb[k])
+                for k, v in backbone.state_dict().items())
+            worst = max(float((got[k].double() - v.double()).abs().max())
+                        for k, v in ref_tables.items())
+            # bitwise at world 1 everywhere, and over model shards where
+            # the batch is not split (gspmd, psum); a split batch sums the
+            # dense gradients in another order
+            want_bitwise = world == 1 or lookup != "alltoall"
+            if want_bitwise and not bitwise:
+                raise AssertionError(
+                    f"dist {mode} world {world}: not bitwise the single-device "
+                    f"step (losses {losses} vs {ref_losses}, max |table diff| "
+                    f"{worst:.3e})")
+            np.testing.assert_allclose(losses, ref_losses, rtol=rtol, atol=atol)
+            for k, v in ref_tables.items():
+                torch.testing.assert_close(got[k], v, rtol=rtol, atol=atol)
+        if mode == "grouped":
+            grouped_run = (losses, got, {k: [t.to("cpu", copy=True) for t in v]
+                                         for k, v in got_slots.items()})
+        if mode == "pipelined":
+            gl, gt, gs = grouped_run
+            same = losses == gl and all(torch.equal(got[k], v) for k, v in gt.items()) \
+                and all(torch.equal(a.cpu(), b) for k, v in gs.items()
+                        for a, b in zip(got_slots[k], v))
+            if not same:
+                raise AssertionError(f"dist pipelined world {world}: not bitwise the "
+                                     f"eager grouped step (losses {losses} vs {gl})")
+            rec["bitwise_eager_grouped"] = True
+        del got, got_slots
         # timed steps, the collectives under CUDA events
         events: list = []
         orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
@@ -3155,8 +3299,7 @@ def dist_rank_main(spec: dict) -> int:
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for b in batches[DIST_STEPS:]:
-                state, loss = step(state, b)
+            state, _ = train(state, batches[DIST_STEPS:])
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3 / DIST_TIMED
         finally:
@@ -3165,21 +3308,30 @@ def dist_rank_main(spec: dict) -> int:
         coll_ms: dict = {}
         for n, s0, s1 in events:
             coll_ms[n] = coll_ms.get(n, 0.0) + s0.elapsed_time(s1) / DIST_TIMED
+        a2a = sum(n == "all_to_all_single" for n, _, _ in events) / DIST_TIMED
+        if mode in DIST_A2A and a2a != DIST_A2A[mode]:
+            raise AssertionError(f"dist {mode}: {a2a} all_to_all_single calls a step, "
+                                 f"not {DIST_A2A[mode]}")
         launches = kl.fat_line_update.launches
-        if launches != DIST_STEPS + DIST_TIMED:
+        want = 0 if int8 else DIST_STEPS + DIST_TIMED
+        if launches != want:
             raise AssertionError(f"dist {mode}: fat_line_update launched {launches} "
-                                 f"times in {DIST_STEPS + DIST_TIMED} steps")
-        res["modes"][mode] = {
-            "bitwise": bitwise, "max_abs_diff": worst, "losses": losses,
-            "step_ms": step_ms, "collective_ms": coll_ms,
+                                 f"times in {DIST_STEPS + DIST_TIMED} steps, not {want}")
+        rec.update({
+            "bitwise": bitwise, "max_abs_diff": worst,
+            "step_ms": step_ms, "collective_ms": coll_ms, "a2a_per_step": a2a,
             "fat_line_update_launches": launches,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "segment_sum_launches": segment_sum.launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        res["modes"][mode] = rec
+        held = (rec["rule"] if int8 else "bitwise" if bitwise
+                else f"max |diff| {worst:.3e}")
         print(f"dist {mode} world {world} ({res['backend']}, mesh {spec['mesh']}) "
-              f"rank {rank}: {'bitwise' if bitwise else f'max |diff| {worst:.3e}'} "
-              f"the single-device step over {DIST_STEPS} steps; step_ms "
-              f"{step_ms:.3f}, collectives {coll_ms} ms a step, fat_line_update "
-              f"launches {launches}, peak {res['modes'][mode]['peak_gb']:.2f} GB",
-              flush=True)
+              f"rank {rank}: {held} against the single-device step over "
+              f"{DIST_STEPS} steps; step_ms {step_ms:.3f}, collectives {coll_ms} ms "
+              f"a step, all_to_all_single {a2a} a step, fat_line_update launches "
+              f"{launches}, segment_sum launches {segment_sum.launches}, peak "
+              f"{rec['peak_gb']:.2f} GB", flush=True)
         del state, batches, local
         torch.cuda.empty_cache()
     (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(res))
@@ -3189,13 +3341,19 @@ def dist_rank_main(spec: dict) -> int:
 
 
 def phase_dist_main(torch, card: str) -> dict:
-    """dist_main: (a) world 1 over NCCL, mesh (1, 1, 1), every lookup mode
-    bitwise the single-device step; (b) world 2 on the one card over gloo
-    (NCCL refuses two ranks on a device), data 1 x model 2, after probing
-    which collectives gloo takes on CUDA tensors: ``gspmd`` and ``psum``
-    bitwise, ``alltoall`` (the batch split over the ranks, the dense
-    gradients summed in another order) at the trajectory rung; (c) NCCL at
-    world = the card count where there are several cards."""
+    """dist_main: (a) world 1 over NCCL, mesh (1, 1, 1), every mode of
+    ``DIST_MODES`` (the f32 ones bitwise the single-device step); (b)
+    world 2 on the one card over gloo (NCCL refuses two ranks on a
+    device), data 1 x model 2, after probing which collectives gloo takes
+    on CUDA tensors: ``gspmd`` and ``psum`` bitwise; ``alltoall``,
+    ``grouped`` and ``pipelined`` (the batch split over the ranks, the
+    dense gradients summed in another order) at the trajectory rung; (c)
+    NCCL at world = the card count where there are several cards.  At
+    every world: the grouped forward bitwise the per-table ``alltoall``
+    forward, the pipelined step bitwise the eager grouped one, the int8
+    arm within the narrow-storage rule of the single-device int8 step
+    (its control failing), ``all_to_all_single`` calls a step as
+    ``DIST_A2A`` says, ``fat_line_update`` once a step on each rank."""
     runs = {}
     t0 = time.perf_counter()
     runs["nccl_1"] = _spawn_ranks(1, {"backend": "nccl", "mesh": [1, 1],
@@ -3206,20 +3364,24 @@ def phase_dist_main(torch, card: str) -> dict:
     if n >= 2:
         runs[f"nccl_{n}"] = _spawn_ranks(n, {"backend": "nccl", "mesh": [1, n],
                                              "modes": list(DIST_MODES)}, f"world {n} nccl")
-    launches = {}
+    launches, segsums = {}, {}
     for key, ranks in runs.items():
         for mode in DIST_MODES:
             m = [r["modes"][mode] for r in ranks]
             launches[f"{key}/{mode}"] = [x["fat_line_update_launches"] for x in m]
-            say(f"dist_main: {key} {mode}: "
-                f"{'bitwise' if all(x['bitwise'] for x in m) else 'rtol 1e-4'}; "
+            segsums[f"{key}/{mode}"] = [x["segment_sum_launches"] for x in m]
+            held = ("narrow rule" if mode.startswith("int8_") else "bitwise"
+                    if all(x["bitwise"] for x in m) else "rtol 1e-4")
+            say(f"dist_main: {key} {mode}: {held}; "
                 f"step_ms {[round(x['step_ms'], 3) for x in m]}, collective ms "
                 f"{[{k: round(v, 4) for k, v in x['collective_ms'].items()} for x in m]}, "
+                f"all_to_all_single a step {[x['a2a_per_step'] for x in m]}, "
                 f"fat_line_update launches per rank {launches[f'{key}/{mode}']}, "
+                f"segment_sum launches per rank {segsums[f'{key}/{mode}']}, "
                 f"peak GB per rank {[round(x['peak_gb'], 2) for x in m]}")
     say(f"dist_main: gloo on CUDA tensors: {runs['gloo_2'][0]['collectives']}; "
         f"{time.perf_counter() - t0:.1f} s; on {card}")
-    return {"launches": launches}
+    return {"launches": launches, "segment_sum_launches": segsums}
 
 
 def _kill_tree(pid: int) -> None:
@@ -3250,15 +3412,41 @@ def _kill_tree(pid: int) -> None:
             pass
 
 
+# dist_cli's tomls: the per-table alltoall exchange, and the grouped one
+# pipelined (the next batch's id exchange in flight while one trains)
+DIST_CLI_VARIANTS = {
+    "alltoall": "",
+    "pipelined": "[embeddings]\ngrouped_a2a = true\n[train]\npipeline_overlap = true\n",
+}
+
+
+def _mid_checkpoint(ck: Path):
+    """The cursor of a committed mid-epoch checkpoint under ``ck``, or
+    None."""
+    for pth in sorted(ck.glob("cursor_*.json")) if ck.exists() else []:
+        if not (ck / pth.stem.split("_", 1)[1] / "state.pt").is_file():
+            continue
+        try:
+            c = json.loads(pth.read_text())
+        except (OSError, ValueError):
+            continue
+        if not c.get("epoch_complete"):
+            return c
+    return None
+
+
 def phase_dist_cli(torch) -> dict:
     """dist_cli: ``python -m torch.distributed.run --nproc-per-node 1 -m
-    tdfo_tpu_torch.launch train --distributed always`` on a DMP TwoTower
-    toml (synthetic data, ``lookup_mode = "alltoall"``, every table fat),
+    tdfo_tpu_torch.launch train --distributed always`` on two DMP TwoTower
+    tomls (synthetic data, ``lookup_mode = "alltoall"``, every table fat;
+    the second with ``grouped_a2a`` and ``pipeline_overlap``), each
     SIGKILLed (torchrun and its worker) once a mid-epoch checkpoint is
     committed, run again, and held bitwise to an uninterrupted run: every
-    tensor of the final checkpoints."""
+    tensor of the final checkpoints.  The four first runs start together,
+    then the two resumed ones."""
     from tdfo_tpu_torch import launch
     from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+    from tdfo_tpu_torch.train.checkpoint import CheckpointManager
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -3270,91 +3458,103 @@ def phase_dist_cli(torch) -> dict:
                 'lookup_mode = "alltoall"\nfused_table_threshold = 0\n'
                 f"log_every_n_steps = 10\ncheckpoint_every_n_steps = {DIST_CLI_EVERY}\n")
         cfgs = {}
-        for name in ("killed", "whole"):
-            cfgs[name] = tmp / f"{name}.toml"
-            cfgs[name].write_text(body + f'checkpoint_dir = "{tmp / name}"\n')
-        if launch.main(["preprocess-ctr", "--config", str(cfgs["whole"])]) != 0:
+        for v, extra in DIST_CLI_VARIANTS.items():
+            for name in ("killed", "whole"):
+                cfgs[v, name] = tmp / f"{v}_{name}.toml"
+                cfgs[v, name].write_text(
+                    body + f'checkpoint_dir = "{tmp / v / name}"\n' + extra)
+        if launch.main(["preprocess-ctr", "--config",
+                        str(cfgs["alltoall", "whole"])]) != 0:
             raise AssertionError("launch preprocess-ctr failed")
 
-        def cmd(name):
+        def cmd(key):
             return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
                     "1", "--master-port", str(_free_port()), "-m",
                     "tdfo_tpu_torch.launch", "train", "--distributed", "always",
-                    "--config", str(cfgs[name])]
+                    "--config", str(cfgs[key])]
 
-        ck = tmp / "killed"
-        log1 = tmp / "killed1.log"
         t0 = time.perf_counter()
-        # the uninterrupted run beside the killed one (a world of its own)
-        whole = subprocess.Popen(cmd("whole"), cwd=ROOT, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-        with open(log1, "w") as f:
-            proc = subprocess.Popen(cmd("killed"), cwd=ROOT, stdout=f,
-                                    stderr=subprocess.STDOUT)
-        mid = None
-        deadline = time.monotonic() + 600
+        procs: dict = {}
         try:
-            while mid is None and proc.poll() is None and time.monotonic() < deadline:
-                for pth in sorted(ck.glob("cursor_*.json")) if ck.exists() else []:
-                    if not (ck / pth.stem.split("_", 1)[1] / "state.pt").is_file():
+            # the uninterrupted runs beside the killed ones (worlds of their own)
+            for v in DIST_CLI_VARIANTS:
+                procs[v, "whole"] = subprocess.Popen(
+                    cmd((v, "whole")), cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+                with open(tmp / f"{v}_killed1.log", "w") as log:
+                    procs[v, "killed"] = subprocess.Popen(
+                        cmd((v, "killed")), cwd=ROOT, stdout=log,
+                        stderr=subprocess.STDOUT)
+            mids: dict = {}
+            deadline = time.monotonic() + 600
+            while len(mids) < len(DIST_CLI_VARIANTS) and time.monotonic() < deadline:
+                for v in DIST_CLI_VARIANTS:
+                    proc = procs[v, "killed"]
+                    if v in mids or proc.poll() is not None:
                         continue
-                    try:
-                        c = json.loads(pth.read_text())
-                    except (OSError, ValueError):
-                        continue
-                    if not c.get("epoch_complete"):
-                        mid = c
-                        break
+                    mid = _mid_checkpoint(tmp / v / "killed")
+                    if mid is not None:
+                        _kill_tree(proc.pid)
+                        proc.wait()
+                        mids[v] = mid
+                if any(procs[v, "killed"].poll() is not None and v not in mids
+                       for v in DIST_CLI_VARIANTS):
+                    break
                 time.sleep(0.005)
-            if mid is None:
-                raise AssertionError(f"no mid-epoch checkpoint to kill at (rc "
-                                     f"{proc.poll()}); log:\n{log1.read_text()[-3000:]}")
-            _kill_tree(proc.pid)
+            for v in DIST_CLI_VARIANTS:
+                if v not in mids:
+                    raise AssertionError(
+                        f"dist_cli {v}: no mid-epoch checkpoint to kill at (rc "
+                        f"{procs[v, 'killed'].poll()}); log:\n"
+                        f"{(tmp / f'{v}_killed1.log').read_text()[-3000:]}")
+            for v in DIST_CLI_VARIANTS:
+                procs[v, "resumed"] = subprocess.Popen(
+                    cmd((v, "killed")), cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+            outs = {k: p.communicate(timeout=900)[0] for k, p in procs.items()
+                    if k[1] != "killed"}
         finally:
-            if proc.poll() is None:
-                _kill_tree(proc.pid)
-            proc.wait()
-        try:
-            r = subprocess.run(cmd("killed"), cwd=ROOT, capture_output=True,
-                               text=True, timeout=900)
-            out, _ = whole.communicate(timeout=900)
-        finally:
-            if whole.poll() is None:
-                _kill_tree(whole.pid)
-                whole.wait()
-        if r.returncode != 0:
-            raise AssertionError(f"dist_cli resumed run failed:\n{r.stdout[-3000:]}"
-                                 f"\n{r.stderr[-3000:]}")
-        if whole.returncode != 0:
-            raise AssertionError(f"dist_cli uninterrupted run failed:\n{out[-3000:]}")
+            for p in procs.values():
+                if p.poll() is None:
+                    _kill_tree(p.pid)
+                    p.wait()
+        for k, out in outs.items():
+            if procs[k].returncode != 0:
+                raise AssertionError(f"dist_cli {k[0]} {k[1]} run failed:\n{out[-3000:]}")
         secs = time.perf_counter() - t0
-        from tdfo_tpu_torch.train.checkpoint import CheckpointManager
-
-        finals = {}
-        for name in ("killed", "whole"):
-            mgr = CheckpointManager(tmp / name)
-            step = mgr.latest_step()
-            finals[name] = (step, torch.load(tmp / name / str(step) / "state.pt",
-                                             map_location="cpu", weights_only=True))
-        recs = [json.loads(x) for x in (ck / "metrics.jsonl").read_text().splitlines()]
-    resumed = [r for r in recs if "resumed_mid_epoch" in r]
-    if not resumed:
-        raise AssertionError(f"the restarted run did not resume mid-epoch: {recs[-5:]}")
-    (sa, a), (sb, b) = finals["killed"], finals["whole"]
-    fa, fb = state_tensors(a["state"]), state_tensors(b["state"])
-    diff = [k for k in fb if not (k in fa and (torch.equal(fa[k], fb[k])
-                                              if isinstance(fb[k], torch.Tensor)
-                                              else fa[k] == fb[k]))]
-    if sa != sb or fa.keys() != fb.keys() or diff:
-        raise AssertionError(f"dist_cli: the resumed run's final checkpoint (step "
-                             f"{sa}) is not bitwise the uninterrupted one's (step "
-                             f"{sb}): {len(diff)} tensors differ, e.g. {diff[:5]}")
-    say(f"dist_cli: torchrun --nproc-per-node 1, launch train --distributed always, "
-        f"alltoall: SIGKILL after the mid-epoch save at step {mid['step']}, resumed "
-        f"at step {resumed[0]['step']}; final checkpoint (step {sa}, {len(fa)} "
-        f"tensors) bitwise the uninterrupted run's (run beside the killed "
-        f"one); {secs:.1f} s")
-    return {"resumed_at": resumed[0]["step"]}
+        res = {}
+        for v in DIST_CLI_VARIANTS:
+            finals = {}
+            for name in ("killed", "whole"):
+                d = tmp / v / name
+                step = CheckpointManager(d).latest_step()
+                finals[name] = (step, torch.load(d / str(step) / "state.pt",
+                                                 map_location="cpu", weights_only=True))
+            recs = [json.loads(x) for x in (tmp / v / "killed" / "metrics.jsonl")
+                    .read_text().splitlines()]
+            resumed = [r for r in recs if "resumed_mid_epoch" in r]
+            if not resumed:
+                raise AssertionError(f"dist_cli {v}: the restarted run did not resume "
+                                     f"mid-epoch: {recs[-5:]}")
+            (sa, a), (sb, b) = finals["killed"], finals["whole"]
+            fa, fb = state_tensors(a["state"]), state_tensors(b["state"])
+            diff = [k for k in fb if not (k in fa and (torch.equal(fa[k], fb[k])
+                                                      if isinstance(fb[k], torch.Tensor)
+                                                      else fa[k] == fb[k]))]
+            if sa != sb or fa.keys() != fb.keys() or diff:
+                raise AssertionError(
+                    f"dist_cli {v}: the resumed run's final checkpoint (step {sa}) is "
+                    f"not bitwise the uninterrupted one's (step {sb}): {len(diff)} "
+                    f"tensors differ, e.g. {diff[:5]}")
+            say(f"dist_cli {v}: torchrun --nproc-per-node 1, launch train "
+                f"--distributed always: SIGKILL after the mid-epoch save at step "
+                f"{mids[v]['step']}, resumed at step {resumed[0]['step']}; final "
+                f"checkpoint (step {sa}, {len(fa)} tensors) bitwise the "
+                f"uninterrupted run's (run beside the killed one)")
+            res[v] = resumed[0]["step"]
+    say(f"dist_cli: {len(DIST_CLI_VARIANTS)} tomls killed, resumed and held "
+        f"bitwise in {secs:.1f} s")
+    return {"resumed_at": res}
 
 
 def jagged_rows(rng, b: int = B4R_BATCH):
@@ -3530,19 +3730,20 @@ def int8_rows(torch, state, aname, ids):
     return dequantize_rows(state.tables[aname][idx], qs).cpu(), qs[:, 0].cpu()
 
 
-def _check_int8_rows(torch, name, g, c, base, step):
+def _check_int8_rows(torch, name, g, c, base, step, apart="one grid step"):
     """Decoded card rows ``g`` vs CPU rows ``c`` ([n, d]) within one grid
-    step ``step`` ([n], the CPU rows' scale), and the initial rows ``base``
-    as the control (the note at INT8_FAR_SHARE); returns a summary."""
+    step ``step`` ([n], the CPU rows' scale; or what ``apart`` names), and
+    the initial rows ``base`` as the control (the note at INT8_FAR_SHARE);
+    returns a summary."""
     diff = (g - c).abs()
     far = diff > step[:, None] * (1 + 1e-6)
     share = float(far.double().mean())
     share0 = float(((base - c).abs() > step[:, None] * (1 + 1e-6)).double().mean())
     summary = (f"{name}: {g.shape[0]} touched rows, {g.numel()} elements: "
-               f"{int((diff == 0).sum())} equal, {int(far.sum())} more than one "
-               f"grid step apart ({share:.4%}, at most {INT8_FAR_SHARE:.0%}; max "
+               f"{int((diff == 0).sum())} equal, {int(far.sum())} more than {apart} "
+               f"apart ({share:.4%}, at most {INT8_FAR_SHARE:.0%}; max "
                f"|diff| {float(diff.max()):.3e}); control, the initial rows: "
-               f"{share0:.4%} beyond one grid step")
+               f"{share0:.4%} beyond {apart}")
     if share > INT8_FAR_SHARE:
         raise AssertionError("card vs CPU: " + summary)
     if share0 <= INT8_FAR_SHARE:
@@ -4754,6 +4955,7 @@ def main(argv=None) -> int:
     if "dist_main" in phases:
         r = run("dist_main", phase_dist_main, torch, smi)
         fat["launches_sharded"] = r["launches"]
+        recs["segment_sum"]["launches_sharded"] = r["segment_sum_launches"]
     if "dist_cli" in phases:
         run("dist_cli", phase_dist_cli, torch)
     if "profile" in phases:

@@ -30,7 +30,10 @@ starts the process group when torchrun's ``WORLD_SIZE`` is above 1,
 ``always`` also at one rank (the distributed code path on one process),
 ``never`` not at all; NCCL on the card (one rank per card), gloo on the
 CPU.  The ``[mesh]`` table lays the ranks out; only rank 0 writes logs,
-metrics and checkpoints.  The other
+metrics and checkpoints.  Under ``lookup_mode = "alltoall"``,
+``[embeddings] grouped_a2a = true`` runs the grouped exchange and ``[train]
+pipeline_overlap = true`` the pipelined step on top of it; int8 storage
+runs under a mesh too.  The other
 subcommands of the reference (serve-fleet, loadgen, online, plan, ...)
 arrive with their slices (``ROADMAP.md``).
 """

@@ -159,10 +159,11 @@ __global__ void __launch_bounds__(THREADS) fat_line_update_routed_kernel_wide(Pa
   }
 }
 
-// Blocks the card keeps resident for `kernel` (occupancy x SMs), cached per
-// device.
-template <typename K>
-int resident_blocks(K kernel) {
+// Blocks the card keeps resident for one kernel instance (occupancy x
+// SMs), cached per instance and device: the cache is a static of each
+// KERNEL instantiation, as fat_line_update.cu keys its own.
+template <auto KERNEL>
+int resident_blocks() {
   static int cache[64] = {0};
   int dev = 0;
   cudaGetDevice(&dev);
@@ -170,26 +171,26 @@ int resident_blocks(K kernel) {
   if (cache[dev] == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, THREADS, 0);
     cache[dev] = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
   }
   return cache[dev];
 }
 
-template <typename K, typename S>
-void launch_grid(K kernel, const Params<S>& p, int rows_per_block, cudaStream_t s) {
+template <auto KERNEL, typename S>
+void launch_grid(const Params<S>& p, int rows_per_block, cudaStream_t s) {
   const int64_t need = (p.n_rows + rows_per_block - 1) / rows_per_block;
-  const int64_t blocks = need < resident_blocks(kernel) ? need : resident_blocks(kernel);
-  kernel<<<(unsigned)blocks, THREADS, 0, s>>>(p);
+  const int64_t most = resident_blocks<KERNEL>();
+  KERNEL<<<(unsigned)(need < most ? need : most), THREADS, 0, s>>>(p);
 }
 
 template <int KIND, typename S>
 void launch_kind(const Params<S>& p, bool narrow, cudaStream_t s) {
   const int d = p.step.d;
-  if (!narrow) launch_grid(fat_line_update_routed_kernel_wide<S>, p, THREADS / 32, s);
-  else if (d <= 8) launch_grid(fat_line_update_routed_kernel<KIND, 2, S>, p, THREADS / 2, s);
-  else if (d <= 16) launch_grid(fat_line_update_routed_kernel<KIND, 4, S>, p, THREADS / 4, s);
-  else launch_grid(fat_line_update_routed_kernel<KIND, 8, S>, p, THREADS / 8, s);
+  if (!narrow) launch_grid<fat_line_update_routed_kernel_wide<S>>(p, THREADS / 32, s);
+  else if (d <= 8) launch_grid<fat_line_update_routed_kernel<KIND, 2, S>>(p, THREADS / 2, s);
+  else if (d <= 16) launch_grid<fat_line_update_routed_kernel<KIND, 4, S>>(p, THREADS / 4, s);
+  else launch_grid<fat_line_update_routed_kernel<KIND, 8, S>>(p, THREADS / 8, s);
 }
 
 bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }

@@ -18,6 +18,13 @@ a process group, and its backward is written out:
   block ``j`` to rank ``j``; backward sends the gradient blocks back the
   same way (an equal-split all-to-all is its own transpose).
 
+:func:`all_to_all` is ``all_to_all_single`` with equal splits, for int32 /
+int64 ids and f32, bf16 and int8 payloads alike; with ``async_op`` it
+returns the work handle beside the output (the pipelined step waits on it
+before it reads the output).  A backend that refuses a dtype on a device
+raises a ``RuntimeError`` naming the backend, the dtype and the device:
+nothing is cast to a dtype the backend takes.
+
 The plain helpers (:func:`all_gather_cat`, :func:`all_reduce_`,
 :func:`all_to_all`, :func:`gather_to_host`) serve the update, the metrics
 and the checkpoints, where nothing is differentiated.  Every call moves
@@ -86,12 +93,21 @@ def gather_to_host(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor | None:
     return torch.cat(parts, dim=dim) if me == 0 else None
 
 
-def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, group, *, async_op: bool = False):
     """``x [n * k, ...]``: block ``j`` (rows ``j*k .. (j+1)*k``) goes to
-    group rank ``j``; returns the blocks received, in rank order."""
+    group rank ``j``; returns the blocks received, in rank order, or with
+    ``async_op`` ``(received, work)``: the output is defined only once
+    ``work.wait()`` has returned, and ``x`` and the output must live until
+    then."""
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
-    return out
+    try:
+        work = dist.all_to_all_single(out, x.contiguous(), group=group,
+                                      async_op=async_op)
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"backend {dist.get_backend(group)!r} refuses all_to_all_single "
+            f"of {x.dtype} on {x.device.type}: {e}") from e
+    return (out, work) if async_op else out
 
 
 class AllReduceSum(torch.autograd.Function):

@@ -58,12 +58,28 @@ kernel on the local lines) keep the ids they own, rebased by ``k R``,
 foreign ids becoming -1 with zero grads; narrow storage folds the
 stochastic-rounding key with k.  Column shards update their columns.
 
-Not ported yet (``ROADMAP.md`` Queue A item 12b): the grouped exchange
-(``grouped_a2a``), and hot/cold tables, the update cache and int8 storage
-under a mesh.  Refused, not ignored.  As in the reference, bf16 and int8
-fused tables under ``rowwise_adagrad`` refuse: a fat line holds the table
-and its optimizer state together, and the per-row accumulator is f32 by
-contract.
+int8 under a mesh: a plain int8 array's ``[V, 2]`` sidecar shards with its
+rows (a replicated array's replicates), fused int8 lines carry theirs in
+the line; the psum and alltoall programs decode at the owner, and each
+rank's update requantizes its own rows.  Column sharding refuses int8, as
+in the reference (the grid is per whole row).
+
+The grouped exchange (``grouped_a2a``, torchrec's grouped KJTAllToAll
+input-dist): under ``alltoall`` every row- and table-sharded feature of
+one ``(embedding_dim, storage dtype)`` group rides ONE offset-shifted
+virtual id stream (:class:`_A2AGroup`): one stable owner sort and one id
+``all_to_all`` out (:meth:`grouped_input_dist`, which reads no table), one
+vector ``all_to_all`` back at the storage dtype (int8 codes with their f32
+``(scale, offset)`` rows in a second, small exchange; decoded to f32 after
+it, :meth:`grouped_lookup`), and one id plus one grad ``all_to_all`` for
+the update (:meth:`grouped_update`): O(1) collectives per direction, not
+O(tables).  Replicated tables take the per-feature path beside it.
+
+Not ported yet (``ROADMAP.md`` Queue A item 12b): hot/cold tables and the
+update cache under a mesh.  Refused, not ignored.  As in the reference,
+bf16 and int8 fused tables under ``rowwise_adagrad`` refuse: a fat line
+holds the table and its optimizer state together, and the per-row
+accumulator is f32 by contract.
 
 ``init`` draws from a ``torch.Generator`` (the reference uses
 ``jax.random``, so same-seed tables differ between the packages; the
@@ -74,7 +90,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -95,13 +111,19 @@ from tdfo_tpu_torch.ops.fat_lines import (
 )
 from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
 from tdfo_tpu_torch.ops import threefry
-from tdfo_tpu_torch.ops.quant import dequantize_rows, quantize_rows, storage_dtype
+from tdfo_tpu_torch.ops.quant import (
+    dequantize_rows,
+    quantize_rows,
+    storage_dtype,
+    table_id,
+)
 from tdfo_tpu_torch.parallel.collectives import (
     AllGatherLast,
     AllReduceSum,
     AllToAll,
     all_gather_cat,
     all_reduce_,
+    all_to_all,
     gather_to_host,
 )
 
@@ -231,6 +253,45 @@ class EmbeddingSpec:
         return self.features or (self.name,)
 
 
+@dataclass(frozen=True)
+class _A2AGroup:
+    """Static plan of one grouped exchange (reference ``_A2AGroup``): the
+    features whose tables share ``(embedding_dim, storage dtype)`` ride one
+    virtual id stream.  Each array's ``rows_per_shard`` (from the specs,
+    never the live tables, so the id exchange reads no table) and
+    cumulative ``bases`` give disjoint per-shard virtual ranges: id ``i``
+    of array ``a`` goes to owner ``i // rps_a`` as virtual id ``i - owner
+    rps_a + base_a``, which the owner decodes by base range."""
+
+    key: str                                # "{dim}_{dtype}"
+    dim: int
+    feats: tuple[str, ...]                  # input order = stream order
+    feat_meta: tuple[tuple[int, int], ...]  # per feature: (array idx, row offset)
+    arrays: tuple[str, ...]
+    specs: tuple[EmbeddingSpec, ...]        # a spec of each array
+    rows_per_shard: tuple[int, ...]
+    bases: tuple[int, ...]
+
+
+@dataclass
+class _Dist:
+    """One group's input-dist: the received virtual ids ``recv [M cap]``
+    and the unpermute map ``slot_inv [n]`` (-1: dropped past a full
+    bucket); ``work`` is the id exchange's handle while it is in flight,
+    ``send`` its buffer, held until :meth:`wait`."""
+
+    recv: torch.Tensor
+    slot_inv: torch.Tensor
+    work: Any = None
+    send: torch.Tensor | None = None
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+            self.work, self.send = None, None
+        return self.recv
+
+
 class ShardedEmbeddingCollection:
     """A set of embedding tables and their lookup, on one device.
 
@@ -242,14 +303,18 @@ class ShardedEmbeddingCollection:
                  stack_tables: bool = False,
                  hot_ids: Mapping[str, np.ndarray] | None = None,
                  cache_rows: int = 0, mesh=None,
-                 a2a_capacity_factor: float | None = None):
+                 a2a_capacity_factor: float | None = None,
+                 grouped_a2a: bool = False):
         """``hot_ids``: table or feature name -> that table's sorted hot ids
         (the frequency-partitioned mode); ``cache_rows``: rows of the
         update cache of every row-sparse plain array (0: off); ``mesh``: a
         ``DeviceMesh`` whose ``model`` axis shards the tables (None: one
         device); ``a2a_capacity_factor``: the alltoall lookup's per-owner
         send capacity as a multiple of ``local batch / M`` (None or <= 0:
-        the exact worst case; ids past a full bucket read zeros)."""
+        the exact worst case; ids past a full bucket read zeros);
+        ``grouped_a2a``: the ``alltoall`` lookup and the step's update of
+        every row- and table-sharded table ride the grouped exchange (the
+        module note) instead of one exchange pair per table."""
         line_layout(1, fused_kind)  # validates the kind eagerly
         if cache_rows < 0:
             raise ValueError("cache_rows must be >= 0")
@@ -259,11 +324,12 @@ class ShardedEmbeddingCollection:
         if a2a_capacity_factor is not None and a2a_capacity_factor <= 0:
             a2a_capacity_factor = None
         self.a2a_capacity_factor = a2a_capacity_factor
+        self.grouped_a2a = grouped_a2a
+        self._grouped_plans: dict[tuple[str, ...], tuple[_A2AGroup, ...]] = {}
         if mesh is not None:
             unported = [what for what, bad in (
                 ("the update cache (cache_rows > 0)", cache_rows > 0),
                 ("hot/cold tables", bool(hot_ids)),
-                ("int8 storage", any(_spec_is_int8(sp) for sp in specs)),
             ) if bad]
             if unported:
                 raise NotImplementedError(
@@ -481,6 +547,11 @@ class ShardedEmbeddingCollection:
         storage ``dtype`` under this collection's ``fused_kind``."""
         return line_layout(d, self.fused_kind, dtype)
 
+    @staticmethod
+    def _parent(array_name: str) -> str:
+        """The array an int8 sidecar belongs to (any other name: itself)."""
+        return array_name.removeprefix(QSCALE_PREFIX)
+
     def _array_spec(self, array_name: str) -> EmbeddingSpec:
         """A spec of the array (a stack's members share dim and dtype)."""
         if array_name in self._stacks:
@@ -496,8 +567,10 @@ class ShardedEmbeddingCollection:
     def array_placement(self, array_name: str) -> str:
         """How an array lies over the model axis: ``"row"`` (rows split;
         row and table sharding), ``"column"`` or ``"replicated"`` (always
-        ``"replicated"`` without a mesh)."""
-        if self.mesh is None or array_name.startswith(QSCALE_PREFIX):
+        ``"replicated"`` without a mesh).  An int8 sidecar lies as its
+        array does."""
+        array_name = self._parent(array_name)
+        if self.mesh is None:
             return "replicated"
         if array_name in self._stacks:
             kind = self._stacks[array_name][0]
@@ -509,7 +582,8 @@ class ShardedEmbeddingCollection:
 
     def array_rows(self, array_name: str) -> int:
         """Global padded vocab rows of an array (fat arrays count rows, not
-        lines), from the specs alone."""
+        lines), from the specs alone; an int8 sidecar has its array's."""
+        array_name = self._parent(array_name)
         if array_name in self._stacks:
             return self._stack_rows[self._stacks[array_name][2][0].name][1]
         spec = self.specs[array_name]
@@ -522,6 +596,7 @@ class ShardedEmbeddingCollection:
         """The rows the same array has on one device (no mesh): the
         checkpoint layout.  Table-wise stacks exist only under a mesh and
         keep their rows."""
+        array_name = self._parent(array_name)
         if array_name in self._stacks:
             kind, dim, group, fused = self._stacks[array_name]
             if kind == "table":
@@ -692,14 +767,21 @@ class ShardedEmbeddingCollection:
         reads: see :func:`take_fill` and ``fat_gather_rows``.  Under a
         mesh, row-placed arrays run the ``psum`` program (``gspmd`` too,
         with the fill rule on the global padded table) or the
-        ``alltoall`` one, whose ids are this rank's share of the batch;
-        column arrays gather their columns and all-gather them (``gspmd``
-        only, as in the reference); replicated arrays gather locally.  The
-        vectors are differentiable with respect to the local shards
+        ``alltoall`` one, whose ids are this rank's share of the batch
+        (with ``grouped_a2a``, :meth:`grouped_lookup` for every row- and
+        table-sharded feature); column arrays gather their columns and
+        all-gather them (``gspmd`` only, as in the reference); replicated
+        arrays gather locally.  The vectors of the per-table programs are
+        differentiable with respect to the local shards
         (:mod:`~tdfo_tpu_torch.parallel.collectives`)."""
         if mode not in ("gspmd", "psum", "alltoall"):
             raise ValueError(f"unknown lookup mode {mode!r}")
         out: dict[str, torch.Tensor] = {}
+        grouped = self.grouped_features(features) if mode == "alltoall" else {}
+        if grouped:
+            # the rest (replicated tables, the error paths) go on below
+            out.update(self.grouped_lookup(tables, grouped))
+            features = {f: i for f, i in features.items() if f not in grouped}
         for feat, ids in features.items():
             if self._feature_to_table.get(feat) in self.hot_ids:
                 if mode != "gspmd":
@@ -769,8 +851,6 @@ class ShardedEmbeddingCollection:
         send = torch.where(src < end[:, None],
                            sorted_ids[torch.clamp(src, max=n - 1)], -1)
         group = self._model_group()
-        from tdfo_tpu_torch.parallel.collectives import all_to_all
-
         recv = all_to_all(send.reshape(-1), group)
         local = recv - self.shard * rps
         rows = self._gather(tables, aname, spec, local.clamp(0, rps - 1))
@@ -790,24 +870,36 @@ class ShardedEmbeddingCollection:
         carried ids and the int32 count of ids past a full bucket (read as
         zeros), both summed over the ranks that split the batch (the
         reference's ``a2a_fill_stats`` sums over the model axis, its only
-        split; ``features`` hold each rank's share)."""
+        split; ``features`` hold each rank's share).  Grouped features
+        count one bucket set per group's combined stream."""
         dev = next(iter(features.values())).device
         stats = torch.zeros((3,), dtype=torch.int64, device=dev)
         if self.mesh is None:
             return torch.zeros((), device=dev), torch.zeros((), dtype=torch.int32, device=dev)
         m = self.n_shards
+
+        def bucket_stats(owner):
+            cap = _a2a_bucket_cap(owner.shape[0], m, self.a2a_capacity_factor)
+            counts = (owner[None, :] == torch.arange(m, device=dev)[:, None]).sum(1)
+            return torch.stack([counts.clamp(max=cap).sum(),
+                                torch.full((), m * cap, device=dev),
+                                (counts - cap).clamp_min(0).sum()])
+
+        # one capacity over each group's combined stream, the cap the
+        # grouped exchange sizes its buckets with
+        grouped = self.grouped_features(features)
+        for g in self._grouped_plan(tuple(grouped)):
+            owner, _ = self._owner_virt(self._group_flats(g, grouped),
+                                        self._group_feat_rps(g))
+            stats += bucket_stats(owner)
+        features = {f: i for f, i in features.items() if f not in grouped}
         for feat, ids in features.items():
             aname, spec, offset = self.resolve(feat)
             if self.array_placement(aname) != "row":
                 continue
             flat = ids.reshape(-1).to(torch.int64) + offset
-            cap = _a2a_bucket_cap(flat.shape[0], m, self.a2a_capacity_factor)
-            owner = torch.clamp(torch.div(flat, self.rows_per_shard(aname),
-                                          rounding_mode="floor"), 0, m - 1)
-            counts = (owner[None, :] == torch.arange(m, device=dev)[:, None]).sum(1)
-            stats += torch.stack([counts.clamp(max=cap).sum(),
-                                  torch.full((), m * cap, device=dev),
-                                  (counts - cap).clamp_min(0).sum()])
+            stats += bucket_stats(torch.clamp(torch.div(
+                flat, self.rows_per_shard(aname), rounding_mode="floor"), 0, m - 1))
         all_reduce_(stats, self._model_group())
         all_reduce_(stats, axis_group(self.mesh, DATA_AXIS))
         fill = stats[0].to(torch.float32) / stats[1].clamp_min(1).to(torch.float32)
@@ -850,6 +942,251 @@ class ShardedEmbeddingCollection:
         cold_vec = self._gather(tables, aname, spec, cidx)
         return torch.where((hot_pos >= 0)[..., None], hot_vec.to(cold_vec.dtype),
                            cold_vec)
+
+    # ----------------------------------------------------- grouped exchange
+
+    def grouped_features(self, features):
+        """The part of ``features`` the grouped exchange carries, in the
+        order given: those of row- and table-sharded tables (none without
+        ``grouped_a2a`` or a mesh)."""
+        if not (self.grouped_a2a and self.mesh is not None):
+            return {}
+        return {f: ids for f, ids in features.items()
+                if self._feature_to_table.get(f) not in self.hot_ids
+                and self.resolve(f)[1].sharding in ("row", "table")}
+
+    def _grouped_plan(self, feature_names: tuple[str, ...]) -> tuple[_A2AGroup, ...]:
+        """The exchange plan of a feature set (reference ``_grouped_plan``):
+        one :class:`_A2AGroup` per ``(embedding_dim, storage dtype)``, the
+        features in the order given (the combined stream's order, which
+        the update's summation order follows)."""
+        plan = self._grouped_plans.get(feature_names)
+        if plan is not None:
+            return plan
+        groups: dict[tuple[int, str], dict] = {}
+        for f in feature_names:
+            if self._feature_to_table.get(f, f) in self.hot_ids:
+                raise ValueError(
+                    f"feature {f!r}: hot/cold tables do not compose with "
+                    "the grouped alltoall exchange")
+            aname, spec, off = self.resolve(f)
+            if spec.sharding not in ("row", "table"):
+                raise ValueError(
+                    f"grouped alltoall requires row/table sharding, but "
+                    f"table {spec.name!r} is {spec.sharding!r}")
+            grp = groups.setdefault((spec.embedding_dim, _dtype_name(spec.dtype)),
+                                    {"arrays": [], "feats": []})
+            if aname not in grp["arrays"]:
+                grp["arrays"].append(aname)
+            grp["feats"].append((f, grp["arrays"].index(aname), off))
+        entries = []
+        for (dim, dt), grp in sorted(groups.items(), key=lambda kv: str(kv[0])):
+            arrays = tuple(grp["arrays"])
+            rps = tuple(self.rows_per_shard(a) for a in arrays)
+            bases = tuple(sum(rps[:i]) for i in range(len(rps)))
+            entries.append(_A2AGroup(
+                key=f"{dim}_{dt}", dim=dim,
+                feats=tuple(x[0] for x in grp["feats"]),
+                feat_meta=tuple((x[1], x[2]) for x in grp["feats"]),
+                arrays=arrays, specs=tuple(self._array_spec(a) for a in arrays),
+                rows_per_shard=rps, bases=bases))
+        plan = tuple(entries)
+        self._grouped_plans[feature_names] = plan
+        return plan
+
+    def _group_flats(self, group: _A2AGroup, features) -> list[torch.Tensor]:
+        """Each feature's flat ids with its row offset added; padding ids
+        stay -1 (an offset would alias them onto the previous stack
+        member's last row)."""
+        out = []
+        for f, (_, off) in zip(group.feats, group.feat_meta):
+            flat = features[f].reshape(-1).to(torch.int64)
+            out.append(torch.where(flat >= 0, flat + off, -1))
+        return out
+
+    def _group_feat_rps(self, group: _A2AGroup) -> tuple:
+        """Each feature's ``(rows_per_shard, base)`` (of its array)."""
+        return tuple((group.rows_per_shard[ai], group.bases[ai])
+                     for ai, _ in group.feat_meta)
+
+    def _owner_virt(self, flats, feat_rps):
+        """The combined ``(owner, virtual id)`` stream of a group.  Padding
+        ids keep virtual id -1: they bucket to shard 0 as in the per-table
+        program, arrive invalid and read zeros / drop their grads."""
+        m = self.n_shards
+        owners, virts = [], []
+        for part, (rps, base) in zip(flats, feat_rps):
+            o = torch.clamp(torch.div(part, rps, rounding_mode="floor"), 0, m - 1)
+            owners.append(o)
+            virts.append(torch.where(part >= 0, part - o * rps + base, -1))
+        return torch.cat(owners), torch.cat(virts)
+
+    def _buckets(self, owner, cap: int):
+        """The stable owner sort of a stream of ``n``: ``(order, src, valid,
+        slot)`` with ``src [M, cap]`` the sorted positions each owner's
+        bucket sends (``valid`` where a bucket has that many ids) and
+        ``slot [n]`` each sorted position's place in the send buffer (-1
+        past a full bucket).  Stable, so each bucket keeps stream order and
+        the forward and the update drop the same ids."""
+        n, m, dev = owner.shape[0], self.n_shards, owner.device
+        sorted_owner, order = torch.sort(owner, stable=True)
+        start = torch.searchsorted(sorted_owner, torch.arange(m, device=dev))
+        end = torch.cat([start[1:], torch.full((1,), n, device=dev, dtype=start.dtype)])
+        src = start[:, None] + torch.arange(cap, device=dev)[None, :]
+        valid = src < end[:, None]
+        pos = torch.arange(n, device=dev) - start[sorted_owner]
+        slot = torch.where(pos < cap, sorted_owner * cap + pos, -1)
+        return order, torch.clamp(src, max=n - 1), valid, slot
+
+    def grouped_input_dist(self, features, *, async_op: bool = False) -> dict:
+        """Phase 1 of the grouped exchange (reference
+        ``grouped_input_dist``): per group one stable owner sort and one id
+        ``all_to_all`` of the combined virtual id stream.  Reads no table,
+        so the pipelined step issues it for the next batch before the
+        current one trains.  ``features`` hold this rank's share.  Returns
+        ``{group key: _Dist}``; with ``async_op`` the id exchanges are
+        left in flight (:meth:`grouped_lookup` waits on them)."""
+        plan = self._grouped_plan(tuple(features))
+        group = self._model_group()
+        ctx = {}
+        for g in plan:
+            owner, virt = self._owner_virt(self._group_flats(g, features),
+                                           self._group_feat_rps(g))
+            cap = _a2a_bucket_cap(owner.shape[0], self.n_shards,
+                                  self.a2a_capacity_factor)
+            order, src, valid, slot = self._buckets(owner, cap)
+            send = torch.where(valid, virt[order][src], -1).reshape(-1)
+            slot_inv = torch.empty_like(slot)
+            slot_inv[order] = slot
+            if async_op:
+                recv, work = all_to_all(send, group, async_op=True)
+                ctx[g.key] = _Dist(recv, slot_inv, work, send)
+            else:
+                ctx[g.key] = _Dist(all_to_all(send, group), slot_inv)
+        return ctx
+
+    def _wire_dtype(self, g: _A2AGroup):
+        """The vector payload's dtype: the storage dtype; an int8 group
+        with a fused member ships f32 (its rows arrive decoded)."""
+        dt = storage_dtype(g.specs[0].dtype)
+        if dt == torch.int8 and any(s.fused for s in g.specs):
+            return torch.float32
+        return dt
+
+    def grouped_lookup(self, tables, features, ctx: dict | None = None):
+        """Complete a :meth:`grouped_input_dist` ctx (or run it here) with
+        the owners' gathers and ONE vector ``all_to_all`` per group, at the
+        storage dtype (reference ``grouped_lookup``): plain int8 ships its
+        codes and a second, ``[.., 2]`` f32 exchange of their ``(scale,
+        offset)`` rows (a fused int8 member of such a group decodes in the
+        gather and rides the identity grid), decoded after the exchange;
+        f32 out.  The values equal the per-table program's."""
+        plan = self._grouped_plan(tuple(features))
+        if ctx is None:
+            ctx = self.grouped_input_dist(features)
+        group = self._model_group()
+        out: dict[str, torch.Tensor] = {}
+        for g in plan:
+            dist_ = ctx[g.key]
+            recv = dist_.wait()
+            wire = self._wire_dtype(g)
+            int8 = storage_dtype(g.specs[0].dtype) == torch.int8
+            plain8 = int8 and any(not s.fused for s in g.specs)
+            vec = torch.zeros((recv.shape[0], g.dim), dtype=wire, device=recv.device)
+            qvec = (torch.zeros((recv.shape[0], 2), dtype=torch.float32,
+                                device=recv.device) if plain8 else None)
+            for aname, spec, rps, base in zip(g.arrays, g.specs,
+                                              g.rows_per_shard, g.bases):
+                loc = recv - base
+                mine = (recv >= 0) & (loc >= 0) & (loc < rps)
+                idx = loc.clamp(0, rps - 1)
+                if spec.fused:
+                    rows = fat_gather_rows(tables[aname], idx,
+                                           self.fat_layout_for(aname))
+                else:
+                    rows = tables[aname][idx]
+                vec = torch.where(mine[:, None], rows.to(wire), vec)
+                if plain8:
+                    q = (tables[qscale_name(aname)][idx] if not spec.fused
+                         else torch.tensor([1.0, 0.0], device=recv.device))
+                    qvec = torch.where(mine[:, None], q, qvec)
+            back = AllToAll.apply(vec, group)
+            # decode after the exchange: the model sees f32 whatever the
+            # storage dtype
+            flat = (dequantize_rows(back, all_to_all(qvec, group)) if plain8
+                    else back.to(torch.float32))
+            slot_inv = dist_.slot_inv
+            outv = torch.where((slot_inv >= 0)[:, None],
+                               flat[slot_inv.clamp_min(0)], 0.0)
+            o = 0
+            for f in g.feats:
+                n = features[f].numel()
+                out[f] = outv[o:o + n].reshape(*features[f].shape, g.dim)
+                o += n
+        return out
+
+    def grouped_update(self, opt, tables, slots, ids, grads, sr_key=None):
+        """The update half of the grouped exchange (reference
+        ``grouped_update``): per group ONE id and ONE grad ``all_to_all``
+        send each owner its contributions (the stable sort keeps them in
+        global batch order; ids past a full bucket drop their grads, the
+        ids whose forward read zeros), then each rank updates its shards
+        in place: fat arrays through ``fat_update`` (the
+        ``fat_line_update`` kernel), plain ones through ``dedupe_grads``
+        (the ``segment_sum`` kernel) and ``update_unique`` (small adam
+        arrays too, where the per-table path takes the dense tier).
+        ``ids`` / ``grads``: this rank's share, by feature; under a data
+        axis the received streams are gathered over it first.
+        ``sr_key``: the step's base key for narrow storage, folded with
+        each array's ``table_id`` and the model index.  In place."""
+        from tdfo_tpu_torch.ops.sparse import dedupe_grads, fat_update
+
+        plan = self._grouped_plan(tuple(ids))
+        m, group = self.n_shards, self._model_group()
+        data = axis_group(self.mesh, DATA_AXIS) if axis_size(
+            self.mesh, DATA_AXIS) > 1 else None
+        for g in plan:
+            owner, virt = self._owner_virt(self._group_flats(g, ids),
+                                           self._group_feat_rps(g))
+            gcat = torch.cat([grads[f].reshape(-1, g.dim) for f in g.feats]
+                             ).to(torch.float32)
+            cap = _a2a_bucket_cap(owner.shape[0], m, self.a2a_capacity_factor)
+            order, src, valid, _ = self._buckets(owner, cap)
+            send_ids = torch.where(valid, virt[order][src], -1).reshape(-1)
+            send_g = torch.where(valid[..., None], gcat[order][src], 0.0)
+            recv_ids = all_to_all(send_ids, group)
+            recv_g = all_to_all(send_g.reshape(-1, g.dim), group)
+            if data is not None:  # every data replica's contributions
+                recv_ids = all_gather_cat(recv_ids, data)
+                recv_g = all_gather_cat(recv_g, data)
+            stream = recv_ids.shape[0]
+            for aname, spec, rps, base in zip(g.arrays, g.specs,
+                                              g.rows_per_shard, g.bases):
+                loc = recv_ids - base
+                mine = (recv_ids >= 0) & (loc >= 0) & (loc < rps)
+                mids = torch.where(mine, loc, -1)
+                mg = torch.where(mine[:, None], recv_g, 0.0)
+                sk = None
+                if sr_key is not None:
+                    sk = threefry.fold_in(threefry.fold_in(sr_key, table_id(aname)),
+                                          self.shard)
+                # distinct bound: a shard touches at most the rows (fat
+                # f32/bf16: lines) it owns, +1 for the sentinel slot
+                unit = (self.fat_layout_for(aname).r if spec.fused
+                        and not _spec_is_int8(spec) else 1)
+                md = min(stream, _round_up(rps // unit + 1, 8))
+                if spec.fused:
+                    fat_update(tables[aname], slots[aname], mids, mg,
+                               embedding_dim=g.dim, kind=self.fused_kind,
+                               lr=opt.lr, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                               weight_decay=opt.weight_decay, capacity=md,
+                               max_distinct=md, sr_key=sk)
+                else:
+                    uids, gu, ok = dedupe_grads(mids, mg, capacity=md, vocab=rps,
+                                                max_distinct=md)
+                    opt.update_unique(tables[aname], slots[aname], uids, gu, ok,
+                                      embedding_dim=g.dim, sr_key=sk,
+                                      qscale=tables.get(qscale_name(aname)))
 
     # -------------------------------------------------------------- update
 

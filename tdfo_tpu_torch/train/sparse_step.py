@@ -54,16 +54,27 @@ global batch's mean, as GSPMD computes it) and every array's ids and row
 gradients are gathered over it, in global batch order, before
 ``coll.sparse_update`` keeps the rows this rank owns.  At G = 1 nothing is
 scaled or gathered, so a ``gspmd`` or ``psum`` step on model shards sums
-exactly what the single-device step sums.  The grouped exchange, the
-pipelined step and ``dedup_lookup`` under a mesh are not ported yet
-(``ROADMAP.md`` Queue A item 12b).
+exactly what the single-device step sums.
+
+Grouped exchange (a ``grouped_a2a`` collection under ``alltoall``): every
+row- and table-sharded feature's forward rides the collection's grouped
+lookup and their update is ONE ``coll.grouped_update`` (one id and one
+grad ``all_to_all`` per group, each owner receiving only its own
+contributions) instead of the gathers and per-array updates; its narrow
+arrays' stochastic-rounding keys derive from ``sr_key(step,
+"__grouped_update__")`` folded per array and rank.  Replicated tables keep
+the per-array path beside it.  :func:`make_pipelined_sparse_train_step`
+(torchrec ``TrainPipelineSparseDist``) issues the next batch's id
+exchange, asynchronously, before it trains the carried batch.
+``dedup_lookup`` under a mesh is not ported yet (``ROADMAP.md`` Queue A
+item 12b).
 """
 
 from __future__ import annotations
 
 import inspect
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -98,7 +109,8 @@ from tdfo_tpu_torch.train.state import (
     optimizer_tensors,
 )
 
-__all__ = ["BatchGroup", "SparseTrainState", "make_cache_flush_fn",
+__all__ = ["BatchGroup", "PipelinedSparseStep", "SparseTrainState",
+           "make_cache_flush_fn", "make_pipelined_sparse_train_step",
            "make_sparse_train_step"]
 
 
@@ -265,6 +277,23 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
     ``batch_transform`` (run first, on the device: the jagged path's
     ``(values, lengths) -> [B, T]``).  Returned losses are detached device
     tensors: reading one is the caller's (only) host sync."""
+    bg, train = _build_step(coll, forward, mode=mode, with_aux=with_aux,
+                            dedup_lookup=dedup_lookup)
+
+    def step(state: SparseTrainState, batch, generator=None):
+        if batch_transform is not None:
+            batch = batch_transform(batch)
+        return train(state, bg.split(batch), generator)
+
+    return step
+
+
+def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
+                mode: str, with_aux: bool, dedup_lookup: bool):
+    """``(batch group, train)``: ``train(state, share, generator=None,
+    grouped_ctx=None)`` runs one step on this rank's share of a
+    (transformed) batch; ``grouped_ctx`` is the grouped exchange's
+    input-dist of that share when the caller issued it already."""
     if mode not in ("gspmd", "psum", "alltoall"):
         raise ValueError(f"unknown lookup mode {mode!r}")
     if dedup_lookup and mode != "gspmd":
@@ -284,8 +313,14 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
     # features of fully hot tables have no cold side: no cold gather,
     # dedupe or update
     full_hot_feats = {f for f in hot_feats if coll.hot_full(feat_table[f])}
+    # the grouped exchange carries every row/table-sharded feature, both
+    # ways; the per-array path below keeps the rest
+    grouped_feats = (tuple(coll.grouped_features(dict.fromkeys(features)))
+                     if mode == "alltoall" else ())
+    grouped_arrays = sorted({coll.resolve(f)[0] for f in grouped_feats})
+    rest_feats = [f for f in features if f not in grouped_feats]
     by_table: dict[str, list[str]] = {}
-    for f in features:
+    for f in rest_feats:
         if f not in full_hot_feats:
             by_table.setdefault(coll.resolve(f)[0], []).append(f)
 
@@ -312,10 +347,7 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                              -(-spec.num_embeddings // rows_per_line) + 1)
         return torch.cat(id_list), sizes, bound
 
-    def step(state: SparseTrainState, batch, generator=None):
-        if batch_transform is not None:
-            batch = batch_transform(batch)
-        batch = bg.split(batch)
+    def train(state: SparseTrainState, batch, generator=None, grouped_ctx=None):
         ids = {f: batch[f] for f in features}
         # the cache is on when the state carries coll.init_caches's entries
         cached = {k[len(CACHE_PREFIX):] for k in state.slots
@@ -422,6 +454,13 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
         with torch.no_grad():
             if dedup_lookup:
                 gathered, ctx = dedup_forward()
+            elif grouped_feats:
+                gathered = coll.grouped_lookup(
+                    state.tables, {f: ids[f] for f in grouped_feats}, grouped_ctx)
+                if rest_feats:
+                    gathered.update(coll.lookup(
+                        state.tables, {f: ids[f] for f in rest_feats}, mode=mode))
+                ctx = {}
             else:
                 # coll.lookup routes hot/cold itself
                 gathered = overlay_lookup(
@@ -444,10 +483,11 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
         for p in params:
             p.grad = None
         g_embs = dict(zip(features, grads[len(params):]))
-        if bg.size > 1:
+        up = [f for f in rest_feats if f not in full_hot_feats]
+        if bg.size > 1 and up:
             # the global batch's ids and row grads, in its order: one
-            # gather for the ids, one per (dim, dtype) of the grads
-            up = [f for f in features if f not in full_hot_feats]
+            # gather for the ids, one per (dim, dtype) of the grads (the
+            # grouped features send theirs to the owners instead)
             for f, v in zip(up, bg.gather([cold_ids[f].reshape(-1).to(torch.int64)
                                            for f in up])):
                 cold_ids[f] = v
@@ -470,6 +510,14 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
             return state.tables.get(qscale_name(aname))
 
         with torch.no_grad():
+            if grouped_feats:
+                narrow = any(_array_is_narrow(state, a) for a in grouped_arrays)
+                coll.grouped_update(
+                    opt, state.tables, state.slots,
+                    {f: ids[f] for f in grouped_feats},
+                    {f: g_embs[f] for f in grouped_feats},
+                    sr_key=(_make_sr_key(state.step, "__grouped_update__")
+                            if narrow else None))
             for aname, feats in by_table.items():
                 table = state.tables[aname]
                 ck = CACHE_PREFIX + aname
@@ -536,7 +584,79 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
         loss = bg.mean(loss.detach())
         return state, ((loss, bg.join(aux.detach())) if with_aux else loss)
 
-    return step
+    return bg, train
+
+
+class PipelinedSparseStep(NamedTuple):
+    """The three entry points of the pipelined sparse step (reference
+    ``PipelinedSparseStep``).  ``prime(batch) -> carry`` runs the input-dist
+    of the epoch's first batch and trains nothing; ``step(state, batch,
+    carry, generator=None) -> (state, out, carry)`` issues the NEW batch's
+    input-dist, then trains the CARRIED one; ``flush(state, carry,
+    generator=None) -> (state, out)`` trains the last carried batch.
+    ``carry`` is ``(batch, ctx)``: the transformed data-local batch (the
+    train AUC reads its labels) and its share's input-dist, whose id
+    exchange may still be in flight.  A checkpoint need not keep it: on
+    resume the stream re-yields the carried batch and ``prime`` rebuilds
+    the ctx from its ids."""
+
+    prime: Callable
+    step: Callable
+    flush: Callable
+
+
+def make_pipelined_sparse_train_step(coll: ShardedEmbeddingCollection,
+                                     forward: Callable, *,
+                                     with_aux: bool = False,
+                                     batch_transform: Callable | None = None):
+    """The cross-batch pipelined step over the grouped exchange (reference
+    ``make_pipelined_sparse_train_step``, torchrec
+    ``TrainPipelineSparseDist``): the grouped input-dist reads no table, so
+    ``step`` starts batch N+1's id ``all_to_all`` (``async_op``) before it
+    runs batch N's lookup, forward, backward and update, and waits on it
+    only when batch N+1 trains, one call later.  Losses, generators (by
+    ``state.step``, which counts trained batches) and the state evolve
+    exactly as under the eager grouped step; outputs surface one call
+    later.  Requires a ``grouped_a2a`` collection under a mesh; hot/cold
+    tables and the update cache (both ``gspmd``-only) refuse, as does
+    ``dedup_lookup`` (in the trainer).  Features of replicated tables keep
+    their per-array path inside the step."""
+    if not (coll.grouped_a2a and coll.mesh is not None):
+        raise ValueError(
+            "the pipelined sparse step requires a grouped_a2a collection on "
+            "a device mesh ([embeddings] grouped_a2a = true with "
+            "model_parallel)")
+    if coll.hot_tables():
+        raise ValueError(
+            "hot/cold tables do not compose with the pipelined sparse step "
+            "(they require lookup mode 'gspmd')")
+    if coll.cache_rows > 0:
+        raise ValueError(
+            "the update cache (cache_rows > 0) does not compose with the "
+            "pipelined sparse step (it requires lookup mode 'gspmd')")
+    bg, train = _build_step(coll, forward, mode="alltoall", with_aux=with_aux,
+                            dedup_lookup=False)
+    grouped_feats = tuple(coll.grouped_features(dict.fromkeys(coll.features())))
+
+    def prime(batch):
+        if batch_transform is not None:
+            batch = batch_transform(batch)
+        share = bg.split(batch)
+        return batch, coll.grouped_input_dist(
+            {f: share[f] for f in grouped_feats}, async_op=True)
+
+    def step(state, batch, carry, generator=None):
+        # the new batch's id exchange first: it reads no table, so it runs
+        # while the carried batch trains
+        new_carry = prime(batch)
+        state, out = flush(state, carry, generator)
+        return state, out, new_carry
+
+    def flush(state, carry, generator=None):
+        batch, ctx = carry
+        return train(state, bg.split(batch), generator, grouped_ctx=ctx)
+
+    return PipelinedSparseStep(prime=prime, step=step, flush=flush)
 
 
 def make_cache_flush_fn():

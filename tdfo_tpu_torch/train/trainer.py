@@ -63,8 +63,13 @@ process group running, the trainer lays the ranks out as the ``[mesh]``
 table says and each rank streams its data slice of the global batch
 (``per_device_train_batch_size`` rows; ranks that share a data index read
 the same rows).  The CTR regimes shard the tables over the model axis
-(``embedding_sharding``: row, table or column) and look them up with
-``lookup_mode``; the dense TwoTower regime is data-parallel.  Train losses,
+(``embedding_sharding``: row, table or column; int8 storage too) and look
+them up with ``lookup_mode``, under ``alltoall`` through the grouped
+exchange with ``[embeddings] grouped_a2a`` and through the pipelined step
+with ``[train] pipeline_overlap`` (the epoch loop primes on its first
+batch, trains each batch one call later and flushes the last; the carry
+is not checkpointed: a resume primes on the batch the carry held); the
+dense TwoTower regime is data-parallel.  Train losses,
 the train AUC and every eval metric are the global batch's on every rank
 (histograms, sums and counts summed over the data axis); eval tops each
 rank up with zero-weight template batches to the longest slice's count, so
@@ -169,11 +174,14 @@ def _check_cache_overflow(overflow: dict) -> None:
             "rows) or lower flush_every.")
 
 
-def refuse_unported(cfg: Config, world: int | None = None) -> None:
+def refuse_unported(cfg: Config, world: int | None = None,
+                    device="cuda") -> None:
     """Raise ``NotImplementedError`` for every knob value whose code path the
     port does not have yet, naming the ``ROADMAP.md`` item that ports it.
     ``world``: the ranks of the process group (default: the running one's,
-    1 without one); the mesh is multi-device when it or ``[mesh]`` says so."""
+    1 without one); the mesh is multi-device when it or ``[mesh]`` says so.
+    ``device``: where the run trains (the dense regime's multi-step runs as
+    CUDA-graph replays on the card only)."""
     import torch.distributed as dist
 
     if world is None:
@@ -181,21 +189,24 @@ def refuse_unported(cfg: Config, world: int | None = None) -> None:
     emb = cfg.embeddings
     tele = cfg.telemetry
     multi = world > 1 or cfg.mesh.model > 1 or cfg.mesh.data > 1
+    dense = cfg.model == "twotower" and not cfg.model_parallel
     checks = [
         (cfg.attn in ("ring", "ring_flash"), f"attn = {cfg.attn!r}", "12b"),
         (cfg.tensor_parallel, "tensor_parallel = true", "12b"),
         (cfg.mesh.seq != 1, "[mesh] seq > 1", "12b"),
-        (emb.grouped_a2a, "embeddings.grouped_a2a", "12b"),
-        (cfg.train.pipeline_overlap, "train.pipeline_overlap", "12b"),
         (multi and emb.cache_rows > 0,
          "embeddings.cache_rows > 0 under a multi-device mesh", "12b"),
         (multi and emb.hot_vocab > 0,
          "embeddings.hot_vocab > 0 under a multi-device mesh", "12b"),
-        (multi and (emb.table_dtype == "int8" or any(
-            v == "int8" for _, v in emb.table_dtype_overrides)),
-         "int8 storage under a multi-device mesh", "12b"),
         (multi and cfg.model == "bert4rec", "bert4rec under a multi-device mesh",
          "12b"),
+        (multi and cfg.model_parallel and cfg.embedding_sharding == "column"
+         and cfg.sparse_optimizer == "rowwise_adagrad",
+         "column sharding under rowwise_adagrad", "12b"),
+        (multi and dense and cfg.steps_per_execution > 1
+         and torch.device(device).type == "cuda",
+         "CUDA-graph steps (steps_per_execution > 1, dense regime) under "
+         "several ranks", "12b"),
         (multi and cfg.dedup_lookup, "dedup_lookup under a multi-device mesh",
          "12b"),
         (multi and cfg.model == "twotower" and not cfg.model_parallel
@@ -273,7 +284,7 @@ class Trainer:
 
         from tdfo_tpu_torch.core.mesh import _resolve_sizes, make_mesh
 
-        refuse_unported(config)
+        refuse_unported(config, device=device)
         if config.use_tpu:
             raise RuntimeError(
                 "use_tpu = true but tdfo_tpu_torch trains on a CUDA card or "
@@ -300,6 +311,7 @@ class Trainer:
         self._flush_every = 0  # its cadence in train steps
         self._train_auc = None
         self._a2a_watch = None  # the alltoall capacity's overflow counter
+        self._pipe = None  # train.pipeline_overlap's (prime, step, flush)
         if out_dir is not None and self.rank == 0:
             _retry.set_failure_log(Path(out_dir) / "retries.jsonl")
         if config.checkpoint_dir:
@@ -457,7 +469,8 @@ class Trainer:
         coll = ShardedEmbeddingCollection(
             specs, fused_kind=cfg.sparse_optimizer, stack_tables=cfg.stack_tables,
             hot_ids=hot_ids, cache_rows=cache_rows, mesh=self.mesh,
-            a2a_capacity_factor=cfg.a2a_capacity_factor or None)
+            a2a_capacity_factor=cfg.a2a_capacity_factor or None,
+            grouped_a2a=cfg.embeddings.grouped_a2a)
         # stamps refuse a restore that would pair values with the wrong ids
         # or dtypes: the hot sets, the storage dtypes (defaults-only runs
         # write none, the reference's rule), the int8 sidecar's layout and
@@ -516,9 +529,26 @@ class Trainer:
                 self.state.slots.update(caches)
                 self._cache_flush = make_cache_flush_fn()
                 self._flush_every = cfg.embeddings.flush_every
-        self.train_step = make_sparse_train_step(
-            coll, ctr_sparse_forward(backbone, with_logits=True),
-            mode=cfg.lookup_mode, with_aux=True, dedup_lookup=cfg.dedup_lookup)
+        if cfg.train.pipeline_overlap:
+            # TrainPipelineSparseDist parity: batch N+1's input-dist is in
+            # flight while batch N trains; the epoch loop primes on its
+            # first batch and flushes its last
+            from tdfo_tpu_torch.train.sparse_step import (
+                make_pipelined_sparse_train_step,
+            )
+
+            if cfg.dedup_lookup:
+                raise ValueError(
+                    "dedup_lookup (gspmd-only) does not compose with "
+                    "train.pipeline_overlap")
+            self._pipe = make_pipelined_sparse_train_step(
+                coll, ctr_sparse_forward(backbone, with_logits=True),
+                with_aux=True)
+        else:
+            self.train_step = make_sparse_train_step(
+                coll, ctr_sparse_forward(backbone, with_logits=True),
+                mode=cfg.lookup_mode, with_aux=True,
+                dedup_lookup=cfg.dedup_lookup)
         if (self.mesh is not None and cfg.lookup_mode == "alltoall"
                 and coll.a2a_capacity_factor is not None):
             # ids a finite capacity dropped (they read zeros): logged at
@@ -577,6 +607,17 @@ class Trainer:
                                                     t_len, PAD_ID)
                         for k in ("item", "label")}
 
+        if cfg.train.pipeline_overlap:
+            # the port's Bert4Rec trains without a mesh (under one: item
+            # 12b), where the pipelined step refuses by the reference's
+            # message
+            from tdfo_tpu_torch.train.sparse_step import (
+                make_pipelined_sparse_train_step,
+            )
+
+            make_pipelined_sparse_train_step(
+                self.coll, bert4rec_sparse_forward(self.backbone),
+                batch_transform=transform)
         self.train_step = make_sparse_train_step(
             self.coll, bert4rec_sparse_forward(self.backbone),
             mode=cfg.lookup_mode, dedup_lookup=cfg.dedup_lookup,
@@ -677,11 +718,29 @@ class Trainer:
             gen = dropout_generator(self.config.seed + 1, state.step, self.device)
             return self.train_step(state, batch, gen)
         state, (loss, logits) = self.train_step(state, batch)
+        self._fold_auc(batch["label"], logits)
+        return state, loss
+
+    def _fold_auc(self, labels, logits) -> None:
         logits = logits.float()  # a narrow compute dtype's logits
         ok = torch.isfinite(logits)
         self._train_auc = self._train_auc.update(
-            batch["label"], torch.sigmoid(torch.where(ok, logits, 0.0)),
+            labels, torch.sigmoid(torch.where(ok, logits, 0.0)),
             ok.to(torch.float32))
+
+    def _pipelined_step(self, state, batch, carry):
+        """The pipelined step: trains the CARRIED batch, so the AUC folds the
+        carry's labels (reference ``_wrap_auc_pipelined``).  ``(state,
+        loss, carry)``."""
+        labels = carry[0]["label"]
+        state, (loss, logits), carry = self._pipe.step(state, batch, carry)
+        self._fold_auc(labels, logits)
+        return state, loss, carry
+
+    def _pipelined_flush(self, state, carry):
+        labels = carry[0]["label"]
+        state, (loss, logits) = self._pipe.flush(state, carry)
+        self._fold_auc(labels, logits)
         return state, loss
 
     def _save(self, gstep: int, cursor: dict) -> None:
@@ -770,11 +829,22 @@ class Trainer:
         pending_over: list[dict] = []
         profiling = cfg.profile and epoch == 0
         prof = None
+        # pipeline_overlap's carry: the next batch to train and its
+        # input-dist.  Not in the cursor: n_steps counts TRAINED batches,
+        # so a resume skips exactly those and primes on the carried batch
+        carry = None
         try:
             for batch, k in self._train_batches(epoch, skip=start_step):
                 if profiling and prof is None and n_steps >= 10:
                     prof = self._start_profile()
-                if cfg.steps_per_execution > 1:
+                if self._pipe is not None and carry is None:
+                    carry = self._pipe.prime(batch)  # trains next iteration
+                    continue
+                if self._pipe is not None:
+                    self.state, loss, carry = self._pipelined_step(
+                        self.state, batch, carry)
+                    losses = loss.reshape(1)
+                elif cfg.steps_per_execution > 1:
                     self.state, losses = self._multi_step(self.state, batch)
                 else:
                     self.state, loss = self._one_step(self.state, batch)
@@ -811,6 +881,13 @@ class Trainer:
                                     train_loss=float(losses[-1]),
                                     global_step=gstep, **extra)
                     next_log = n_steps + cfg.log_every_n_steps
+            if carry is not None:
+                # drain the pipeline: the last carried batch trains here
+                self.state, loss = self._pipelined_flush(self.state, carry)
+                carry = None
+                n_steps += 1
+                pending.append((loss.reshape(1), 1, self._logged_steps + n_steps))
+                pending_steps += 1
         finally:
             if prof is not None:  # the epoch ended (or raised) mid-window
                 self._stop_profile(prof, epoch)

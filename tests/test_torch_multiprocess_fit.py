@@ -16,7 +16,8 @@
   runs zero-weight template batches and both ranks report the one-rank
   evaluation of the same (fresh) state.
 * Every knob of ``ROADMAP.md`` Queue A item 12b refuses by name under a
-  multi-device mesh.
+  multi-device mesh; the grouped exchange, the pipelined step and int8
+  storage (ported) do not.
 """
 
 import functools
@@ -183,10 +184,11 @@ def test_rank_without_eval_rows_takes_template_batches():
     ({"attn": "ring", "model": "bert4rec"}, "attn = 'ring'"),
     ({"attn": "ring_flash", "model": "bert4rec"}, "attn = 'ring_flash'"),
     ({"tensor_parallel": True}, "tensor_parallel"),
-    ({"embeddings": {"grouped_a2a": True}, "lookup_mode": "alltoall"}, "grouped_a2a"),
+    ({"embedding_sharding": "column", "sparse_optimizer": "rowwise_adagrad"},
+     "column sharding under rowwise_adagrad"),
     ({"embeddings": {"cache_rows": 64}}, "cache_rows"),
     ({"embeddings": {"hot_vocab": 8}}, "hot_vocab"),
-    ({"embeddings": {"table_dtype": "int8"}}, "int8"),
+    ({"model_parallel": False, "steps_per_execution": 2}, "CUDA-graph steps"),
     ({"model": "bert4rec"}, "bert4rec"),
     ({"dedup_lookup": True}, "dedup_lookup"),
     ({"model_parallel": False, "mesh": {"data": 1, "model": 2}}, "dense regime"),
@@ -198,6 +200,24 @@ def test_12b_knobs_refuse_by_name(kw, what):
     with pytest.raises(NotImplementedError, match="item 12b") as e:
         refuse_unported(cfg, world=2)
     assert what in str(e.value)
+
+
+@pytest.mark.parametrize("kw", [
+    {"embeddings": {"grouped_a2a": True}, "lookup_mode": "alltoall",
+     "train": {"pipeline_overlap": True}},
+    {"embeddings": {"table_dtype": "int8"}, "lookup_mode": "alltoall"},
+], ids=["grouped_pipelined", "int8"])
+def test_ported_12b_knobs_build_under_world_two(kw):
+    """The grouped exchange, the pipelined step and int8 storage pass the
+    refusals under a world of two (``tests/test_torch_grouped_a2a.py``
+    trains them on two ranks); the dense regime's multi-step refuses only
+    where it replays CUDA graphs, on the card."""
+    body = dict(model="twotower", model_parallel=True, size_map={"user": 10})
+    body.update(kw)
+    refuse_unported(read_configs(None, **body), world=2)
+    refuse_unported(read_configs(None, model="twotower", model_parallel=False,
+                                 steps_per_execution=2, size_map={"user": 10}),
+                    world=2, device="cpu")
 
 
 def test_graph_step_refuses_under_several_ranks(monkeypatch):

@@ -24,6 +24,16 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 
+if __name__ != "__main__":
+    # a test process: one torch thread.  A parallel test run puts one
+    # pytest worker on each of several cores, and torch's default of one
+    # OpenMP thread per core in every worker oversubscribes them; the
+    # port's tests work on tensors too small to gain from a pool.  Every
+    # worker imports this module while it collects the test files.
+    import torch
+
+    torch.set_num_threads(1)
+
 
 def _free_port() -> int:
     with socket.socket() as s:
@@ -104,7 +114,8 @@ def _coll(case, mesh):
     return ShardedEmbeddingCollection(
         specs, mesh=mesh, fused_kind=case.get("kind", "adam"),
         stack_tables=case.get("stack_tables", False),
-        a2a_capacity_factor=case.get("cf"))
+        a2a_capacity_factor=case.get("cf"),
+        grouped_a2a=case.get("grouped", False))
 
 
 def _local_ids(mesh, mode, feats):
@@ -248,6 +259,102 @@ def case_update(case):
             "fat_runs": kl.fat_line_update.plain_runs - before}
 
 
+class _CountA2A:
+    """Counts ``torch.distributed.all_to_all_single`` calls (the port's
+    collectives boundary) while it is entered."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.orig, self.n = dist.all_to_all_single, 0
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+
+        dist.all_to_all_single = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_to_all_single = self.orig
+
+
+def case_grouped(case):
+    """The grouped exchange beside the per-table program on the case's
+    global ids (each rank its share): both lookups gathered back in batch
+    order, the ``all_to_all_single`` calls of each, the overflow count and
+    fill; with ``grads``, one ``grouped_update`` (``sr``: a narrow key) and
+    its calls, gathered; with ``per_table_update``, the per-table path's
+    ``sparse_update`` of the global ids and grads, gathered."""
+    import torch
+
+    from tdfo_tpu_torch.interop import gather_to_numpy, shard_from_numpy, to_numpy
+    from tdfo_tpu_torch.ops.quant import sr_key
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.parallel.embedding import qscale_name
+
+    mesh = _mesh(case)
+    coll = _coll(case, mesh)
+    per_table = _coll(dict(case, grouped=False), mesh)
+    tables, _ = shard_from_numpy(coll, case["tables"])
+    bg, ids = _local_ids(mesh, "alltoall", case["features"])
+    out = {}
+    for name, c in (("grouped", coll), ("per_table", per_table)):
+        with _CountA2A() as n:
+            got = c.lookup(tables, ids, mode="alltoall")
+        feats = sorted(got)
+        out[name] = {f: to_numpy(v) for f, v in
+                     zip(feats, bg.gather([got[f] for f in feats]))}
+        out[name + "_a2a"] = n.n
+    fill, dropped = coll.a2a_fill_stats(tables, ids)
+    out.update(overflow=int(coll.a2a_overflow(tables, ids)), fill=float(fill),
+               dropped=int(dropped))
+    if "grads" not in case:
+        return out
+    opt = sparse_optimizer(case.get("kind", "adam"), lr=case["lr"])
+    slots = {n: opt.init(t) for n, t in tables.items()
+             if not n.startswith("__qscale__/")}
+    _, grads = _local_ids(mesh, "alltoall", case["grads"])
+    key = sr_key(case["step"], "__grouped_update__") if case.get("sr") else None
+    before = {k: v.clone() for k, v in tables.items()}
+    with _CountA2A() as n:
+        coll.grouped_update(opt, tables, slots,
+                            {f: ids[f] for f in case["grads"]}, grads, sr_key=key)
+    out["update_a2a"] = n.n
+    out["tables"], out["slots"] = gather_to_numpy(coll, tables, slots)
+    if case.get("per_table_update"):
+        tables = before
+        slots = {n: opt.init(t) for n, t in tables.items()
+                 if not n.startswith("__qscale__/")}
+        for name, (gids, g) in case["per_table_update"].items():
+            key = sr_key(case["step"], name) if case.get("sr") else None
+            per_table.sparse_update(opt, name, tables[name], slots[name],
+                                    torch.from_numpy(gids), torch.from_numpy(g),
+                                    sr_key=key, qscale=tables.get(qscale_name(name)))
+        out["per_table_tables"] = gather_to_numpy(per_table, tables)[0]
+    return out
+
+
+def case_lookup_modes(case):
+    """``psum`` and ``alltoall`` lookups (per-table programs) of the
+    case's global ids, gathered back in batch order."""
+    from tdfo_tpu_torch.interop import shard_from_numpy, to_numpy
+
+    mesh = _mesh(case)
+    coll = _coll(case, mesh)
+    tables, _ = shard_from_numpy(coll, case["tables"])
+    out = {}
+    for mode in ("psum", "alltoall"):
+        bg, ids = _local_ids(mesh, mode, case["features"])
+        got = coll.lookup(tables, ids, mode=mode)
+        feats = sorted(got)
+        out[mode] = {f: to_numpy(v) for f, v in
+                     zip(feats, bg.gather([got[f] for f in feats]))}
+    return out
+
+
 def _backbone(case):
     import torch
 
@@ -307,6 +414,68 @@ def case_step(case):
             "backbone": {k: to_numpy(v) for k, v in backbone.state_dict().items()}}
 
 
+def case_grouped_steps(case):
+    """The same batches through the eager grouped step and the pipelined
+    one (prime, step, flush) from one state: each run's losses, gathered
+    tables and slots, and ``all_to_all_single`` calls per trained batch;
+    and the eager per-table ``alltoall`` step's losses."""
+    import torch
+
+    from tdfo_tpu_torch.core.mesh import data_slice
+    from tdfo_tpu_torch.interop import gather_to_numpy, shard_from_numpy
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.train.ctr import ctr_sparse_forward
+    from tdfo_tpu_torch.train.sparse_step import (
+        SparseTrainState,
+        make_pipelined_sparse_train_step,
+        make_sparse_train_step,
+    )
+
+    mesh = _mesh(case)
+    out = {}
+    batches = [{k: torch.from_numpy(v)[data_slice(mesh, v.shape[0])]
+                for k, v in b.items()} for b in case["batches"]]
+    for run in ("eager", "pipelined", "per_table"):
+        coll = _coll(dict(case, grouped=run != "per_table"), mesh)
+        tables, _ = shard_from_numpy(coll, case["tables"])
+        backbone = _backbone(case)
+        state = SparseTrainState.create(
+            backbone=backbone, tables=tables,
+            sparse_opt=sparse_optimizer(case.get("kind", "adam"), lr=case["lr"],
+                                        weight_decay=case["wd"]),
+            learning_rate=case["lr"], weight_decay=case["wd"])
+        fwd = ctr_sparse_forward(backbone)
+        before = kl.fat_line_update.plain_runs
+        losses, calls = [], []
+        if run == "pipelined":
+            pipe = make_pipelined_sparse_train_step(coll, fwd)
+            with _CountA2A() as n:
+                carry = pipe.prime(batches[0])
+            out["prime_a2a"] = n.n
+            for b in batches[1:]:
+                with _CountA2A() as n:
+                    state, loss, carry = pipe.step(state, b, carry)
+                losses.append(float(loss))
+                calls.append(n.n)
+            with _CountA2A() as n:
+                state, loss = pipe.flush(state, carry)
+            losses.append(float(loss))
+            out["flush_a2a"] = n.n
+        else:
+            step = make_sparse_train_step(coll, fwd, mode="alltoall")
+            for b in batches:
+                with _CountA2A() as n:
+                    state, loss = step(state, b)
+                losses.append(float(loss))
+                calls.append(n.n)
+        t, s = gather_to_numpy(coll, state.tables, state.slots)
+        out[run] = {"losses": losses, "a2a": calls, "tables": t, "slots": s,
+                    "step": state.step,
+                    "fat_runs": kl.fat_line_update.plain_runs - before}
+    return out
+
+
 def case_dense_step(case):
     """K dense-regime steps (every parameter under AdamW) on the rank's
     data slice; the global losses and the parameters."""
@@ -358,7 +527,9 @@ def case_fit(case):
     else:
         if case.get("kill_at"):
             tr = Trainer(read_configs(None, **case["body"]), device="cpu")
-            inner, calls = tr.train_step, [0]
+            pipe = tr._pipe
+            inner = tr.train_step if pipe is None else pipe.step
+            calls = [0]
 
             def dying(*args):
                 calls[0] += 1
@@ -366,7 +537,10 @@ def case_fit(case):
                     raise _Killed
                 return inner(*args)
 
-            tr.train_step = dying
+            if pipe is None:
+                tr.train_step = dying
+            else:  # the pipelined loop trains through its step
+                tr._pipe = pipe._replace(step=dying)
             try:
                 tr.fit()
             except _Killed:
