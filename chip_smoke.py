@@ -222,11 +222,11 @@ Phases (each prints its lines; any failure raises, so the script never exits
    16384)``: every table's ``[0, min(16384, V))`` prefix a hot head, zipf
    ids, f32 compute; once with f32 storage and once with the int8 cold
    residual: 20 steps (step ms, peak memory, no fat-line launch), then 3
-   steps on the card and the CPU path (f32: losses, cold rows and heads
-   within rtol 1e-4; int8: losses within ``BF16_LOSS_RTOL``, cold rows by
-   the grid-step rule and its control, the heads pooled: at most
-   ``INT8_HEAD_SHARE`` of their elements beyond rtol 1e-4, with two
-   controls that must fail).
+   steps on the card and the CPU path (f32: losses and cold rows within
+   rtol 1e-4; int8: losses within ``BF16_LOSS_RTOL``, cold rows by the
+   grid-step rule and its control; the heads of both pooled by the head
+   rule: at most ``HEAD_SHARE`` of their elements beyond rtol 1e-4, none
+   beyond an update of the other sign, with two controls that must fail).
 25. criteo_int8_cli — ``synth-criteo -> preprocess-criteo -> train`` with
    a copy of ``configs/dlrm-criteo.toml`` plus int8, ``cache_rows``,
    ``flush_every`` and ``hot_vocab``: the ETL writes ``hot_ids.json``, the
@@ -287,13 +287,31 @@ Phases (each prints its lines; any failure raises, so the script never exits
    fail), and ``all_to_all_single`` runs as often a step as ``DIST_A2A``
    says.  Each rank prints step ms, the collectives' CUDA-event ms a step,
    ``fat_line_update`` launches on its shard (once a step in the f32
-   modes), ``segment_sum`` launches and peak memory.
+   modes), ``segment_sum`` launches and peak memory.  Then the CTR arms
+   (``DIST_CTR_RUNS``: world 1 over NCCL, world 2 over gloo at data 2 x
+   model 1, the dlrm-criteo.toml layout, and at data 1 x model 2; NCCL at
+   world = the card count where there are several, data-parallel and, on
+   four or more, data x model 2): phase 11's
+   DLRM-Criteo regime with ``dedup_lookup`` (the routed kernel on the
+   replicated fat stack at model 1, ``fat_line_update`` on each shard at
+   model 2), phase 23's int8 stack with the 2,097,152-row update cache,
+   phase 24's hot/cold regime (f32 and int8 cold) and, at model 2, phase
+   3's tables column-sharded under rowwise_adagrad; each rank holds its
+   arm to the single-device step it also runs (bitwise at world 1 and
+   data 1 x model 2; at data 2 x model 1 rtol 1e-4, the int8 rule and
+   the head rule), the alternate path (``dedup_lookup`` off, the cache
+   off) bitwise the main one, the cache's overflow 0 on every rank, and
+   prints step ms, collective ms, peak memory and its launches of both
+   fat-line kernels and ``segment_sum`` (a kernel the arm runs launched
+   no time fails the run).
 30. dist_cli — ``python -m torch.distributed.run --nproc-per-node 1 -m
    tdfo_tpu_torch.launch train --distributed always`` on two DMP TwoTower
    tomls (synthetic data, ``lookup_mode = "alltoall"``; the second with
-   ``grouped_a2a`` and ``pipeline_overlap``): each SIGKILLed after a
-   mid-epoch save, run again, and its final checkpoint bitwise an
-   uninterrupted run's.
+   ``grouped_a2a`` and ``pipeline_overlap``) and on
+   ``configs/dlrm-criteo.toml`` as shipped (its ``data_dir`` set, a save
+   cadence), with the update cache and with ``hot_vocab``: each
+   SIGKILLed after a mid-epoch save, run again, and its final checkpoint
+   bitwise an uninterrupted run's.
 
 Every phase prints ``phase <name>: start`` and ``phase <name>: ok in <s>
 s`` around itself, so a failing run names its phase.
@@ -302,7 +320,10 @@ s`` around itself, so a failing run names its phase.
 ``profile_bf16`` / ``profile_dlrm_bf16`` / ``profile_dense`` (not in the
 default run) add a ``torch.profiler`` breakdown of steady TwoTower /
 Bert4Rec / DLRM-Criteo / bf16 TwoTower / bf16 DLRM-Criteo main-path steps
-and of the dense TwoTower's eager steps and CUDA-graph replays.
+and of the dense TwoTower's eager steps and CUDA-graph replays;
+``hot_head_inits`` (not in the default run) holds phase 24's f32 heads,
+card vs CPU, at five inits by the head rule and replays the first head
+step on both devices from the same inputs.
 
 Output: the empty-kernel floor of each timing phase, a ``{"kernels":
 [...]}`` JSON line (``ms``: CUDA events, ``device_ms``: profiler, the
@@ -2514,11 +2535,12 @@ def phase_profile_dlrm_bf16(torch, warm: int = 3, steps: int = 5) -> None:
 
 # steps_per_execution of the dense phase's CUDA-graph run
 DENSE_SPE = 4
-# quickstart_cli: synthetic users (about 247 train batches of 2048 in the
+# quickstart_cli: synthetic users (about 99 train batches of 2048 in the
 # one epoch, so the epoch outlasts the first mid-epoch save) and the save
-# cadence
-QS_USERS, QS_CKPT_EVERY = 20_000, 20
-DIST_CLI_USERS, DIST_CLI_EVERY = 8_000, 10
+# cadence (PR 14 cut the users from 20,000 to make room for dist_main's
+# and dist_cli's CTR arms within the run's time)
+QS_USERS, QS_CKPT_EVERY = 8_000, 20
+DIST_CLI_USERS, DIST_CLI_EVERY = 4_000, 10
 
 
 def state_tensors(tree, prefix=""):
@@ -2983,6 +3005,7 @@ DIST_MODES = ("gspmd", "psum", "alltoall", "grouped", "pipelined",
 DIST_A2A = {"grouped": 4, "pipelined": 4, "int8_grouped": 5,
             "alltoall": 14, "int8_alltoall": 14}
 DIST_TIMEOUT_S = 300
+DIST_CTR_TIMEOUT_S = 600
 
 
 def _free_port() -> int:
@@ -2993,10 +3016,12 @@ def _free_port() -> int:
         return sk.getsockname()[1]
 
 
-def _spawn_ranks(world: int, spec: dict, tag: str) -> list[dict]:
+def _spawn_ranks(world: int, spec: dict, tag: str,
+                 timeout: float = DIST_TIMEOUT_S) -> list[dict]:
     """``world`` processes of ``chip_smoke.py --dist-rank`` on the card
     (torchrun's variables set by hand); each prints its lines and writes
-    its results.  Every process is waited for (or killed at the limit)."""
+    its results.  Every process is waited for (or killed at ``timeout``
+    seconds)."""
     import os
 
     out = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
@@ -3009,7 +3034,7 @@ def _spawn_ranks(world: int, spec: dict, tag: str) -> list[dict]:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     logs = []
-    deadline = time.monotonic() + DIST_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
@@ -3279,36 +3304,11 @@ def dist_rank_main(spec: dict) -> int:
             rec["bitwise_eager_grouped"] = True
         del got, got_slots
         # timed steps, the collectives under CUDA events
-        events: list = []
-        orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
-                                              "all_to_all_single")}
-
-        def timed(name, fn):
-            def call(*a, **k):
-                s0 = torch.cuda.Event(enable_timing=True)
-                s1 = torch.cuda.Event(enable_timing=True)
-                s0.record()
-                out = fn(*a, **k)
-                s1.record()
-                events.append((name, s0, s1))
-                return out
-            return call
-
-        for n, fn in orig.items():
-            setattr(dist, n, timed(n, fn))
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = train(state, batches[DIST_STEPS:])
-            torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3 / DIST_TIMED
-        finally:
-            for n, fn in orig.items():
-                setattr(dist, n, fn)
-        coll_ms: dict = {}
-        for n, s0, s1 in events:
-            coll_ms[n] = coll_ms.get(n, 0.0) + s0.elapsed_time(s1) / DIST_TIMED
-        a2a = sum(n == "all_to_all_single" for n, _, _ in events) / DIST_TIMED
+        (state, _), ms, coll_ms, calls = _time_steps(
+            torch, dist, lambda: train(state, batches[DIST_STEPS:]))
+        step_ms = ms / DIST_TIMED
+        coll_ms = {k: v / DIST_TIMED for k, v in coll_ms.items()}
+        a2a = calls.get("all_to_all_single", 0) / DIST_TIMED
         if mode in DIST_A2A and a2a != DIST_A2A[mode]:
             raise AssertionError(f"dist {mode}: {a2a} all_to_all_single calls a step, "
                                  f"not {DIST_A2A[mode]}")
@@ -3353,7 +3353,9 @@ def phase_dist_main(torch, card: str) -> dict:
     forward, the pipelined step bitwise the eager grouped one, the int8
     arm within the narrow-storage rule of the single-device int8 step
     (its control failing), ``all_to_all_single`` calls a step as
-    ``DIST_A2A`` says, ``fat_line_update`` once a step on each rank."""
+    ``DIST_A2A`` says, ``fat_line_update`` once a step on each rank.
+    Then (d) the CTR arms (``DIST_CTR_RUNS``, ``_ctr_arm``), and over
+    NCCL on several cards."""
     runs = {}
     t0 = time.perf_counter()
     runs["nccl_1"] = _spawn_ranks(1, {"backend": "nccl", "mesh": [1, 1],
@@ -3379,9 +3381,377 @@ def phase_dist_main(torch, card: str) -> dict:
                 f"fat_line_update launches per rank {launches[f'{key}/{mode}']}, "
                 f"segment_sum launches per rank {segsums[f'{key}/{mode}']}, "
                 f"peak GB per rank {[round(x['peak_gb'], 2) for x in m]}")
+    # the CTR arms (ROADMAP item 12b's CTR half); a world of every card over
+    # NCCL where there are several: data-parallel, and with an even count
+    # of four or more data x model 2
+    ctr_runs = list(DIST_CTR_RUNS)
+    if n >= 2:
+        ctr_runs.append(("nccl", n, (n, 1), ("criteo",)))
+    if n >= 4 and n % 2 == 0:
+        ctr_runs.append(("nccl", n, (n // 2, 2), ("criteo", "cache", "hot_f32")))
+    ctr_launches: dict = {}
+    for backend, world, (d, m), arms in ctr_runs:
+        key = f"{backend}_{world}_{d}x{m}"
+        ranks = _spawn_ranks(world, {"backend": backend, "mesh": [d, m],
+                                     "arms": list(arms)},
+                             f"ctr world {world} {backend} mesh {d}x{m}",
+                             timeout=DIST_CTR_TIMEOUT_S)
+        for arm in arms:
+            a = [r["arms"][arm] for r in ranks]
+            ctr_launches[f"{key}/{arm}"] = [x["launches"] for x in a]
+            say(f"dist_main: ctr {arm} world {world} ({backend}, data {d} x model "
+                f"{m}): {a[0]['held']}; {a[0]['alt'] or 'no alternate path'}"
+                f"{' bitwise' if a[0]['alt_held'] else ''}; step_ms "
+                f"{[round(x['step_ms'], 3) for x in a]}, collective ms "
+                f"{[{k: round(v, 4) for k, v in x['collective_ms'].items()} for x in a]}, "
+                f"calls a step {[x['collective_calls'] for x in a]}, launches per "
+                f"rank in {DIST_STEPS + DIST_TIMED} steps {ctr_launches[f'{key}/{arm}']}, "
+                f"peak GB per rank {[round(x['peak_gb'], 2) for x in a]}")
     say(f"dist_main: gloo on CUDA tensors: {runs['gloo_2'][0]['collectives']}; "
         f"{time.perf_counter() - t0:.1f} s; on {card}")
-    return {"launches": launches, "segment_sum_launches": segsums}
+    return {"launches": launches, "segment_sum_launches": segsums,
+            "ctr_launches": ctr_launches}
+
+
+# ------------------------------------------------ dist_main's CTR arms
+# ROADMAP item 12b's CTR half under a mesh, each arm held to the
+# single-device step that its ranks also run: "criteo" is phase 11's
+# DLRM-Criteo regime (dedup_lookup: the routed kernel on the replicated fat
+# stack at model 1, fat_line_update on each shard at model 2), "cache"
+# phase 23's int8 stack with the 2,097,152-row update cache (zipf ids),
+# "hot_f32" / "hot_int8" phase 24's hot/cold regime, and "column" phase
+# 3's tables column-sharded, plain, under rowwise_adagrad.  Each run's rank
+# processes take their arms in order: (backend, world, (data, model), arms).
+DIST_CTR_RUNS = (
+    ("nccl", 1, (1, 1), ("criteo", "cache", "hot_f32", "hot_int8")),
+    ("gloo", 2, (2, 1), ("criteo", "cache", "hot_f32", "hot_int8")),
+    ("gloo", 2, (1, 2), ("criteo", "cache", "hot_f32", "hot_int8", "column")),
+)
+DIST_CTR_FLUSH = 2  # the cache arm's flush cadence, in steps
+# the kernels each arm's main path must launch once a step, by model size
+DIST_CTR_KERNELS = {("criteo", 1): "fat_line_update_routed",
+                    ("criteo", 2): "fat_line_update"}
+
+
+def _ctr_arm_setup(torch, arm):
+    """``(make_coll(mesh), tables0 on the card, backbone0, host batches,
+    the alternate path)`` of a CTR arm; the alternate path ("default":
+    ``dedup_lookup`` off, f32 storage; "eager": no cache) must train the
+    main path's bits."""
+    from tdfo_tpu_torch.models.dlrm import DLRMBackbone, generic_embedding_specs
+    from tdfo_tpu_torch.models.twotower import TwoTowerBackbone, ctr_embedding_specs
+    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
+
+    size_map = dict(zip(CRITEO_CATS, CRITEO_VOCABS))
+    n = DIST_STEPS + DIST_TIMED
+    rng = np.random.default_rng(31)
+    kw = dict(stack_tables=True, fused_kind="rowwise_adagrad")
+    if arm == "column":
+        specs = ctr_embedding_specs(SIZE_MAP, DIM, "column", fused_threshold=None)
+        kw = dict(fused_kind="rowwise_adagrad")
+        host = [make_host_batch(rng, BATCH) for _ in range(n)]
+        backbone0 = TwoTowerBackbone(DIM, generator=torch.Generator().manual_seed(1))
+        alt = None
+    else:
+        backbone0 = DLRMBackbone(CRITEO_DIM, cat_columns=CRITEO_CATS,
+                                 cont_columns=CRITEO_CONTS,
+                                 generator=torch.Generator().manual_seed(1))
+        if arm == "criteo":
+            specs = generic_embedding_specs(size_map, CRITEO_CATS, CRITEO_DIM, "row",
+                                            fused_threshold=CRITEO_FUSED_MIN)
+            host = [criteo_host_batch(rng) for _ in range(n)]
+            alt = "default"
+        else:
+            dtype = torch.float32 if arm == "hot_f32" else torch.int8
+            specs = _with_dtype(generic_embedding_specs(
+                size_map, CRITEO_CATS, CRITEO_DIM, "row", fused_threshold=None), dtype)
+            host = [criteo_zipf_batch(rng) for _ in range(n)]
+            if arm == "cache":
+                kw["cache_rows"], alt = CACHE_ROWS_STACK, "eager"
+            else:
+                kw["hot_ids"] = {c: np.arange(min(HOT_VOCAB, v), dtype=np.int32)
+                                 for c, v in size_map.items()}
+                # int8 rows round with bits drawn over the dedupe's block,
+                # whose height differs between the two paths
+                alt = "default" if arm == "hot_f32" else None
+
+    def make_coll(mesh, cached=True):
+        args = dict(kw, cache_rows=kw.get("cache_rows", 0) if cached else 0)
+        return ShardedEmbeddingCollection(specs, mesh=mesh, **args)
+
+    tables0 = make_coll(None).init(0, device="cuda")
+    return make_coll, tables0, backbone0, host, alt
+
+
+def _ctr_rows(torch, coll, state, host):
+    """Each array's touched rows over the host batches (the single-device
+    row numbering), read from their owners on every rank: ``{name: (rows
+    [n, W] f32, grid steps [n] or None)}`` on the CPU (fat: the whole slot,
+    table and state; plain: the decoded row and its accumulator; int8 also
+    each row's scale), and each hot head's touched rows."""
+    from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_group
+    from tdfo_tpu_torch.ops.fat_lines import fat_view
+    from tdfo_tpu_torch.ops.quant import dequantize_rows
+    from tdfo_tpu_torch.parallel.collectives import all_gather_cat
+    from tdfo_tpu_torch.parallel.embedding import qscale_name
+
+    ids: dict = {}
+    heads: dict = {}
+    for f in coll.features():
+        aname, spec, off = coll.resolve(f)
+        hot, cold = coll.route_ids(f, torch.from_numpy(np.concatenate([h[f] for h in host])))
+        ids.setdefault(aname, []).append(cold[cold >= 0].numpy().astype(np.int64) + off)
+        if hot is not None:
+            heads.setdefault(coll.hot_array_name(spec.name), []).append(
+                hot[hot >= 0].numpy().astype(np.int64))
+    out = {}
+    for aname, parts in ids.items():
+        idx = torch.from_numpy(np.unique(np.concatenate(parts))).cuda()
+        table, take = state.tables[aname], coll.owner_gather(aname)
+        if coll.array_placement(aname) == "column":  # columns all-gathered
+            group = axis_group(coll.mesh, MODEL_AXIS)
+            take = lambda t, i, g=group: (all_gather_cat(t[i], g, dim=1)  # noqa: E731
+                                          if t.dim() == 2 else t[i])
+        if table.dim() == 3:
+            out[aname] = (take(fat_view(table, coll.fat_layout_for(aname)), idx).cpu(), None)
+            continue
+        acc = take(state.slots[aname][0], idx).reshape(idx.shape[0], -1).float()
+        step = None
+        if coll.array_is_int8(aname):
+            qs = take(state.tables[qscale_name(aname)], idx)
+            rows, step = dequantize_rows(take(table, idx), qs), qs[:, 0].cpu()
+        else:
+            rows = take(table, idx).float()
+        out[aname] = (torch.cat([rows, acc], dim=1).cpu(), step)
+    for hname, parts in heads.items():
+        idx = torch.from_numpy(np.unique(np.concatenate(parts))).cuda()
+        out[hname] = (state.tables[hname][idx].to("cpu", copy=True), None)
+    return out
+
+
+def _ctr_held(torch, what, got, want, base, bitwise):
+    """``got`` (the mesh run's :func:`_ctr_rows`) against ``want`` (the
+    single-device run's): bitwise where ``bitwise``, else f32 rows within
+    rtol 1e-4, int8 rows by the narrow-storage rule spanning the two runs'
+    grid steps (``base``: the initial rows, its control) and the hot heads
+    pooled by the head rule (``_check_heads``).  Returns a summary."""
+    from tdfo_tpu_torch.interop import TOL
+
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: arrays {sorted(got)} vs {sorted(want)}")
+    if bitwise:
+        bad = [a for a in want if not torch.equal(got[a][0], want[a][0])]
+        if bad:
+            worst = {a: float((got[a][0] - want[a][0]).abs().max()) for a in bad}
+            raise AssertionError(f"{what}: not bitwise the single-device step: {worst}")
+        return "bitwise"
+    rtol, atol = TOL["trajectory"]
+    parts, heads = [], []
+    for a, (g, step_g) in got.items():
+        c, step_c = want[a]
+        if a.endswith("__hot"):
+            heads.append((g, c, base[a][0]))
+        elif step_c is not None:
+            parts.append(_check_int8_rows(torch, a, g, c, base[a][0], step_c + step_g,
+                                          apart="the two runs' grid steps"))
+        else:
+            torch.testing.assert_close(g, c, rtol=rtol, atol=atol,
+                                       msg=lambda s_, a=a: f"{what} {a}: {s_}")
+            parts.append(f"{a}: {g.shape[0]} touched rows within rtol {rtol}")
+    if heads:
+        parts.append(_check_heads(torch, f"{len(heads)} heads",
+                                  *(torch.cat(x) for x in zip(*heads)), rtol, atol,
+                                  2 * LR * DIST_STEPS))
+    return "; ".join(parts)
+
+
+def _time_steps(torch, dist, run):
+    """``run()`` with ``torch.distributed``'s all_reduce, all_gather and
+    all_to_all_single timed by CUDA events: ``(run's result, host ms,
+    {collective: ms}, {collective: calls})``."""
+    events: list = []
+    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
+                                          "all_to_all_single")}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            out = fn(*a, **k)
+            s1.record()
+            events.append((name, s0, s1))
+            return out
+        return call
+
+    for n, fn in orig.items():
+        setattr(dist, n, timed(n, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, fn in orig.items():
+            setattr(dist, n, fn)
+    coll_ms: dict = {}
+    calls: dict = {}
+    for n, s0, s1 in events:
+        coll_ms[n] = coll_ms.get(n, 0.0) + s0.elapsed_time(s1)
+        calls[n] = calls.get(n, 0) + 1
+    return out, ms, coll_ms, calls
+
+
+def _ctr_arm(torch, dist, mesh, arm, backend) -> dict:
+    """One CTR arm on this rank: the single-device step (3 steps), the mesh
+    step (3 compared + 5 timed, the kernels' launches counted over them),
+    then the alternate path on the mesh (3 steps, bitwise the mesh step)."""
+    import copy
+
+    from tdfo_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, axis_size, data_slice
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as kr
+    from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.train.ctr import ctr_sparse_forward
+    from tdfo_tpu_torch.train.sparse_step import (
+        SparseTrainState,
+        make_cache_flush_fn,
+        make_sparse_train_step,
+    )
+    from tdfo_tpu_torch.train.trainer import _check_cache_overflow
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n_data, n_model = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
+    make_coll, tables0, backbone0, host, alt = _ctr_arm_setup(torch, arm)
+    int8 = arm in ("cache", "hot_int8")
+
+    def build(coll, dedup, device_tables):
+        backbone = copy.deepcopy(backbone0).cuda()
+        state = SparseTrainState.create(
+            backbone=backbone, tables=device_tables,
+            sparse_opt=sparse_optimizer("rowwise_adagrad", lr=LR),
+            learning_rate=LR, weight_decay=WD)
+        state.slots.update(coll.init_caches(state.tables, state.sparse_opt))
+        step = make_sparse_train_step(coll, ctr_sparse_forward(backbone),
+                                      dedup_lookup=dedup)
+        flush = make_cache_flush_fn(coll) if coll.cache_rows else None
+
+        def train(st, batches, first):
+            losses = []
+            for i, b in enumerate(batches):
+                st, loss = step(st, b)
+                losses.append(loss)
+                if flush is not None and (first + i + 1) % DIST_CTR_FLUSH == 0:
+                    st, over = flush(st)
+                    _check_cache_overflow(over, coll.mesh)
+            if flush is not None:  # the tables authoritative
+                st, over = flush(st)
+                _check_cache_overflow(over, coll.mesh)
+            return st, [float(x) for x in losses]
+
+        return state, train
+
+    dedup = arm != "column"
+    # the single-device step (the ranks' data slices are its batch)
+    one = make_coll(None)
+    ref, train = build(one, dedup, {k: v.clone() for k, v in tables0.items()})
+    ref, ref_losses = train(ref, [to_device(torch, h, "cuda") for h in host[:DIST_STEPS]], 0)
+    want = _ctr_rows(torch, one, ref, host[:DIST_STEPS])
+    base = _ctr_rows(torch, one, SparseTrainState.create(
+        backbone=copy.deepcopy(backbone0), tables=tables0,
+        sparse_opt=sparse_optimizer("rowwise_adagrad", lr=LR), learning_rate=LR,
+        weight_decay=WD), host[:DIST_STEPS])
+    del ref
+    torch.cuda.empty_cache()
+
+    rows = data_slice(mesh, BATCH)
+    batches = [{k: v[rows] for k, v in to_device(torch, h, "cuda").items()} for h in host]
+    coll = make_coll(mesh)
+
+    def mesh_tables():
+        return coll.local_arrays({k: v.clone() for k, v in tables0.items()}, {})[0]
+
+    state, train = build(coll, dedup, mesh_tables())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kl.fat_line_update.launches = kr.fat_line_update_routed.launches = 0
+    segment_sum.launches = 0
+    state, losses = train(state, batches[:DIST_STEPS], 0)
+    got = _ctr_rows(torch, coll, state, host[:DIST_STEPS])
+    bitwise = world == 1 or n_data == 1  # gspmd over model only
+    rtol, atol = TOL["trajectory"]
+    if bitwise and losses != ref_losses:
+        raise AssertionError(f"dist {arm}: losses {losses} vs {ref_losses}")
+    np.testing.assert_allclose(losses, ref_losses,
+                               rtol=BF16_LOSS_RTOL if int8 else rtol, atol=atol)
+    held = _ctr_held(torch, f"dist {arm}", got, want, base, bitwise)
+    (state, _), ms, coll_ms, calls = _time_steps(
+        torch, dist, lambda: train(state, batches[DIST_STEPS:], DIST_STEPS))
+    launches = {"fat_line_update": kl.fat_line_update.launches,
+                "fat_line_update_routed": kr.fat_line_update_routed.launches,
+                "segment_sum": segment_sum.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = DIST_STEPS + DIST_TIMED
+    kernel = DIST_CTR_KERNELS.get((arm, n_model))
+    fat_want = {k: steps if k == kernel else 0
+                for k in ("fat_line_update", "fat_line_update_routed")}
+    if {k: launches[k] for k in fat_want} != fat_want or not launches["segment_sum"]:
+        raise AssertionError(f"dist {arm}: launches in {steps} steps {launches}, "
+                             f"expected {fat_want} and segment_sum")
+    del state
+    torch.cuda.empty_cache()
+    alt_held = None
+    if alt is not None:  # the alternate path: the main path's bits
+        acoll = make_coll(mesh, cached=alt != "eager")
+        st, atrain = build(acoll, alt != "default", acoll.local_arrays(
+            {k: v.clone() for k, v in tables0.items()}, {})[0])
+        st, alosses = atrain(st, batches[:DIST_STEPS], 0)
+        if alosses != losses:
+            raise AssertionError(f"dist {arm}: {alt} losses {alosses} vs {losses}")
+        alt_held = _ctr_held(torch, f"dist {arm} {alt}", _ctr_rows(
+            torch, acoll, st, host[:DIST_STEPS]), got, None, True)
+        del st
+        torch.cuda.empty_cache()
+    rec = {"losses": losses, "held": held, "alt": alt, "alt_held": alt_held,
+           "step_ms": ms / DIST_TIMED,
+           "collective_ms": {k: v / DIST_TIMED for k, v in coll_ms.items()},
+           "collective_calls": {k: v / DIST_TIMED for k, v in calls.items()},
+           "launches": launches, "peak_gb": peak}
+    print(f"dist ctr {arm} world {world} ({backend}, mesh data {n_data} x model "
+          f"{n_model}) rank {rank}: {held} against the single-device step over "
+          f"{DIST_STEPS} steps; {alt or 'no alternate path'}"
+          f"{': bitwise' if alt_held else ''}; step_ms {rec['step_ms']:.3f}, "
+          f"collectives {rec['collective_ms']} ms a step, launches in {steps} "
+          f"steps {launches}, peak {peak:.2f} GB", flush=True)
+    del tables0, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_rank_ctr(spec: dict) -> int:
+    """One rank of ``dist_main``'s CTR arms (``DIST_CTR_RUNS``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tdfo_tpu_torch.core.config import MeshSpec
+    from tdfo_tpu_torch.core.mesh import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed("cuda", backend=spec["backend"], force=True)
+    mesh = make_mesh(MeshSpec(data=spec["mesh"][0], model=spec["mesh"][1], seq=1),
+                     "cuda")
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "arms": {arm: _ctr_arm(torch, dist, mesh, arm, spec["backend"])
+                    for arm in spec["arms"]}}
+    (Path(spec["out"]) / f"rank{dist.get_rank()}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 def _kill_tree(pid: int) -> None:
@@ -3412,12 +3782,21 @@ def _kill_tree(pid: int) -> None:
             pass
 
 
-# dist_cli's tomls: the per-table alltoall exchange, and the grouped one
-# pipelined (the next batch's id exchange in flight while one trains)
+# dist_cli's tomls: the DMP TwoTower per-table alltoall exchange and the
+# grouped one pipelined (the next batch's id exchange in flight while one
+# trains); then configs/dlrm-criteo.toml as shipped (dedup_lookup,
+# rowwise_adagrad, [mesh] data = -1, model = 1), with the update cache and
+# with hot/cold tables
 DIST_CLI_VARIANTS = {
     "alltoall": "",
     "pipelined": "[embeddings]\ngrouped_a2a = true\n[train]\npipeline_overlap = true\n",
+    "criteo": "",
+    "criteo_cache": "[embeddings]\ncache_rows = 131072\nflush_every = 4\n",
+    "criteo_hot": "[embeddings]\nhot_vocab = 64\n",
 }
+# synthetic Criteo rows of the dlrm-criteo.toml runs (its batches of 2048,
+# two epochs) and their save cadence
+DIST_CLI_CRITEO_ROWS, DIST_CLI_CRITEO_EVERY = 20_000, 5
 
 
 def _mid_checkpoint(ck: Path):
@@ -3442,30 +3821,59 @@ def phase_dist_cli(torch) -> dict:
     the second with ``grouped_a2a`` and ``pipeline_overlap``), each
     SIGKILLed (torchrun and its worker) once a mid-epoch checkpoint is
     committed, run again, and held bitwise to an uninterrupted run: every
-    tensor of the final checkpoints.  The four first runs start together,
-    then the two resumed ones."""
+    tensor of the final checkpoints.  The same for
+    ``configs/dlrm-criteo.toml`` with its ``data_dir`` set (synthetic
+    Criteo rows) and a save cadence, as shipped (``dedup_lookup``,
+    rowwise_adagrad, ``[mesh] data = -1``), with the update cache and with
+    ``hot_vocab`` (``DIST_CLI_VARIANTS``).  The first runs start together,
+    then the resumed ones."""
     from tdfo_tpu_torch import launch
-    from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+    from tdfo_tpu_torch.data.synthetic import (
+        write_synthetic_criteo,
+        write_synthetic_goodreads,
+    )
     from tdfo_tpu_torch.train.checkpoint import CheckpointManager
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         write_synthetic_goodreads(tmp / "data", n_users=DIST_CLI_USERS)
+        write_synthetic_criteo(tmp / "criteo", n_rows=DIST_CLI_CRITEO_ROWS)
         body = (f'data_dir = "{tmp / "data"}"\nmodel = "twotower"\n'
                 "model_parallel = true\nembed_dim = 16\nn_epochs = 1\n"
                 "learning_rate = 3e-4\nweight_decay = 1e-4\n"
                 "per_device_train_batch_size = 2048\nper_device_eval_batch_size = 2048\n"
                 'lookup_mode = "alltoall"\nfused_table_threshold = 0\n'
                 f"log_every_n_steps = 10\ncheckpoint_every_n_steps = {DIST_CLI_EVERY}\n")
+
+        def criteo_toml(ckpt: Path) -> str:
+            """configs/dlrm-criteo.toml with its data_dir here and a save
+            cadence (the top-level keys before its [mesh] table)."""
+            out = []
+            for line in (ROOT / "configs" / "dlrm-criteo.toml").read_text().splitlines():
+                if line.startswith("data_dir ="):
+                    line = f'data_dir = "{tmp / "criteo"}"'
+                elif line.startswith("[mesh]"):
+                    out += [f'checkpoint_dir = "{ckpt}"',
+                            f"checkpoint_every_n_steps = {DIST_CLI_CRITEO_EVERY}"]
+                out.append(line)
+            return "\n".join(out) + "\n"
+
         cfgs = {}
         for v, extra in DIST_CLI_VARIANTS.items():
             for name in ("killed", "whole"):
                 cfgs[v, name] = tmp / f"{v}_{name}.toml"
+                ck = tmp / v / name
                 cfgs[v, name].write_text(
-                    body + f'checkpoint_dir = "{tmp / v / name}"\n' + extra)
+                    (criteo_toml(ck) if v.startswith("criteo") else
+                     body + f'checkpoint_dir = "{ck}"\n') + extra)
         if launch.main(["preprocess-ctr", "--config",
                         str(cfgs["alltoall", "whole"])]) != 0:
             raise AssertionError("launch preprocess-ctr failed")
+        # the Criteo ETL under the hot toml writes hot_ids.json beside the
+        # shards every Criteo variant reads
+        if launch.main(["preprocess-criteo", "--config",
+                        str(cfgs["criteo_hot", "whole"])]) != 0:
+            raise AssertionError("launch preprocess-criteo failed")
 
         def cmd(key):
             return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
@@ -3682,9 +4090,10 @@ CACHE_ROWS, FLUSH_EVERY, CACHE_STEPS = 131_072, 64, 130  # dlrm-criteo.toml:85-1
 CACHE_ROWS_STACK = 2_097_152
 HOT_VOCAB = 16_384               # docs/BUDGET.md:102-124
 ZIPF_A = 1.2                     # bench.py::bench_cache_int8_zipf
-# criteo_int8_cli: synthetic rows (about 210 train batches of 256), the
-# save cadence and a flush interval the save falls inside
-CLI_ROWS, CLI_CKPT_EVERY, CLI_FLUSH_EVERY, CLI_HOT_VOCAB = 60_000, 5, 4, 64
+# criteo_int8_cli: synthetic rows (about 84 train batches of 256; 60,000
+# before PR 14 made room for dist_cli's Criteo tomls), the save cadence and
+# a flush interval the save falls inside
+CLI_ROWS, CLI_CKPT_EVERY, CLI_FLUSH_EVERY, CLI_HOT_VOCAB = 24_000, 5, 4, 64
 # The card-vs-CPU check of the int8 paths: both devices round the same f32
 # rows with the same random draws, so a touched code differs only where the
 # two devices' f32 rows straddle a rounding boundary; held like the bf16
@@ -3692,18 +4101,25 @@ CLI_ROWS, CLI_CKPT_EVERY, CLI_FLUSH_EVERY, CLI_HOT_VOCAB = 60_000, 5, 4, 64
 # more than one grid step (the row's scale) apart, losses within
 # BF16_LOSS_RTOL, and the initial rows, as a control, must fail the share.
 INT8_FAR_SHARE = BF16_FAR_SHARE
-# dlrm_hot_cold's int8 pass: the f32 heads' gradients run through the
-# forward of every table, so where the two devices' int8 cold rows differ
-# by a grid step a few head elements take another optimizer step.  At most
-# INT8_HEAD_SHARE of the touched head elements, pooled over the 26 heads,
-# may lie beyond rtol 1e-4, and a control with a sign-flipped update planted
-# on INT8_HEAD_PLANT of them must fail.  Readings (NVIDIA H100 80GB HBM3,
-# 700.00 W; PERF.md section 6): with the card's sums in atomics order,
-# 0.2522% and 0% in two whole runs, 0% in four runs of the phase; with
-# the sums in the CPU's order (segment_sum), 0% in three runs; the planted
-# control 1.0084%.  The limit sits above every reading, below the control.
-INT8_HEAD_SHARE = 0.003
-INT8_HEAD_PLANT = 0.01
+# The hot heads, held across devices (dlrm_hot_cold: card vs CPU) and
+# across layouts (dist_main's hot arms: a data-split mesh vs one device).
+# A head row takes thousands of a zipf batch's ids, whose gradients nearly
+# cancel in its sum; rowwise_adagrad divides each row's step by the root
+# mean square of that sum, so an ulp-level difference in the summands (two
+# devices' GEMMs, or the dense gradients all-reduced in two halves) moves a
+# few head elements by up to lr a step, and an int8 cold row a grid step
+# apart does the same through the forward.  The rule (``_check_heads``): at
+# most HEAD_SHARE of the touched head elements, pooled over the heads, may
+# lie beyond rtol 1e-4, none more than an update of the other sign (2 lr a
+# step) apart, and two controls must fail it: the initial rows and the
+# update's sign flipped on a seeded HEAD_PLANT of the elements.  Readings
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6): the int8 pass 0.2522%
+# and 0% before the card's sums took the CPU's order (PR 9), 0% in every
+# run after (PR 12); the f32 pass 0.0385% (9 of 23,360) on one other init;
+# PR 14's five-init study (``--phases hot_head_inits``) in PERF.md.  The
+# limit sits above every reading, below the planted control (1.0084%).
+HEAD_SHARE = 0.003
+HEAD_PLANT = 0.01
 
 
 def _with_dtype(specs, dtype):
@@ -3752,15 +4168,15 @@ def _check_int8_rows(torch, name, g, c, base, step, apart="one grid step"):
     return summary
 
 
-def _check_int8_heads(torch, name, g, c, base, rtol, atol, bound):
-    """f32 hot heads trained beside int8 cold rows, card ``g`` vs CPU ``c``
-    on the touched head rows of every head, pooled (the note at
-    INT8_HEAD_SHARE): at most INT8_HEAD_SHARE of the elements beyond
-    ``rtol`` / ``atol``, none more than ``bound`` apart (an update of the
-    other sign, 2 lr per step).  Two controls must fail the share: the
-    initial rows ``base`` (a head that took no update) and ``g`` with the
-    update's sign flipped on a seeded INT8_HEAD_PLANT of the elements (a
-    head updated the wrong way in a few elements)."""
+def _check_heads(torch, name, g, c, base, rtol, atol, bound):
+    """The hot heads ``g`` against ``c`` (card vs CPU, or a mesh vs one
+    device) on their touched rows, pooled (the note at HEAD_SHARE): at
+    most HEAD_SHARE of the elements beyond ``rtol`` / ``atol``, none more
+    than ``bound`` apart (an update of the other sign, 2 lr per step).  Two
+    controls must fail the share: the initial rows ``base`` (a head that
+    took no update) and ``g`` with the update's sign flipped on a seeded
+    HEAD_PLANT of the elements (a head updated the wrong way in a few
+    elements)."""
     def share_of(x):
         return float(((x - c).abs() > atol + rtol * c.abs()).double().mean())
 
@@ -3768,17 +4184,17 @@ def _check_int8_heads(torch, name, g, c, base, rtol, atol, bound):
     far = diff > atol + rtol * c.abs()
     share = float(far.double().mean())
     share0 = share_of(base)
-    plant = torch.rand(g.shape, generator=torch.Generator().manual_seed(11)) < INT8_HEAD_PLANT
+    plant = torch.rand(g.shape, generator=torch.Generator().manual_seed(11)) < HEAD_PLANT
     share_flip = share_of(torch.where(plant, 2 * base - g, g))
     summary = (f"{name}: {g.shape[0]} touched head rows: {int(far.sum())} of "
                f"{g.numel()} elements beyond rtol {rtol} ({share:.4%}, at most "
-               f"{INT8_HEAD_SHARE:.2%}; max |diff| {float(diff.max()):.3e}, at most "
+               f"{HEAD_SHARE:.2%}; max |diff| {float(diff.max()):.3e}, at most "
                f"{bound:.1e}); controls: the initial rows {share0:.4%}, the "
                f"update's sign flipped on {float(plant.double().mean()):.2%} of "
                f"the elements {share_flip:.4%}")
-    if share > INT8_HEAD_SHARE or float(diff.max()) > bound:
+    if share > HEAD_SHARE or float(diff.max()) > bound:
         raise AssertionError("card vs CPU: " + summary)
-    if min(share0, share_flip) <= INT8_HEAD_SHARE:
+    if min(share0, share_flip) <= HEAD_SHARE:
         raise AssertionError("card vs CPU: a control passes, so the check "
                              "cannot fail; " + summary)
     return summary
@@ -4164,6 +4580,71 @@ def phase_dlrm_int8_cache(torch, card: str, f32_peak_gb=None) -> dict:
             "flush_ms": flush_ms, "hit_rate": hit_rate, "peak_gb": peak}
 
 
+def _hot_cold_setup(torch, dtype, seed=0):
+    """Phase 24's collection over ``dtype`` storage, its initial tables on
+    the card (drawn from ``seed``) and the backbone (from ``seed + 1``)."""
+    from tdfo_tpu_torch.models.dlrm import DLRMBackbone, generic_embedding_specs
+    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
+
+    size_map = dict(zip(CRITEO_CATS, CRITEO_VOCABS))
+    hot = {c: np.arange(min(HOT_VOCAB, v), dtype=np.int32) for c, v in size_map.items()}
+    coll = ShardedEmbeddingCollection(
+        _with_dtype(generic_embedding_specs(size_map, CRITEO_CATS, CRITEO_DIM,
+                                            "row", fused_threshold=None), dtype),
+        stack_tables=True, fused_kind="rowwise_adagrad", hot_ids=hot)
+    tables0 = coll.init(seed, device="cuda")
+    backbone0 = DLRMBackbone(CRITEO_DIM, cat_columns=CRITEO_CATS,
+                             cont_columns=CRITEO_CONTS,
+                             generator=torch.Generator().manual_seed(seed + 1))
+    return coll, tables0, backbone0
+
+
+HOT_CFG = dict(sparse_optimizer="rowwise_adagrad", learning_rate=LR, dedup_lookup=True)
+
+
+def _hot_cold_card_vs_cpu(torch, coll, tables0, backbone0, host, dtype):
+    """``host``'s steps on the card and on the CPU from one state: ``(card
+    losses, CPU losses, {array: (card rows, CPU rows, grid steps, initial
+    rows)})`` over the touched cold rows (int8 decoded, with the CPU rows'
+    grid steps) and each head's touched rows."""
+    cfg = type("Cfg", (), HOT_CFG)
+    touched = _stack_ids(coll, [{c: np.where(h[c] < HOT_VOCAB, -1, h[c])
+                                 for c in CRITEO_CATS} for h in host])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        src = tables0 if device == "cuda" else {k: v.cpu() for k, v in tables0.items()}
+        st, stp, _ = dlrm_sparse_state(torch, coll, src, backbone0, device, cfg, False)
+        del src
+        if device == "cpu":
+            base = {a: int8_rows(torch, st, a, ids) if dtype == torch.int8
+                    else (st.tables[a][torch.from_numpy(ids)].clone(), None)
+                    for a, ids in touched.items()}
+        ls = []
+        for h in host:
+            st, loss = stp(st, to_device(torch, h, device))
+            ls.append(float(loss))
+        rows = {a: int8_rows(torch, st, a, ids) if dtype == torch.int8
+                else (st.tables[a][torch.from_numpy(ids).to(device)].cpu(), None)
+                for a, ids in touched.items()}
+        rows.update({k: (v.detach().cpu(), None) for k, v in st.tables.items()
+                     if k.endswith("__hot")})
+        runs[device] = (ls, rows)
+        del st
+        torch.cuda.empty_cache()
+    (lg, rg), (lc, rc) = runs["cuda"], runs["cpu"]
+    out = {}
+    for a in rg:
+        (g, _), (c, scale) = rg[a], rc[a]
+        if a.endswith("__hot"):  # the touched rows of the head
+            feat = a.removesuffix("_embed__hot")
+            ids = np.unique(np.concatenate([h[feat] for h in host]))
+            idx = torch.from_numpy(ids[ids < coll.hot_count(f"{feat}_embed")])
+            out[a] = (g[idx], c[idx], None, tables0[a][idx.cuda()].cpu())
+        else:
+            out[a] = (g, c, scale, base[a][0])
+    return lg, lc, out
+
+
 def phase_dlrm_hot_cold(torch, card: str, steps: int = 20, check_steps: int = 3) -> dict:
     """Phase 24: ``bench.py::build_criteo_train_bench(hot_vocab=16384)``
     (``:268-330``): every table's ``[0, min(16384, V))`` prefix a hot head
@@ -4172,31 +4653,19 @@ def phase_dlrm_hot_cold(torch, card: str, steps: int = 20, check_steps: int = 3)
     bench computes the dense half in bf16).  Once with f32 storage and once
     with the int8 cold residual: 20 steps on the card (step ms, peak
     memory, no fat-line launch), then 3 steps on the card and on the CPU
-    from one state: f32 losses, touched cold rows and heads within rtol
-    1e-4; int8 losses within BF16_LOSS_RTOL, cold rows by the grid-step
-    rule with its control, the touched head rows by ``INT8_HEAD_SHARE``
-    (``_check_int8_heads``)."""
+    from one state: f32 losses and touched cold rows within rtol 1e-4;
+    int8 losses within BF16_LOSS_RTOL, cold rows by the grid-step rule with
+    its control; the touched head rows of both by the head rule
+    (``_check_heads``, the note at HEAD_SHARE)."""
     from tdfo_tpu_torch.interop import TOL
-    from tdfo_tpu_torch.models.dlrm import DLRMBackbone, generic_embedding_specs
-    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
 
-    size_map = dict(zip(CRITEO_CATS, CRITEO_VOCABS))
-    hot = {c: np.arange(min(HOT_VOCAB, v), dtype=np.int32) for c, v in size_map.items()}
     rng = np.random.default_rng(24)
     host = [criteo_zipf_batch(rng) for _ in range(steps)]
-    cfg = type("Cfg", (), dict(sparse_optimizer="rowwise_adagrad", learning_rate=LR,
-                               dedup_lookup=True))
+    cfg = type("Cfg", (), HOT_CFG)
     out = {}
     for dtype in (torch.float32, torch.int8):
         name = str(dtype).removeprefix("torch.")
-        coll = ShardedEmbeddingCollection(
-            _with_dtype(generic_embedding_specs(size_map, CRITEO_CATS, CRITEO_DIM,
-                                                "row", fused_threshold=None), dtype),
-            stack_tables=True, fused_kind="rowwise_adagrad", hot_ids=hot)
-        tables0 = coll.init(0, device="cuda")
-        backbone0 = DLRMBackbone(CRITEO_DIM, cat_columns=CRITEO_CATS,
-                                 cont_columns=CRITEO_CONTS,
-                                 generator=torch.Generator().manual_seed(1))
+        coll, tables0, backbone0 = _hot_cold_setup(torch, dtype)
         full = sum(coll.hot_full(t) for t in coll.hot_tables())
         heads = sum(coll.hot_count(t) for t in coll.hot_tables())
         state, step, _ = dlrm_sparse_state(torch, coll, tables0, backbone0,
@@ -4218,61 +4687,94 @@ def phase_dlrm_hot_cold(torch, card: str, steps: int = 20, check_steps: int = 3)
         del state, batches, step
         torch.cuda.empty_cache()
 
-        runs = {}
-        touched = _stack_ids(coll, [{c: np.where(h[c] < HOT_VOCAB, -1, h[c])
-                                     for c in CRITEO_CATS} for h in host[:check_steps]])
-        for device in ("cuda", "cpu"):
-            src = tables0 if device == "cuda" else {k: v.cpu() for k, v in tables0.items()}
-            st, stp, _ = dlrm_sparse_state(torch, coll, src, backbone0, device, cfg, False)
-            del src
-            if device == "cpu" and dtype == torch.int8:
-                base = {a: int8_rows(torch, st, a, ids) for a, ids in touched.items()}
-            ls = []
-            for h in host[:check_steps]:
-                st, loss = stp(st, to_device(torch, h, device))
-                ls.append(float(loss))
-            rows = {a: int8_rows(torch, st, a, ids) if dtype == torch.int8
-                    else (st.tables[a][torch.from_numpy(ids).to(device)].cpu(), None)
-                    for a, ids in touched.items()}
-            rows.update({k: (v.detach().cpu(), None) for k, v in st.tables.items()
-                         if k.endswith("__hot")})
-            runs[device] = (ls, rows)
-            del st
-            torch.cuda.empty_cache()
-        (lg, rg), (lc, rc) = runs["cuda"], runs["cpu"]
+        lg, lc, rows = _hot_cold_card_vs_cpu(torch, coll, tables0, backbone0,
+                                             host[:check_steps], dtype)
         rtol, atol = TOL["trajectory"]
-        parts = []
         if dtype == torch.int8:
             np.testing.assert_allclose(lg, lc, rtol=BF16_LOSS_RTOL)
         else:
             np.testing.assert_allclose(lg, lc, rtol=rtol, atol=atol)
-        heads = []  # the int8 pass's touched head rows: (card, CPU, initial)
-        for a in rg:
-            (g, _), (c, scale) = rg[a], rc[a]
-            if scale is not None:
-                parts.append(_check_int8_rows(torch, a, g, c, base[a][0], scale))
-                continue
-            if dtype == torch.int8 and a.endswith("__hot"):
-                feat = a.removesuffix("_embed__hot")
-                ids = np.unique(np.concatenate([h[feat] for h in host[:check_steps]]))
-                rows = torch.from_numpy(ids[ids < coll.hot_count(f"{feat}_embed")])
-                heads.append((g[rows], c[rows], tables0[a][rows.cuda()].cpu()))
-                continue
-            torch.testing.assert_close(g, c, rtol=rtol, atol=atol,
-                                       msg=lambda s_, a=a: f"{a}: {s_}")
-            if not a.endswith("__hot"):
+        parts, heads = [], []
+        for a, (g, c, scale, base) in rows.items():
+            if a.endswith("__hot"):
+                heads.append((g, c, base))
+            elif scale is not None:
+                parts.append(_check_int8_rows(torch, a, g, c, base, scale))
+            else:
+                torch.testing.assert_close(g, c, rtol=rtol, atol=atol,
+                                           msg=lambda s_, a=a: f"{a}: {s_}")
                 parts.append(f"{a}: {g.shape[0]} touched cold rows within rtol {rtol}")
-        if heads:
-            parts.append(_check_int8_heads(
-                torch, f"{len(heads)} heads", *(torch.cat(x) for x in zip(*heads)),
-                rtol, atol, 2 * LR * check_steps))
-        else:
-            parts.append(f"{sum(a.endswith('__hot') for a in rg)} heads within rtol {rtol}")
+        parts.append(_check_heads(
+            torch, f"{len(heads)} heads", *(torch.cat(x) for x in zip(*heads)),
+            rtol, atol, 2 * LR * check_steps))
         say(f"dlrm_hot_cold[{name}]: card vs CPU over {check_steps} steps: losses "
             f"{lg} vs {lc}; " + "; ".join(parts))
         out[name] = {"step_ms": step_ms, "peak_gb": peak_gb}
         del tables0
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_hot_head_inits(torch, card: str, seeds=(0, 1, 2, 3, 4),
+                         check_steps: int = 3) -> dict:
+    """Optional (``--phases hot_head_inits``): phase 24's f32 card-vs-CPU
+    check of the hot heads at several inits (tables and backbone drawn from
+    each seed, the batches phase 24's), each held by the head rule; and
+    where the differences come from: the first head step (the dense
+    ``[K, D]`` step, ``SparseOptimizer.dense_update``) replayed on the card
+    and on the CPU from the CPU run's own inputs (the head, its
+    accumulator, positions and gradients): bitwise there means the step's
+    sums are not the cause and the heads' differences come in with their
+    gradients (the backbone's GEMMs on two devices)."""
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.ops.sparse import SparseOptimizer
+
+    rng = np.random.default_rng(24)
+    host = [criteo_zipf_batch(rng) for _ in range(check_steps)]
+    rtol, atol = TOL["trajectory"]
+    seen: list = []
+    orig = SparseOptimizer.dense_update
+
+    def record(self, table, slots, ids, grads, **kw):
+        if table.device.type == "cpu" and not seen:
+            seen.append((self, table.clone(), [x.clone() for x in slots],
+                         ids.clone(), grads.clone(), kw))
+        return orig(self, table, slots, ids, grads, **kw)
+
+    out = {}
+    for seed in seeds:
+        coll, tables0, backbone0 = _hot_cold_setup(torch, torch.float32, seed)
+        seen.clear()
+        SparseOptimizer.dense_update = record
+        try:
+            lg, lc, rows = _hot_cold_card_vs_cpu(torch, coll, tables0, backbone0,
+                                                 host, torch.float32)
+        finally:
+            SparseOptimizer.dense_update = orig
+        heads = [(g, c, b) for a, (g, c, _, b) in rows.items() if a.endswith("__hot")]
+        g, c, b = (torch.cat(x) for x in zip(*heads))
+        diff = (g - c).abs()
+        far = diff > atol + rtol * c.abs()
+        # the head step replayed on the card and the CPU from the same inputs
+        opt, table, slots, ids, grads, kw = seen[0]
+        replay = {}
+        for device in ("cuda", "cpu"):
+            t, sl = table.to(device, copy=True), [x.to(device, copy=True) for x in slots]
+            opt.dense_update(t, sl, ids.to(device), grads.to(device), **kw)
+            replay[device] = torch.cat([t.cpu(), *(x.cpu().reshape(t.shape[0], -1)
+                                                   for x in sl)], dim=1)
+        step_diff = float((replay["cuda"] - replay["cpu"]).abs().max())
+        rule = _check_heads(torch, f"seed {seed}: {len(heads)} heads", g, c, b, rtol,
+                            atol, 2 * LR * check_steps)
+        out[seed] = {"beyond": int(far.sum()), "elements": g.numel(),
+                     "share": float(far.double().mean()), "max_diff": float(diff.max()),
+                     "head_step_bitwise": step_diff == 0.0, "head_step_max_diff": step_diff}
+        say(f"hot_head_inits: seed {seed}: losses {lg} vs {lc}; {rule}; the first "
+            f"head step replayed from the CPU's inputs: card vs CPU "
+            f"{'bitwise' if step_diff == 0.0 else f'max |diff| {step_diff:.3e}'}")
+        del tables0
+        torch.cuda.empty_cache()
+    say(f"hot_head_inits: {json.dumps(out)}; on {card}")
     return out
 
 
@@ -4798,13 +5300,14 @@ def phase_serve_cli(torch) -> dict:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dist-rank"]:  # one rank of dist_main (its own process)
-        return dist_rank_main(json.loads(argv[1]))
+        spec = json.loads(argv[1])
+        return (dist_rank_ctr if "arms" in spec else dist_rank_main)(spec)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                    help="comma-separated subset of " + ",".join(DEFAULT_PHASES)
                         + ",profile,profile_b4r,profile_dlrm,profile_bf16,"
-                        "profile_dlrm_bf16,profile_dense (default: all but "
-                        "the profiles)")
+                        "profile_dlrm_bf16,profile_dense,hot_head_inits "
+                        "(default: all but these last seven)")
     args = p.parse_args(argv)
     phases = set(args.phases.split(","))
     import torch
@@ -4944,6 +5447,8 @@ def main(argv=None) -> int:
         run("dlrm_int8_cache", phase_dlrm_int8_cache, torch, smi, dlrm_peak)
     if "dlrm_hot_cold" in phases:
         run("dlrm_hot_cold", phase_dlrm_hot_cold, torch, smi)
+    if "hot_head_inits" in phases:
+        run("hot_head_inits", phase_hot_head_inits, torch, smi)
     if "criteo_int8_cli" in phases:
         run("criteo_int8_cli", phase_criteo_int8_cli, torch)
     if "serve_main" in phases:
@@ -4956,6 +5461,10 @@ def main(argv=None) -> int:
         r = run("dist_main", phase_dist_main, torch, smi)
         fat["launches_sharded"] = r["launches"]
         recs["segment_sum"]["launches_sharded"] = r["segment_sum_launches"]
+        for rec, name in ((fat, "fat_line_update"), (routed, "fat_line_update_routed"),
+                          (recs["segment_sum"], "segment_sum")):
+            rec["launches_ctr_arms"] = {k: [x[name] for x in v]
+                                        for k, v in r["ctr_launches"].items()}
     if "dist_cli" in phases:
         run("dist_cli", phase_dist_cli, torch)
     if "profile" in phases:

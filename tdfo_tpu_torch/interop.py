@@ -182,4 +182,5 @@ def gather_to_numpy(coll, tables, slots=None):
     layout, gathered over ``coll``'s model axis (every rank calls this)."""
     gt, gs = coll.global_arrays(tables, slots or {})
     return ({k: to_numpy(v) for k, v in gt.items()},
-            {k: type(v)(to_numpy(x) for x in v) for k, v in gs.items()})
+            {k: ({c: to_numpy(x) for c, x in v.items()} if isinstance(v, dict)
+                 else type(v)(to_numpy(x) for x in v)) for k, v in gs.items()})

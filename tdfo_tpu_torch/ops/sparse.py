@@ -51,11 +51,14 @@ The update cache (:meth:`SparseOptimizer.cache_init` ..
 :meth:`SparseOptimizer.cache_flush`) keeps the touched rows of a plain
 table (and their optimizer state) in a small device-resident directory
 between flushes; the cached math is the ``sparse_*`` math, so a cached
-run's flushed tables equal the uncached run's bit for bit.  The
-reference's replicated ``shard_map`` around the cache math serves meshes
-and is not needed on one device; its ``counters.emit`` diagnostics belong
-to the observability layer (``ROADMAP.md`` Queue A item 16) and are left
-out.
+run's flushed tables equal the uncached run's bit for bit.  Under a
+device mesh every rank holds the same cache and runs its math on the same
+global ids and grads (the reference's replicated ``shard_map``): only the
+admission's gathers of a sharded table read across ranks (``gather``,
+each row from its owner) and only the flush's write-back is per rank
+(``owned``, each row into the shard that owns it).  The reference's
+``counters.emit`` diagnostics belong to the observability layer
+(``ROADMAP.md`` Queue A item 16) and are left out.
 """
 
 from __future__ import annotations
@@ -256,14 +259,22 @@ def sparse_adam(table, mu, nu, count, uids, g, valid, *, lr, b1=0.9,
     return out if qscale is None else out + (qscale,)
 
 
+def _row_sq_mean(g):
+    """Each row's mean of squares: rowwise_adagrad's accumulator step."""
+    return torch.mean(g * g, dim=-1)
+
+
 def sparse_rowwise_adagrad(table, accum, uids, g, valid, *, lr, eps=1e-10,
-                           weight_decay=0.0, sr_key=None, qscale=None):
+                           weight_decay=0.0, sr_key=None, qscale=None,
+                           row_sq_mean=_row_sq_mean):
     """fbgemm EXACT_ROWWISE_ADAGRAD parity: ONE f32 accumulator per row
-    (mean of squared grads; never narrowed).  ``+ (qscale,)`` for int8."""
+    (mean of squared grads; never narrowed).  ``row_sq_mean(g) -> [C]``
+    takes that mean over the whole row (a column shard, which holds part
+    of it, passes one that gathers the rest).  ``+ (qscale,)`` for int8."""
     rows = _gather_rows(table, uids, valid, qscale)
     acc_r = _gather_rows(accum, uids, valid)
     g = g.to(torch.float32) + weight_decay * rows
-    acc_n = acc_r + torch.mean(g * g, dim=-1)
+    acc_n = acc_r + row_sq_mean(g)
     delta = lr * g / (torch.sqrt(acc_n)[:, None] + eps)
     _scatter_rows(table, uids, valid, rows - delta, component_key(sr_key, 0),
                   qscale)
@@ -415,6 +426,12 @@ def cache_overlay_rows(cache, ids, rows):
     possibly stale table) with the cache's authoritative value."""
     cur, hit = cache_lookup_rows(cache, ids)
     return torch.where(hit[..., None], cur.to(rows.dtype), rows)
+
+
+def _clamped_rows(t, rows):
+    """``t[rows]`` with rows past the end clamped to the last (the
+    admission's local gather)."""
+    return t[torch.clamp(rows, max=t.shape[0] - 1)]
 
 
 def _cache_mirror_keys(kind):
@@ -805,13 +822,15 @@ class SparseOptimizer:
 
     def update_unique(self, table, slots, uids, g, valid, *,
                       embedding_dim: int | None = None, sr_key=None,
-                      qscale=None):
+                      qscale=None, row_sq_mean=_row_sq_mean):
         """Tier dispatch on PRE-deduplicated ``(uids, g, valid)`` (the
         dedup-lookup step's path): fat lines take :func:`fat_apply_unique`,
         plain tables ``sparse_*`` (the small-vocab dense tier needs raw ids
         and is bypassed; ``sparse_adam`` has its semantics).  Plain int8
         tables pass their sidecar as ``qscale`` and get ``(table, slots,
-        qscale)`` back; int8 fat lines carry it in-line."""
+        qscale)`` back; int8 fat lines carry it in-line.  ``row_sq_mean``:
+        rowwise_adagrad's per-row mean of squares (a column shard's covers
+        the whole row)."""
         if table.dim() == 3:
             if qscale is not None:
                 raise ValueError(_INLINE_QSCALE)
@@ -832,7 +851,7 @@ class SparseOptimizer:
             return (table, slots, *tail)
         if self.kind == "rowwise_adagrad":
             sparse_rowwise_adagrad(table, slots[0], uids, g, valid,
-                                   eps=self.eps, **kw)
+                                   eps=self.eps, row_sq_mean=row_sq_mean, **kw)
             return (table, slots, *tail)
         mu, nu, count = slots
         sparse_adam(table, mu, nu, count, uids, g, valid, b1=self.b1,
@@ -895,7 +914,7 @@ class SparseOptimizer:
         return cache
 
     def cache_update_unique(self, cache, table, slots, uids, g, valid, *,
-                            step, sr_key=None, qscale=None):
+                            step, sr_key=None, qscale=None, gather=None):
         """Cached step on PRE-deduplicated ``(uids, g, valid)``: admit the
         misses (gathers of the table, its sidecar and slot rows only), then
         the ``sparse_*`` math on the cached rows and mirrors, written into
@@ -903,13 +922,16 @@ class SparseOptimizer:
         step count advances in place).  int8: admission copies codes and
         grid, the math decodes through the cached grid and every write
         re-grids the new rows with the plain path's block and key.
-        Returns ``(cache, slots)``."""
+        ``gather(t, rows)``: rows of the table, its sidecar or a slot
+        (clamped into the table; default a local gather; a row-sharded
+        table's reads each row from its owner).  Returns ``(cache,
+        slots)``."""
         valid = valid.to(torch.bool)
-        gid = torch.clamp(torch.where(valid, uids.to(torch.int64), 0),
-                          max=table.shape[0] - 1)
-        urows = table[gid]
-        uqs = None if qscale is None else qscale[gid]
-        uslot = {key: slots[_cache_slot_index(key, self.kind)][gid]
+        gid = torch.where(valid, uids.to(torch.int64), 0)
+        take = gather or _clamped_rows
+        urows = take(table, gid)
+        uqs = None if qscale is None else take(qscale, gid)
+        uslot = {key: take(slots[_cache_slot_index(key, self.kind)], gid)
                  for key in _cache_mirror_keys(self.kind)}
         count = slots[2] if self.kind == "adam" else None
         cache = self._cache_math(cache, uids, g, valid, urows, uslot, step,
@@ -987,31 +1009,40 @@ class SparseOptimizer:
     def cache_update(self, cache, table, slots, ids, grads, *, step,
                      capacity: int | None = None,
                      max_distinct: int | None = None, sr_key=None,
-                     qscale=None):
+                     qscale=None, gather=None, vocab_rows: int | None = None):
         """Cached analogue of :meth:`update` for plain 2D tables: the same
-        :func:`dedupe_grads`, then :meth:`cache_update_unique`.  Returns
-        ``(cache, slots)``."""
+        :func:`dedupe_grads` (``vocab_rows``: the rows of the whole table
+        when ``table`` is a shard), then :meth:`cache_update_unique`.
+        Returns ``(cache, slots)``."""
         uids, g, valid = dedupe_grads(
             ids.reshape(-1), grads.reshape(-1, grads.shape[-1]),
-            capacity=capacity, vocab=table.shape[0],
+            capacity=capacity, vocab=vocab_rows or table.shape[0],
             max_distinct=max_distinct)
         return self.cache_update_unique(cache, table, slots, uids, g, valid,
                                         step=step, sr_key=sr_key,
-                                        qscale=qscale)
+                                        qscale=qscale, gather=gather)
 
-    def cache_flush(self, cache, table, slots, qscale=None):
+    def cache_flush(self, cache, table, slots, qscale=None, owned=None):
         """Write every dirty cached row and its mirrors back into the table
         (a bit-copy, in place), then keep the hottest ``C // 2`` entries by
         (frequency, recency, id), halve their frequencies and free the
-        rest.  Returns ``(cache, table, slots, overflow)``, with ``qscale``
-        before ``overflow`` for an int8 table; ``overflow`` is the
-        interval's admission-overflow count, which must be 0."""
+        rest.  ``owned(rows) -> (local rows, mine)``: where a table shard
+        holds each row (default: all of them, in place), so each row is
+        written into its owner only.  Returns ``(cache, table, slots,
+        overflow)``, with ``qscale`` before ``overflow`` for an int8 table;
+        ``overflow`` is the interval's admission-overflow count, which must
+        be 0."""
         c = cache["ids"].shape[0]
         cids = cache["ids"].to(torch.int64)
         cslot = cache["slot"].to(torch.int64)
         used = cids < _CACHE_OOB
         dirty_dir = cache["dirty"][cslot] & used
-        tgt, src = cids[dirty_dir], cslot[dirty_dir]
+        if owned is not None:
+            local, mine = owned(cids)
+            dirty_dir = dirty_dir & mine
+            tgt, src = local[dirty_dir], cslot[dirty_dir]
+        else:
+            tgt, src = cids[dirty_dir], cslot[dirty_dir]
         table.index_copy_(0, tgt, cache["rows"][src])
         if qscale is not None:
             qscale.index_copy_(0, tgt, cache["qs"][src])
@@ -1047,12 +1078,14 @@ class SparseOptimizer:
     def update(self, table, slots, ids, grads, *,
                embedding_dim: int | None = None,
                capacity: int | None = None, max_distinct: int | None = None,
-               sr_key=None, qscale=None, vocab_rows: int | None = None):
+               sr_key=None, qscale=None, vocab_rows: int | None = None,
+               row_sq_mean=_row_sq_mean):
         """One row-sparse step on ``table`` (in place): fat lines through
         :func:`fat_update`, small plain adam tables (``vocab_rows``, the
         global rows of a sharded table, else its own, at most
         ``small_vocab_threshold``) through the dense tier, the rest through
-        :func:`dedupe_grads` and :meth:`update_unique`."""
+        :func:`dedupe_grads` and :meth:`update_unique` (``row_sq_mean``:
+        see there)."""
         rows = table.shape[0] if vocab_rows is None else vocab_rows
         if table.dim() == 3:
             if qscale is not None:
@@ -1079,7 +1112,7 @@ class SparseOptimizer:
             capacity=capacity, vocab=table.shape[0], max_distinct=max_distinct)
         return self.update_unique(table, slots, uids, g, valid,
                                   embedding_dim=embedding_dim, sr_key=sr_key,
-                                  qscale=qscale)
+                                  qscale=qscale, row_sq_mean=row_sq_mean)
 
 
 _INLINE_QSCALE = ("fat-line int8 tables carry their (scale, offset) sidecar "

@@ -75,11 +75,21 @@ it, :meth:`grouped_lookup`), and one id plus one grad ``all_to_all`` for
 the update (:meth:`grouped_update`): O(1) collectives per direction, not
 O(tables).  Replicated tables take the per-feature path beside it.
 
-Not ported yet (``ROADMAP.md`` Queue A item 12b): hot/cold tables and the
-update cache under a mesh.  Refused, not ignored.  As in the reference,
-bf16 and int8 fused tables under ``rowwise_adagrad`` refuse: a fat line
-holds the table and its optimizer state together, and the per-row
-accumulator is f32 by contract.
+Hot heads and update caches under a mesh are replicated: every rank
+holds the same ones (the reference pins them ``P()``).  ``init`` gathers
+each head from the cold rows it replaces, each row from the rank that owns
+it (:meth:`owner_gather`: the owner's bits, the other ranks adding -0.0,
+the identity of IEEE addition); the cold side of a hot/cold lookup runs
+the ``gspmd`` program.  The cache's admission reads a row-sharded table
+the same way, and its flush writes each row into its owner only
+(:meth:`owned_rows`).  A column shard under ``rowwise_adagrad`` keeps the
+whole ``[V]`` accumulator, the same on every rank: its update all-gathers
+the ``[C, d / M]`` grad blocks and takes each row's mean of squares over
+the whole row, as one device does.  The update cache over column-sharded
+tables under a mesh is not ported (``ROADMAP.md`` Queue A item 12b) and
+refuses.  As in the reference, bf16 and int8 fused tables under
+``rowwise_adagrad`` refuse: a fat line holds the table and its optimizer
+state together, and the per-row accumulator is f32 by contract.
 
 ``init`` draws from a ``torch.Generator`` (the reference uses
 ``jax.random``, so same-seed tables differ between the packages; the
@@ -109,6 +119,7 @@ from tdfo_tpu_torch.ops.fat_lines import (
     fat_pack,
     line_layout,
 )
+from tdfo_tpu_torch.ops.kernels.fat_line_update import SENTINEL
 from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
 from tdfo_tpu_torch.ops import threefry
 from tdfo_tpu_torch.ops.quant import (
@@ -326,15 +337,12 @@ class ShardedEmbeddingCollection:
         self.a2a_capacity_factor = a2a_capacity_factor
         self.grouped_a2a = grouped_a2a
         self._grouped_plans: dict[tuple[str, ...], tuple[_A2AGroup, ...]] = {}
-        if mesh is not None:
-            unported = [what for what, bad in (
-                ("the update cache (cache_rows > 0)", cache_rows > 0),
-                ("hot/cold tables", bool(hot_ids)),
-            ) if bad]
-            if unported:
-                raise NotImplementedError(
-                    f"{unported[0]} under a device mesh is not ported to "
-                    "tdfo_tpu_torch yet (ROADMAP.md Queue A item 12b)")
+        if (cache_rows > 0 and self.n_shards > 1
+                and any(s.sharding == "column" for s in specs)):
+            raise NotImplementedError(
+                "the update cache (cache_rows > 0) over column-sharded "
+                "tables under a device mesh is not ported to tdfo_tpu_torch "
+                "yet (ROADMAP.md Queue A item 12b)")
         self.cache_rows = cache_rows
         self.fused_kind = fused_kind
         self.specs = {s.name: s for s in specs}
@@ -353,11 +361,6 @@ class ShardedEmbeddingCollection:
                 raise ValueError(
                     f"table {s.name!r}: int8 storage supports row/"
                     "replicated/table sharding, not 'column'")
-            if s.sharding == "column" and fused_kind == "rowwise_adagrad":
-                raise NotImplementedError(
-                    f"table {s.name!r}: column sharding under rowwise_adagrad "
-                    "(a per-row accumulator over split columns) is not ported "
-                    "to tdfo_tpu_torch yet (ROADMAP.md Queue A item 12b)")
             dt = storage_dtype(s.dtype)  # float32, bfloat16 or int8
             if (s.fused and dt == torch.bfloat16
                     and fused_kind == "rowwise_adagrad"):
@@ -576,7 +579,7 @@ class ShardedEmbeddingCollection:
             kind = self._stacks[array_name][0]
         elif array_name in self.specs:
             kind = self.specs[array_name].sharding
-        else:  # hot heads (refused under a mesh)
+        else:  # hot heads
             return "replicated"
         return {"table": "row"}.get(kind, kind)
 
@@ -613,6 +616,51 @@ class ShardedEmbeddingCollection:
 
     def _model_group(self):
         return axis_group(self.mesh, MODEL_AXIS)
+
+    def split_rows(self, array_name: str) -> int | None:
+        """Rows per shard of an array whose rows split over more than one
+        model rank; None when every rank holds all its rows."""
+        if self.n_shards == 1 or self.array_placement(array_name) != "row":
+            return None
+        return self.rows_per_shard(array_name)
+
+    def owner_gather(self, array_name: str):
+        """``take(t, rows) -> t[rows]`` on every rank, for ``t`` the array
+        ``array_name`` (this rank's shard of it), its int8 sidecar or a
+        row-aligned slot, and ``rows`` global array rows (clamped into the
+        array).  Where the rows split over the model axis each rank gathers
+        the rows it owns and adds -0.0 (0 for integer storage) for the
+        others: one sum over the axis then gives every rank the owner's
+        bits (x + -0.0 == x for every float x, -0.0 and NaN included)."""
+        rps = self.split_rows(array_name)
+        if rps is None:
+            return lambda t, rows: t[torch.clamp(rows, 0, t.shape[0] - 1)]
+        v, k, group = rps * self.n_shards, self.shard, self._model_group()
+
+        def take(t, rows):
+            local = torch.clamp(rows, 0, v - 1) - k * rps
+            mine = (local >= 0) & (local < rps)
+            got = t[torch.clamp(local, 0, rps - 1)]
+            fill = -0.0 if got.is_floating_point() else 0
+            mine = mine.reshape(mine.shape + (1,) * (got.dim() - mine.dim()))
+            return all_reduce_(torch.where(mine, got, fill), group)
+
+        return take
+
+    def owned_rows(self, array_name: str):
+        """``owned(rows) -> (local rows, mine)``: where this rank's shard
+        holds each global row of ``array_name`` (the update cache's flush
+        writes only those); None when every rank holds all its rows."""
+        rps = self.split_rows(array_name)
+        if rps is None:
+            return None
+        k = self.shard
+
+        def owned(rows):
+            local = rows - k * rps
+            return local, (local >= 0) & (local < rps)
+
+        return owned
 
     def init(self, seed: int = 0, *, device="cuda") -> dict[str, torch.Tensor]:
         """Create all tables on ``device`` (default the card; ``"cpu"`` must
@@ -687,14 +735,16 @@ class ShardedEmbeddingCollection:
         # hot heads: a gather of the initialised cold rows (at the table's
         # dtype; int8 decodes to an f32 head), so a hot/cold run starts
         # from the unsplit run's tables; the cold copies of hot rows are
-        # never read or updated again
+        # never read or updated again.  Under a mesh each head is
+        # replicated, every row read from the rank that owns it
         for tname in sorted(self.hot_ids):
             aname, _, off = self.resolve_table(tname)
             idx = torch.from_numpy(self.hot_ids[tname].astype(np.int64) + off
                                    ).to(device)
-            hot = tables[aname][idx]
+            take = self.owner_gather(aname)
+            hot = take(tables[aname], idx)
             if self.array_is_int8(aname):
-                hot = dequantize_rows(hot, tables[qscale_name(aname)][idx])
+                hot = dequantize_rows(hot, take(tables[qscale_name(aname)], idx))
             tables[self.hot_array_name(tname)] = hot
         return tables
 
@@ -716,7 +766,8 @@ class ShardedEmbeddingCollection:
             t = tables[aname]
             if t.dim() != 2 or aname in hot_heads:
                 continue
-            if (opt.kind == "adam" and t.shape[0] <= opt.small_vocab_threshold
+            if (opt.kind == "adam"
+                    and self.array_rows(aname) <= opt.small_vocab_threshold
                     and not self.array_is_int8(aname)):
                 continue
             out.append(aname)
@@ -725,7 +776,8 @@ class ShardedEmbeddingCollection:
     def init_caches(self, tables, opt) -> dict[str, dict]:
         """Empty update caches for every cached array, keyed
         ``CACHE_PREFIX + array name`` (the trainer merges them into the
-        slots, so checkpoints and rollback snapshots carry them)."""
+        slots, so checkpoints and rollback snapshots carry them).  Under a
+        mesh each rank builds the same cache: caches are replicated."""
         return {CACHE_PREFIX + a: opt.cache_init(tables[a], self.cache_rows)
                 for a in self.cached_array_names(opt, tables)}
 
@@ -930,7 +982,8 @@ class ShardedEmbeddingCollection:
     def _lookup_hotcold(self, tables, feat: str, ids: torch.Tensor):
         """Routed lookup of a hot/cold table: the head's row at hot hits,
         the cold array's elsewhere (a fully hot table has no cold side:
-        padding ids read head row 0)."""
+        padding ids read head row 0).  A cold array whose rows split over
+        the model axis runs the ``gspmd`` program."""
         tname = self._feature_to_table[feat]
         hot_pos, cold_ids = self.route_ids(feat, ids)
         hot = tables[self.hot_array_name(tname)]
@@ -939,7 +992,10 @@ class ShardedEmbeddingCollection:
             return hot_vec
         aname, spec, offset = self.resolve(feat)
         cidx = torch.where(cold_ids >= 0, cold_ids.to(torch.int64) + offset, 0)
-        cold_vec = self._gather(tables, aname, spec, cidx)
+        if self.split_rows(aname) is None:
+            cold_vec = self._gather(tables, aname, spec, cidx)
+        else:
+            cold_vec = self._lookup_psum(tables, aname, spec, cidx, fill=True)
         return torch.where((hot_pos >= 0)[..., None], hot_vec.to(cold_vec.dtype),
                            cold_vec)
 
@@ -1219,13 +1275,40 @@ class ShardedEmbeddingCollection:
             w = d // self.n_shards
             return opt.update(table, slots, ids,
                               grads[:, self.shard * w:(self.shard + 1) * w],
-                              embedding_dim=w, sr_key=sr_key, **kw)
+                              embedding_dim=w, sr_key=sr_key,
+                              row_sq_mean=self._whole_row_sq_mean, **kw)
         rps = self.rows_per_shard(array_name)
         local = ids - self.shard * rps
         mine = (local >= 0) & (local < rps)
         return opt.update(table, slots, torch.where(mine, local, -1),
                           torch.where(mine[:, None], grads, 0.0),
                           embedding_dim=d, sr_key=sr_key, **kw)
+
+    def _whole_row_sq_mean(self, g):
+        """rowwise_adagrad's per-row mean of squares for a column shard's
+        ``g [C, d / M]``: the model axis's blocks all-gathered in column
+        order, then one mean over the whole row, so every rank adds the
+        single-device value to its copy of the ``[V]`` accumulator."""
+        full = all_gather_cat(g, self._model_group(), dim=-1)
+        return torch.mean(full * full, dim=-1)
+
+    def update_unique(self, opt, array_name: str, table, slots, uids, g,
+                      valid, sr_key=None, qscale=None):
+        """The dedup-lookup step's update of one array from the GLOBAL
+        batch's distinct rows ``(uids, g, valid)`` (``opt.update_unique``,
+        in place).  Where the rows split over the model axis a rank keeps
+        the distinct rows it owns, rebased by ``k R``, the others becoming
+        invalid sentinels: the ``[C, d]`` block and the rounding key stay
+        the single-device ones, so each owned row gets the single-device
+        row's bits.  Column shards take :meth:`sparse_update`."""
+        rps = self.split_rows(array_name)
+        if rps is not None:
+            local = uids.to(torch.int64) - self.shard * rps
+            valid = valid & (local >= 0) & (local < rps)
+            uids = torch.where(valid, local, SENTINEL).to(uids.dtype)
+        return opt.update_unique(table, slots, uids, g, valid,
+                                 embedding_dim=self.array_embedding_dim(array_name),
+                                 sr_key=sr_key, qscale=qscale)
 
     # ---------------------------------------------------------- checkpoint
 
@@ -1235,7 +1318,8 @@ class ShardedEmbeddingCollection:
         if t.dim() == 0 or t.shape[0] != table.shape[0]:
             return "replicated"
         place = self.array_placement(array_name)
-        return "row" if place == "column" and t.dim() == 1 else place
+        # a column shard's rowwise accumulator is whole on every rank
+        return "replicated" if place == "column" and t.dim() == 1 else place
 
     def _global_shape(self, array_name: str, t, place: str) -> tuple:
         """The single-device layout's shape of this rank's array ``t``."""
@@ -1258,10 +1342,13 @@ class ShardedEmbeddingCollection:
 
     def _each_array(self, tables, slots, fn):
         """``fn(array name, tensor, placement)`` over every table and slot
-        tensor, in one order on every rank."""
+        tensor, in one order on every rank (an update cache, a dict of
+        tensors, is replicated)."""
         gt = {n: fn(n, t, self.array_placement(n)) for n, t in tables.items()}
-        gs = {n: type(sl)(fn(n, t, self._slot_placement(n, tables[n], t))
-                          for t in sl)
+        gs = {n: ({k: fn(n, t, "replicated") for k, t in sl.items()}
+                  if isinstance(sl, dict) else
+                  type(sl)(fn(n, t, self._slot_placement(n, tables[n], t))
+                           for t in sl))
               for n, sl in slots.items()}
         return gt, gs
 
@@ -1319,14 +1406,10 @@ class ShardedEmbeddingCollection:
         if self.mesh is None:
             return dict(tables), dict(slots)
 
-        def local_like(n, t, full_table):
-            if t.dim() == 0 or t.shape[0] != full_table.shape[0]:
-                return t
-            place = self.array_placement(n)
-            place = "row" if place == "column" and t.dim() == 1 else place
-            return self._shard_one(n, t, place)
-
-        lt = {n: local_like(n, t, t) for n, t in tables.items()}
-        ls = {n: type(sl)(local_like(n, t, tables[n]) for t in sl)
+        lt = {n: self._shard_one(n, t, self.array_placement(n))
+              for n, t in tables.items()}
+        ls = {n: (dict(sl) if isinstance(sl, dict) else type(sl)(
+                  self._shard_one(n, t, self._slot_placement(n, tables[n], t))
+                  for t in sl))
               for n, sl in slots.items()}
         return lt, ls

@@ -66,8 +66,24 @@ arrays' stochastic-rounding keys derive from ``sr_key(step,
 the per-array path beside it.  :func:`make_pipelined_sparse_train_step`
 (torchrec ``TrainPipelineSparseDist``) issues the next batch's id
 exchange, asynchronously, before it trains the carried batch.
-``dedup_lookup`` under a mesh is not ported yet (``ROADMAP.md`` Queue A
-item 12b).
+
+``dedup_lookup``, hot/cold tables and the update cache under a mesh
+(``gspmd`` only, as in the reference): the batch group's ids are gathered
+in global batch order before the forward, so every rank dedupes the global
+batch as one device does.  Where a table's rows are whole on every rank
+(model 1, the Criteo recipe's data-parallel layout) the compact gather and
+the update are the single-device ones, the routed fat-line kernel on the
+replicated stack included; where they split over model ranks each rank
+gathers the distinct rows it owns and one sum over the model axis
+assembles them, a fat stack then taking the default sharded update
+(``fat_line_update`` on each rank's lines) and a plain one the shared
+dedupe restricted to its own rows (``coll.update_unique``).  Each rank
+expands its own positions.  Column-sharded tables keep the default lookup
+and update, as in the reference.  The hot heads and the caches are
+replicated: every rank runs the head step and the cache math on the global
+batch's head positions, ids and grads, so every copy stays the same; the
+cache's admission reads each row of a sharded table from its owner and its
+flush writes each row into its owner only.
 """
 
 from __future__ import annotations
@@ -124,6 +140,9 @@ class BatchGroup:
         self.model_split = (mesh is not None and mode == "alltoall")
         self.m = axis_size(mesh, MODEL_AXIS) if self.model_split else 1
         self.size = axis_size(mesh, DATA_AXIS) * self.m
+        # this rank's place in the group's batch order (data-major)
+        self.index = (axis_index(mesh, DATA_AXIS) * self.m
+                      + (axis_index(mesh, MODEL_AXIS) if self.model_split else 0))
         if self.size == 1:
             self.group = None
         elif not self.model_split:
@@ -298,14 +317,16 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
         raise ValueError(f"unknown lookup mode {mode!r}")
     if dedup_lookup and mode != "gspmd":
         raise ValueError("dedup_lookup composes with lookup mode 'gspmd' only")
-    if dedup_lookup and coll.mesh is not None:
-        raise NotImplementedError(
-            "dedup_lookup under a device mesh is not ported to tdfo_tpu_torch "
-            "yet (ROADMAP.md Queue A item 12b)")
+    if coll.cache_rows > 0 and mode != "gspmd":
+        raise ValueError(
+            "the update cache (cache_rows > 0) composes with lookup mode "
+            "'gspmd' only")
     bg = BatchGroup(coll.mesh, mode)
     features = list(coll.features())
     takes_gen = "generator" in inspect.signature(forward).parameters
     hot_tables = coll.hot_tables()
+    if hot_tables and mode != "gspmd":
+        raise ValueError("hot/cold tables compose with lookup mode 'gspmd' only")
     feat_table = {f: coll.resolve(f)[1].name for f in features}
     hot_by_table = {t: [f for f in features if feat_table[f] == t]
                     for t in hot_tables}
@@ -323,6 +344,12 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
     for f in rest_feats:
         if f not in full_hot_feats:
             by_table.setdefault(coll.resolve(f)[0], []).append(f)
+    # the per-array update's features, and the hot features, in one order
+    # on every rank (the batch group gathers their ids and grads)
+    up = [f for f in rest_feats if f not in full_hot_feats]
+    hot_list = [f for f in features if f in hot_feats]
+    column = {a for a in by_table
+              if a in coll.specs and coll.specs[a].sharding == "column"}
 
     def _concat_ids(feats, ids, rows_per_line: int = 1):
         """Stacked ids of ``feats`` (offsets added), per-feature sizes, and
@@ -354,8 +381,17 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                   if k.startswith(CACHE_PREFIX)}
         hot_pos: dict[str, torch.Tensor] = {}
         cold_ids = dict(ids)
-        for f in hot_feats:
+        for f in hot_list:
             hot_pos[f], cold_ids[f] = coll.route_ids(f, ids[f])
+        # the global batch's cold ids and head positions, in its order (one
+        # gather), for the dedupe and the updates
+        g_cold, g_hot = cold_ids, hot_pos
+        if bg.size > 1 and (up or hot_list):
+            parts = bg.gather([cold_ids[f].reshape(-1).to(torch.int64) for f in up]
+                              + [hot_pos[f].reshape(-1).to(torch.int64)
+                                 for f in hot_list])
+            g_cold = dict(cold_ids, **dict(zip(up, parts[:len(up)])))
+            g_hot = dict(zip(hot_list, parts[len(up):]))
 
         def merge_hot(f, cold_vec):
             """The hot head's rows at hot hits (identity off hot/cold)."""
@@ -379,7 +415,7 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                 cache = state.slots[CACHE_PREFIX + aname]
                 hp = hot_pos.get(f)
                 if hp is None:
-                    v = state.tables[aname].shape[0]
+                    v = coll.array_rows(aname)
                     gid = torch.clamp(ids[f].to(torch.int64) + off, 0, v - 1)
                 else:
                     cold = cold_ids[f].to(torch.int64)
@@ -391,19 +427,26 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
             return embs
 
         def dedup_forward():
-            """The dedup lookup: ``(embs, ctx)`` with ``ctx[array]`` the
-            routing its update reuses."""
+            """The dedup lookup over the global batch's ids: ``(embs,
+            ctx)`` with ``ctx[array]`` the routing its update reuses
+            (column arrays take the default lookup and have none)."""
             embs, ctx = {}, {}
             for aname, feats in by_table.items():
+                if aname in column:
+                    embs.update(overlay_lookup(coll.lookup(
+                        state.tables, {f: ids[f] for f in feats}, mode=mode),
+                        feats))
+                    continue
                 table = state.tables[aname]
                 d = coll.array_embedding_dim(aname)
-                all_ids, sizes, bound = _concat_ids(feats, cold_ids)
+                split = coll.split_rows(aname)
+                all_ids, sizes, bound = _concat_ids(feats, g_cold)
                 total = all_ids.shape[0]
                 # +1: negative ids dedupe to ONE sentinel slot past the bound
                 cap = -(-(bound + 1) // 8) * 8 if bound + 1 < total else None
-                if table.dim() == 3:
+                if table.dim() == 3 and split is None:
                     lay = coll.fat_layout_for(aname)
-                    _, _, bound_l = _concat_ids(feats, cold_ids,
+                    _, _, bound_l = _concat_ids(feats, g_cold,
                                                 rows_per_line=lay.r)
                     cap_r = cap if cap is not None else total
                     cap_l = min(cap_r, -(-(bound_l + 1) // 8) * 8)
@@ -431,7 +474,13 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                     uids, seg, valid, plan = dedupe_ids(
                         all_ids, capacity=cap, max_distinct=cap, with_plan=True)
                     gid = torch.where(valid, uids.to(torch.int64), 0)
-                    if coll.array_is_int8(aname):
+                    if split is not None:
+                        # each rank's own distinct rows, summed over the
+                        # model axis (the gspmd program)
+                        rows = coll._lookup_psum(state.tables, aname,
+                                                 coll.resolve(feats[0])[1], gid,
+                                                 fill=True)
+                    elif coll.array_is_int8(aname):
                         rows = dequantize_rows(
                             table[gid], state.tables[qscale_name(aname)][gid])
                     else:
@@ -440,11 +489,15 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                         # sentinel slots read row 0, and so overlay row 0
                         rows = cache_overlay_rows(
                             state.slots[CACHE_PREFIX + aname], gid, rows)
-                    ctx[aname] = ("rows", uids, seg, plan, valid)
+                    # a fat shard takes the default sharded update
+                    ctx[aname] = (("sharded",) if table.dim() == 3
+                                  else ("rows", uids, seg, plan, valid))
                 rows = rows.to(torch.float32)
                 off = 0
                 for f, n_f in zip(feats, sizes):
-                    e = take_fill(rows, seg[off:off + n_f])
+                    # this rank's positions of the feature's global ids
+                    n = n_f // bg.size
+                    e = take_fill(rows, seg[off + bg.index * n:off + (bg.index + 1) * n])
                     embs[f] = merge_hot(f, e.reshape(*ids[f].shape, e.shape[-1]))
                     off += n_f
             for f in full_hot_feats:
@@ -483,16 +536,12 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
         for p in params:
             p.grad = None
         g_embs = dict(zip(features, grads[len(params):]))
-        up = [f for f in rest_feats if f not in full_hot_feats]
-        if bg.size > 1 and up:
-            # the global batch's ids and row grads, in its order: one
-            # gather for the ids, one per (dim, dtype) of the grads (the
-            # grouped features send theirs to the owners instead)
-            for f, v in zip(up, bg.gather([cold_ids[f].reshape(-1).to(torch.int64)
-                                           for f in up])):
-                cold_ids[f] = v
+        if bg.size > 1 and rest_feats:
+            # the global batch's row grads, in its order: one gather per
+            # (dim, dtype) (the grouped features send theirs to the owners
+            # instead)
             by_kind: dict = {}
-            for f in up:
+            for f in rest_feats:
                 g = g_embs[f]
                 by_kind.setdefault((g.shape[-1], g.dtype), []).append(f)
             for fs in by_kind.values():
@@ -526,8 +575,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                 # small plain adam arrays keep the raw-id dense tier (int8
                 # ones then take update's row path, never the dense sweep)
                 small_adam = (opt.kind == "adam" and table.dim() == 2
-                              and table.shape[0] <= opt.small_vocab_threshold)
-                if aname in ctx and not small_adam:
+                              and coll.array_rows(aname) <= opt.small_vocab_threshold)
+                if aname in ctx and not small_adam and ctx[aname][0] != "sharded":
                     # shared dedupe: segment-sum by the forward's seg
                     c = ctx[aname]
                     d = coll.array_embedding_dim(aname)
@@ -549,14 +598,14 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                         state.slots[ck], _ = opt.cache_update_unique(
                             state.slots[ck], table, state.slots[aname], uids,
                             g_u, valid, step=state.step,
-                            sr_key=_sr_key(aname), qscale=qscale_of(aname))
+                            sr_key=_sr_key(aname), qscale=qscale_of(aname),
+                            gather=coll.owner_gather(aname))
                         continue
-                    opt.update_unique(table, state.slots[aname], uids, g_u,
-                                      valid, embedding_dim=d,
-                                      sr_key=_sr_key(aname),
-                                      qscale=qscale_of(aname))
+                    coll.update_unique(opt, aname, table, state.slots[aname],
+                                       uids, g_u, valid, sr_key=_sr_key(aname),
+                                       qscale=qscale_of(aname))
                     continue
-                all_ids, _, bound = _concat_ids(feats, cold_ids)
+                all_ids, _, bound = _concat_ids(feats, g_cold)
                 # dedupe capacity = the proven distinct bound when tighter
                 # than the id count (reference ``_concat_ids``)
                 md = -(-bound // 8) * 8 if bound < all_ids.shape[0] else None
@@ -565,7 +614,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                         state.slots[ck], table, state.slots[aname], all_ids,
                         all_grads, step=state.step, capacity=md,
                         max_distinct=md, sr_key=_sr_key(aname),
-                        qscale=qscale_of(aname))
+                        qscale=qscale_of(aname), gather=coll.owner_gather(aname),
+                        vocab_rows=coll.array_rows(aname))
                     continue
                 coll.sparse_update(
                     opt, aname, table, state.slots[aname], all_ids, all_grads,
@@ -575,7 +625,7 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
             for tname in hot_tables:
                 hname = coll.hot_array_name(tname)
                 feats = hot_by_table[tname]
-                hp_all = torch.cat([hot_pos[f].reshape(-1) for f in feats])
+                hp_all = torch.cat([g_hot[f].reshape(-1) for f in feats])
                 g_all = torch.cat([g_embs[f].reshape(-1, g_embs[f].shape[-1])
                                    for f in feats])
                 opt.dense_update(state.tables[hname], state.slots[hname],
@@ -659,14 +709,16 @@ def make_pipelined_sparse_train_step(coll: ShardedEmbeddingCollection,
     return PipelinedSparseStep(prime=prime, step=step, flush=flush)
 
 
-def make_cache_flush_fn():
+def make_cache_flush_fn(coll: ShardedEmbeddingCollection | None = None):
     """The update cache's write-back: ``flush(state) -> (state,
     overflow)``.  Per cached array it bit-copies every dirty row and its
     mirrors into the table and slots (int8: codes and sidecar), evicts
     down to the hottest half and returns the interval's admission-overflow
     count (``overflow``: array name -> 0-dim device tensor).  A non-zero
     count means lost updates; the caller must fail.  A state without
-    caches flushes to itself."""
+    caches flushes to itself.  ``coll``: the state's collection, needed
+    under a mesh, where each rank writes only the rows its shards own (the
+    replicated caches evict alike on every rank)."""
 
     def flush(state: SparseTrainState):
         overflow = {}
@@ -678,7 +730,8 @@ def make_cache_flush_fn():
                 qs = state.tables.get(qscale_name(aname))
                 out = state.sparse_opt.cache_flush(
                     state.slots[key], state.tables[aname], state.slots[aname],
-                    qscale=qs)
+                    qscale=qs,
+                    owned=None if coll is None else coll.owned_rows(aname))
                 state.slots[key], overflow[aname] = out[0], out[-1]
         return state, overflow
 

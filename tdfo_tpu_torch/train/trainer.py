@@ -63,8 +63,11 @@ process group running, the trainer lays the ranks out as the ``[mesh]``
 table says and each rank streams its data slice of the global batch
 (``per_device_train_batch_size`` rows; ranks that share a data index read
 the same rows).  The CTR regimes shard the tables over the model axis
-(``embedding_sharding``: row, table or column; int8 storage too) and look
-them up with ``lookup_mode``, under ``alltoall`` through the grouped
+(``embedding_sharding``: row, table or column; int8 storage,
+``dedup_lookup``, ``hot_vocab`` and the update cache too, the hot heads and
+caches replicated, each flush writing every row into its owner and the
+overflow check global) and look them up with ``lookup_mode``, under
+``alltoall`` through the grouped
 exchange with ``[embeddings] grouped_a2a`` and through the pipelined step
 with ``[train] pipeline_overlap`` (the epoch loop primes on its first
 batch, trains each batch one call later and flushes the last; the carry
@@ -161,10 +164,29 @@ def pad_batch(batch: dict[str, np.ndarray], size: int) -> tuple[dict[str, np.nda
     return out, w
 
 
-def _check_cache_overflow(overflow: dict) -> None:
+def _check_cache_overflow(overflow: dict, mesh=None) -> None:
     """Fail loudly on update-cache admission overflow: ids past the free
-    capacity never entered the cache, so their updates were lost."""
-    bad = {a: int(v) for a, v in overflow.items() if int(v) > 0}
+    capacity never entered the cache, so their updates were lost.  Under a
+    ``mesh`` every rank calls this at the same flush, and the check is
+    global: the replicated caches must count the same overflow on every
+    rank (else they diverged), and every rank fails together."""
+    counts = {a: int(v) for a, v in overflow.items()}
+    if mesh is not None and counts:
+        import torch.distributed as dist
+
+        names = sorted(overflow)
+        hi = torch.stack([overflow[a].to(torch.int64).reshape(()) for a in names])
+        lo = hi.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        if not torch.equal(hi, lo):
+            raise RuntimeError(
+                "update-cache admission overflow differs between ranks "
+                f"(per array, most {dict(zip(names, hi.tolist()))}, least "
+                f"{dict(zip(names, lo.tolist()))}): the replicated caches "
+                "diverged")
+        counts = dict(zip(names, hi.tolist()))
+    bad = {a: v for a, v in counts.items() if v > 0}
     if bad:
         raise RuntimeError(
             f"update-cache admission overflow (distinct ids whose updates "
@@ -186,7 +208,6 @@ def refuse_unported(cfg: Config, world: int | None = None,
 
     if world is None:
         world = dist.get_world_size() if dist.is_initialized() else 1
-    emb = cfg.embeddings
     tele = cfg.telemetry
     multi = world > 1 or cfg.mesh.model > 1 or cfg.mesh.data > 1
     dense = cfg.model == "twotower" and not cfg.model_parallel
@@ -194,21 +215,12 @@ def refuse_unported(cfg: Config, world: int | None = None,
         (cfg.attn in ("ring", "ring_flash"), f"attn = {cfg.attn!r}", "12b"),
         (cfg.tensor_parallel, "tensor_parallel = true", "12b"),
         (cfg.mesh.seq != 1, "[mesh] seq > 1", "12b"),
-        (multi and emb.cache_rows > 0,
-         "embeddings.cache_rows > 0 under a multi-device mesh", "12b"),
-        (multi and emb.hot_vocab > 0,
-         "embeddings.hot_vocab > 0 under a multi-device mesh", "12b"),
         (multi and cfg.model == "bert4rec", "bert4rec under a multi-device mesh",
          "12b"),
-        (multi and cfg.model_parallel and cfg.embedding_sharding == "column"
-         and cfg.sparse_optimizer == "rowwise_adagrad",
-         "column sharding under rowwise_adagrad", "12b"),
         (multi and dense and cfg.steps_per_execution > 1
          and torch.device(device).type == "cuda",
          "CUDA-graph steps (steps_per_execution > 1, dense regime) under "
          "several ranks", "12b"),
-        (multi and cfg.dedup_lookup, "dedup_lookup under a multi-device mesh",
-         "12b"),
         (multi and cfg.model == "twotower" and not cfg.model_parallel
          and cfg.mesh.model > 1,
          "the dense regime (model_parallel = false) with [mesh] model > 1",
@@ -496,6 +508,17 @@ class Trainer:
                 "cache_rows": int(cache_rows),
                 "flush_every": int(cfg.embeddings.flush_every),
             }
+        if self.mesh is not None:
+            # one checkpoint for all ranks: each must have loaded the same
+            # hot sets and built the same storage
+            import json
+
+            seen: list = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(seen, json.dumps(stamps, sort_keys=True))
+            if len(set(seen)) > 1:
+                raise ValueError(
+                    "the ranks' checkpoint stamps differ (each rank must read "
+                    f"the same hot_ids.json and storage knobs): {seen}")
         self._ckpt_stamps = stamps or None
         tables = coll.init(cfg.seed, device=self.device)
         gen = torch.Generator().manual_seed(cfg.seed + 1)
@@ -527,7 +550,7 @@ class Trainer:
             caches = coll.init_caches(self.state.tables, self.state.sparse_opt)
             if caches:
                 self.state.slots.update(caches)
-                self._cache_flush = make_cache_flush_fn()
+                self._cache_flush = make_cache_flush_fn(coll)
                 self._flush_every = cfg.embeddings.flush_every
         if cfg.train.pipeline_overlap:
             # TrainPipelineSparseDist parity: batch N+1's input-dist is in
@@ -788,7 +811,7 @@ class Trainer:
             nonlocal loss_sum, contributed, consec_bad, snap
             nonlocal steps_at_snap, pending_steps
             for over in pending_over:
-                _check_cache_overflow(over)
+                _check_cache_overflow(over, self.mesh)
             pending_over.clear()
             rolled = False
             vals = (torch.cat([x.reshape(-1) for x, _, _ in pending]).tolist()
@@ -911,7 +934,7 @@ class Trainer:
         if self._cache_flush is None:
             return
         self.state, over = self._cache_flush(self.state)
-        _check_cache_overflow(over)
+        _check_cache_overflow(over, self.mesh)
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile

@@ -15,9 +15,10 @@
 * At data 2 over an eval split of one row, the rank without eval rows
   runs zero-weight template batches and both ranks report the one-rank
   evaluation of the same (fresh) state.
-* Every knob of ``ROADMAP.md`` Queue A item 12b refuses by name under a
-  multi-device mesh; the grouped exchange, the pipelined step and int8
-  storage (ported) do not.
+* Every knob of ``ROADMAP.md`` Queue A item 12b still to port refuses by
+  name under a multi-device mesh; the ported ones (the grouped exchange,
+  the pipelined step, int8 storage, column sharding under rowwise_adagrad,
+  the update cache, hot/cold tables, ``dedup_lookup``) do not.
 """
 
 import functools
@@ -184,13 +185,8 @@ def test_rank_without_eval_rows_takes_template_batches():
     ({"attn": "ring", "model": "bert4rec"}, "attn = 'ring'"),
     ({"attn": "ring_flash", "model": "bert4rec"}, "attn = 'ring_flash'"),
     ({"tensor_parallel": True}, "tensor_parallel"),
-    ({"embedding_sharding": "column", "sparse_optimizer": "rowwise_adagrad"},
-     "column sharding under rowwise_adagrad"),
-    ({"embeddings": {"cache_rows": 64}}, "cache_rows"),
-    ({"embeddings": {"hot_vocab": 8}}, "hot_vocab"),
     ({"model_parallel": False, "steps_per_execution": 2}, "CUDA-graph steps"),
     ({"model": "bert4rec"}, "bert4rec"),
-    ({"dedup_lookup": True}, "dedup_lookup"),
     ({"model_parallel": False, "mesh": {"data": 1, "model": 2}}, "dense regime"),
 ])
 def test_12b_knobs_refuse_by_name(kw, what):
@@ -206,12 +202,20 @@ def test_12b_knobs_refuse_by_name(kw, what):
     {"embeddings": {"grouped_a2a": True}, "lookup_mode": "alltoall",
      "train": {"pipeline_overlap": True}},
     {"embeddings": {"table_dtype": "int8"}, "lookup_mode": "alltoall"},
-], ids=["grouped_pipelined", "int8"])
+    {"embedding_sharding": "column", "sparse_optimizer": "rowwise_adagrad"},
+    {"embeddings": {"cache_rows": 64}},
+    {"embeddings": {"hot_vocab": 8}},
+    {"dedup_lookup": True},
+], ids=["grouped_pipelined", "int8", "column_rowwise_adagrad", "cache_rows",
+        "hot_vocab", "dedup_lookup"])
 def test_ported_12b_knobs_build_under_world_two(kw):
-    """The grouped exchange, the pipelined step and int8 storage pass the
-    refusals under a world of two (``tests/test_torch_grouped_a2a.py``
-    trains them on two ranks); the dense regime's multi-step refuses only
-    where it replays CUDA graphs, on the card."""
+    """The grouped exchange, the pipelined step, int8 storage, column
+    sharding under rowwise_adagrad, the update cache, hot/cold tables and
+    ``dedup_lookup`` pass the refusals under a world of two
+    (``tests/test_torch_grouped_a2a.py`` and
+    ``tests/test_torch_sharded_dedup_cache.py`` train them on two ranks);
+    the dense regime's multi-step refuses only where it replays CUDA
+    graphs, on the card."""
     body = dict(model="twotower", model_parallel=True, size_map={"user": 10})
     body.update(kw)
     refuse_unported(read_configs(None, **body), world=2)

@@ -17,6 +17,7 @@ The small DLRM and the dense regime are in
 
 import functools
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -85,8 +86,20 @@ def _jrun(jc, jb, dense, jtables, batches, mode, mesh):
 
 
 @functools.lru_cache(maxsize=None)
+def _worlds():
+    """Both worlds' ranks started at once, and their JAX sides computed
+    side by side (XLA compiles in threads) while they run."""
+    ranks = {w: Ranks(w, Path(tempfile.mkdtemp(prefix=f"sh_step_{w}_"))) for w in MESHES}
+    with ThreadPoolExecutor(len(MESHES)) as pool:
+        runs = {w: pool.submit(_twotower_world, w, r) for w, r in ranks.items()}
+        return {w: r.result() for w, r in runs.items()}
+
+
 def _twotower(world):
-    ranks = Ranks(world, Path(tempfile.mkdtemp(prefix=f"sh_step_{world}_")))
+    return _worlds()[world]
+
+
+def _twotower_world(world, ranks):
     mesh = make_mesh(JMeshSpec(data=MESHES[world][0], model=MESHES[world][1], seq=1),
                      devices=jax.devices()[:world])
     jc = JColl(j_specs(SIZE_MAP, D, "row", fused_threshold=100), mesh=mesh)

@@ -256,9 +256,31 @@ def test_unported_step_options_refuse():
     tc = TColl(t_specs(SIZE_MAP, 8, "row"))
     for mode in ("psum", "alltoall"):  # ported: on one device a local gather
         t_step(tc, lambda e, b: None, mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 12b"):
-        t_step(TColl(t_specs(SIZE_MAP, 8, "row"), mesh=_OneRankMesh()),
-               lambda e, b: None, dedup_lookup=True)
+    # dedup_lookup under a mesh is ported: on a one-rank mesh it builds and
+    # runs the meshless step's trajectory bit for bit
+    _, jb, jstate = _dlrm_jax("rowwise_adagrad")
+    rng = np.random.default_rng(9)
+    batches = [{k: torch.from_numpy(v) for k, v in _dlrm_batch(rng).items()}
+               for _ in range(2)]
+    runs = []
+    for mesh in (None, _OneRankMesh()):
+        tc, tstate, trun = _dlrm_port("rowwise_adagrad", jstate.tables,
+                                      jstate.dense_params, dedup_lookup=True)
+        if mesh is not None:
+            tc = TColl(t_dlrm_specs(D_SIZES, D_CATS, D_DIM, "row", fused_threshold=100),
+                       stack_tables=True, fused_kind="rowwise_adagrad", mesh=mesh)
+            trun = t_step(tc, t_fwd(tstate.backbone), dedup_lookup=True)
+        losses = []
+        for b in batches:
+            tstate, loss = trun(tstate, b)
+            losses.append(float(loss))
+        runs.append((losses, tstate))
+    (l0, s0), (l1, s1) = runs
+    assert l0 == l1
+    for name, t in s0.tables.items():
+        assert torch.equal(s1.tables[name], t), name
+        for a, b in zip(s0.slots[name], s1.slots[name]):
+            assert torch.equal(a, b), name
     # narrow storage builds: bf16 everywhere; int8 plain tables with their
     # f32 sidecars and the fat stack as int8 byte lines
     import dataclasses

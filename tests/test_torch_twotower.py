@@ -15,6 +15,7 @@ from tdfo_tpu.parallel.embedding import ShardedEmbeddingCollection as JColl
 from tdfo_tpu_torch.interop import TOL, backbone_params_from_flax, tables_from_numpy
 from tdfo_tpu_torch.models.twotower import TwoTowerBackbone as TBackbone
 from tdfo_tpu_torch.models.twotower import ctr_embedding_specs as t_specs
+from tdfo_tpu_torch.ops.sparse import sparse_optimizer as t_opt
 from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection as TColl
 
 SIZE_MAP = {"user": 300, "item": 150, "language": 8, "is_ebook": 2,
@@ -85,5 +86,9 @@ def test_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             coll.init(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 12b"):
-        TColl(t_specs(SIZE_MAP, 8, "column"), fused_kind="rowwise_adagrad")
+    # column sharding under rowwise_adagrad is ported: the collection builds
+    # and its row accumulators are [V]
+    tc = TColl(t_specs(SIZE_MAP, 8, "column"), fused_kind="rowwise_adagrad")
+    opt = t_opt("rowwise_adagrad", lr=1e-2)
+    for name, t in tc.init(0, device="cpu").items():
+        assert [s.shape for s in opt.init(t)] == [(t.shape[0],)], name

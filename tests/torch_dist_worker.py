@@ -115,7 +115,8 @@ def _coll(case, mesh):
         specs, mesh=mesh, fused_kind=case.get("kind", "adam"),
         stack_tables=case.get("stack_tables", False),
         a2a_capacity_factor=case.get("cf"),
-        grouped_a2a=case.get("grouped", False))
+        grouped_a2a=case.get("grouped", False), hot_ids=case.get("hot"),
+        cache_rows=case.get("cache_rows", 0))
 
 
 def _local_ids(mesh, mode, feats):
@@ -374,16 +375,25 @@ def _backbone(case):
 
 
 def case_step(case):
-    """K sparse train steps on the rank's data slice of each global batch;
-    the losses (the global batch's) and the gathered state."""
+    """K sparse train steps on the rank's data slice of each global batch,
+    with ``dedup`` (``dedup_lookup``) and the collection's update cache
+    (flushed after every ``flush_every`` steps and at the end) as the case
+    says: the losses (the global batch's), the caches before the last flush
+    (each rank's own copy), the flushes' overflow counts, the gathered
+    state after it, the fat-line kernels' runs and the local table
+    shapes."""
     import torch
 
     from tdfo_tpu_torch.core.mesh import data_slice
     from tdfo_tpu_torch.interop import gather_to_numpy, shard_from_numpy, to_numpy
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import fat_line_update_routed as kr
     from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.parallel.embedding import CACHE_PREFIX
     from tdfo_tpu_torch.train.ctr import ctr_sparse_forward
     from tdfo_tpu_torch.train.sparse_step import (
         SparseTrainState,
+        make_cache_flush_fn,
         make_sparse_train_step,
     )
 
@@ -397,20 +407,34 @@ def case_step(case):
         sparse_opt=sparse_optimizer(kind, lr=case.get("sparse_lr", lr),
                                     weight_decay=case.get("sparse_wd", wd)),
         learning_rate=lr, weight_decay=wd)
+    state.slots.update(coll.init_caches(state.tables, state.sparse_opt))
     step = make_sparse_train_step(coll, ctr_sparse_forward(backbone),
-                                  mode=case["mode"])
-    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
-
-    before = kl.fat_line_update.plain_runs
-    losses = []
-    for b in case["batches"]:
+                                  mode=case.get("mode", "gspmd"),
+                                  dedup_lookup=case.get("dedup", False))
+    flush = make_cache_flush_fn(coll)
+    fe = case.get("flush_every", 0)
+    runs = (kl.fat_line_update.plain_runs, kr.fat_line_update_routed.plain_runs)
+    losses, overs = [], []
+    for i, b in enumerate(case["batches"]):
         local = {k: torch.from_numpy(v)[data_slice(mesh, v.shape[0])]
                  for k, v in b.items()}
         state, loss = step(state, local)
         losses.append(float(loss))
-    t, s = gather_to_numpy(coll, state.tables, state.slots)
-    return {"losses": losses, "tables": t, "slots": s,
-            "fat_runs": kl.fat_line_update.plain_runs - before,
+        if fe and (i + 1) % fe == 0 and i + 1 < len(case["batches"]):
+            state, over = flush(state)
+            overs.append({k: int(v) for k, v in over.items()})
+    caches = {k: {c: to_numpy(x) for c, x in v.items()}
+              for k, v in state.slots.items() if k.startswith(CACHE_PREFIX)}
+    if caches:
+        state, over = flush(state)
+        overs.append({k: int(v) for k, v in over.items()})
+    slots = {k: v for k, v in state.slots.items() if not k.startswith(CACHE_PREFIX)}
+    t, s = gather_to_numpy(coll, state.tables, slots)
+    return {"losses": losses, "tables": t, "slots": s, "caches": caches,
+            "overflow": overs,
+            "fat_runs": kl.fat_line_update.plain_runs - runs[0],
+            "routed_runs": kr.fat_line_update_routed.plain_runs - runs[1],
+            "local_rows": {k: tuple(v.shape) for k, v in state.tables.items()},
             "backbone": {k: to_numpy(v) for k, v in backbone.state_dict().items()}}
 
 
@@ -556,6 +580,18 @@ def case_fit(case):
     if hasattr(trainer, "coll"):
         out["tables"] = gather_to_numpy(trainer.coll, trainer.state.tables)[0]
     return out
+
+
+def case_restore(case):
+    """A trainer of the case's config restores its newest checkpoint
+    (written at another world size); the step and the gathered tables."""
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.interop import gather_to_numpy
+    from tdfo_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(read_configs(None, **case["body"]), device="cpu")
+    step, state = trainer.restore_latest()
+    return {"step": step, "tables": gather_to_numpy(trainer.coll, state.tables)[0]}
 
 
 def main() -> None:
