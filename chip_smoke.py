@@ -421,7 +421,7 @@ DEFAULT_PHASES = ("build", "oracle", "timing", "segsum", "main", "cli", "flash_o
                   "resume", "quickstart_cli", "b4r_jagged", "int8_main",
                   "int8_fused", "dlrm_int8_cache", "dlrm_hot_cold",
                   "criteo_int8_cli", "serve_main", "serve_seq_main", "serve_cli",
-                  "dist_main", "dist_cli")
+                  "dist_main", "dist_cli", "dist_seq")
 
 
 def say(*parts) -> None:
@@ -2539,8 +2539,8 @@ DENSE_SPE = 4
 # one epoch, so the epoch outlasts the first mid-epoch save) and the save
 # cadence (PR 14 cut the users from 20,000 to make room for dist_main's
 # and dist_cli's CTR arms within the run's time)
-QS_USERS, QS_CKPT_EVERY = 8_000, 20
-DIST_CLI_USERS, DIST_CLI_EVERY = 4_000, 10
+QS_USERS, QS_CKPT_EVERY = 4_000, 20
+DIST_CLI_USERS, DIST_CLI_EVERY = 2_000, 10
 
 
 def state_tensors(tree, prefix=""):
@@ -3056,9 +3056,11 @@ def _spawn_ranks(world: int, spec: dict, tag: str,
 
 def _probe_collectives(torch, dist) -> dict:
     """Which of the port's collectives the running backend takes on CUDA
-    tensors, ``all_to_all_single`` in every dtype the exchanges ship
-    (int32 ids, f32, bf16 and int8 payloads) and in its async form; a
-    refusal is printed and fails the run by name."""
+    tensors: the ring's rotation (``ring_shift``: point to point under
+    NCCL, an ``all_to_all_single`` to one neighbour under gloo; f32 and
+    bool), ``all_to_all_single`` in every dtype the exchanges ship (int32
+    ids, f32, bf16 and int8 payloads) and in its async form; a refusal is
+    printed and fails the run by name."""
     rank, world = dist.get_rank(), dist.get_world_size()
     x = torch.full((4,), float(rank + 1), device="cuda")
     checks = {}
@@ -3089,7 +3091,19 @@ def _probe_collectives(torch, dist) -> dict:
                                                       for r in range(world)]
         return check
 
-    for name, fn in (("all_reduce", all_reduce), ("all_gather", all_gather),
+    def ring(dtype):
+        def check():
+            from tdfo_tpu_torch.parallel.collectives import ring_shift
+
+            src = torch.full((3,), rank + 1, device="cuda").to(dtype)
+            got = ring_shift(src, dist.group.WORLD)
+            return got.float().tolist() == [float(
+                torch.tensor((rank - 1) % world + 1).to(dtype))] * 3
+        return check
+
+    for name, fn in (("ring_shift", ring(torch.float32)),
+                     ("ring_shift[bool]", ring(torch.bool)),
+                     ("all_reduce", all_reduce), ("all_gather", all_gather),
                      ("all_gather_into_tensor", all_gather_into_tensor),
                      ("all_to_all_single", all_to_all_single(torch.float32)),
                      ("all_to_all_single[int32]", all_to_all_single(torch.int32)),
@@ -3963,6 +3977,424 @@ def phase_dist_cli(torch) -> dict:
     say(f"dist_cli: {len(DIST_CLI_VARIANTS)} tomls killed, resumed and held "
         f"bitwise in {secs:.1f} s")
     return {"resumed_at": res}
+
+
+# ------------------------------------------------ dist_seq (Bert4Rec)
+# ROADMAP item 12b's sequence half: Bert4Rec across ranks at the full width
+# of configs/bert4rec.toml (B4R, B4R_BATCH rows a rank, dropout on), each
+# arm held to the single-device step (on global rank 0) from the same
+# seeds.  Runs: (backend, world, ((arm, (data, model, seq)), ...)), each
+# one set of rank processes; two ranks and four share the one card over
+# gloo (NCCL refuses two ranks on a device).
+DIST_SEQ_RUNS = (
+    ("nccl", 1, (("ring_flash", (1, 1, 1)), ("long", (1, 1, 1)))),
+    ("gloo", 2, (("data2", (2, 1, 1)), ("gspmd", (1, 2, 1)), ("alltoall", (1, 2, 1)),
+                 ("tp", (1, 2, 1)), ("ring", (1, 1, 2)), ("ring_flash", (1, 1, 2)),
+                 ("long", (1, 1, 2)))),
+    ("gloo", 4, (("tp_heads", (1, 2, 2)),)),
+)
+# arm -> (make_sharded_bert4rec options, lookup mode, the single-device
+# twin's attention); an arm is bitwise its twin where only the item table
+# splits (model ranks under gspmd) or the ring has one rank
+DIST_SEQ_ARMS = {
+    "data2": (dict(attn="flash"), "gspmd", "flash"),
+    "gspmd": (dict(attn="flash"), "gspmd", "flash"),
+    "alltoall": (dict(attn="flash"), "alltoall", "flash"),
+    "tp": (dict(attn="full", tensor_parallel=True), "gspmd", "full"),
+    "ring": (dict(attn="ring"), "gspmd", "full"),
+    "ring_flash": (dict(attn="ring_flash"), "gspmd", "flash"),
+    "tp_heads": (dict(attn="ring_flash", tensor_parallel=True, tp_heads=True),
+                 "gspmd", "flash"),
+}
+DIST_SEQ_TIMEOUT_S = 600
+# the attention-only long-context arm: bench_kernels.py:471-511's shape,
+# the ring with ring_block_k 512 against ring_flash, forward and backward
+LONG_SHAPE, LONG_BLOCK_K, LONG_REPS = (1, 4, 8192, 64), 512, 5
+
+
+def _b4r_seq_setup(torch, mesh, arm):
+    """``(collection, state, step)`` of a Bert4Rec arm on the card (``mesh``
+    None: the single-device twin), from B4R_SEED like every other run."""
+    from tdfo_tpu_torch.models.bert4rec import Bert4RecConfig, make_sharded_bert4rec
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.train.seq import bert4rec_sparse_forward
+    from tdfo_tpu_torch.train.sparse_step import SparseTrainState, make_sparse_train_step
+
+    opts, mode, twin = DIST_SEQ_ARMS[arm]
+    if mesh is None:
+        opts = dict(attn=twin)
+    coll, tables, backbone = make_sharded_bert4rec(
+        Bert4RecConfig(**B4R), seed=B4R_SEED, device="cuda", mesh=mesh, **opts)
+    state = SparseTrainState.create(
+        backbone=backbone, tables=tables,
+        sparse_opt=sparse_optimizer("adam", lr=LR, weight_decay=WD),
+        learning_rate=LR, weight_decay=WD)
+    return coll, state, make_sparse_train_step(coll, bert4rec_sparse_forward(backbone),
+                                               mode=mode)
+
+
+def _b4r_seq_rows(torch, coll, state, touched):
+    """The whole slots (weights | adam mu | nu) of item rows ``touched``,
+    from the state's tables gathered into the single-device layout."""
+    from tdfo_tpu_torch.ops.fat_lines import fat_view
+
+    tables, _ = coll.global_arrays(state.tables, {})
+    aname, _, off = coll.resolve("item")
+    return fat_view(tables[aname], coll.fat_layout_for(aname))[touched + off].cpu()
+
+
+def _b4r_rows_held(torch, what, got, want, steps) -> str:
+    """Item rows of a mesh run against the single-device run's: the
+    weights within rtol 1e-4 but for at most 0.1% of the elements, each
+    within 2 lr a step (Adam's sign on gradients inside the f32 noise of two
+    summation orders, phase b4r_main's rule)."""
+    from tdfo_tpu_torch.interop import TOL
+
+    rtol, atol = TOL["trajectory"]
+    d = B4R["embed_dim"]
+    g, c = got[:, :d], want[:, :d]
+    diff = (g - c).abs()
+    out = diff > atol + rtol * c.abs()
+    n_out, bound = int(out.sum()), 2 * LR * steps
+    worst = float(diff[out].max()) if n_out else 0.0
+    if n_out > 1e-3 * g.numel() or worst > bound:
+        raise AssertionError(f"{what}: {n_out} of {g.numel()} item-row elements "
+                             f"outside rtol {rtol} (max |diff| {worst}, bound {bound})")
+    return (f"rtol {rtol} ({g.shape[0]} touched rows, max |diff| "
+            f"{float(diff.max()):.3e}; {n_out} elements outside, each within "
+            f"{bound:.1e})")
+
+
+def _seq_arm(torch, dist, mesh, arm, backend, twins: dict) -> dict:
+    """One Bert4Rec arm on this rank: on global rank 0 the single-device
+    twin (3 steps on the global batches; ``twins`` keeps each twin's result
+    for the arms that share it); then the mesh run, 3 compared and 5 timed
+    steps on this rank's data slice, the kernels' launches counted over
+    all 8."""
+    from tdfo_tpu_torch.core.mesh import AXES, axis_size, data_slice
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.train.seq import dropout_generator
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    sizes = tuple(axis_size(mesh, a) for a in AXES)
+    n_data, seq = sizes[0], sizes[2]
+    rng = np.random.default_rng(11)
+    host = [b4r_batch(rng, B4R_BATCH * n_data) for _ in range(DIST_STEPS + DIST_TIMED)]
+    touched = torch.from_numpy(np.unique(np.concatenate(
+        [h["item"].ravel() for h in host[:DIST_STEPS]])).astype(np.int64)).cuda()
+
+    def gens(i):
+        return dropout_generator(B4R_SEED + 1, i, "cuda")
+
+    twin = (DIST_SEQ_ARMS[arm][2], n_data)
+    if rank == 0 and twin not in twins:
+        one, ref, ref_step = _b4r_seq_setup(torch, None, arm)
+        ref_losses = []
+        for i, h in enumerate(host[:DIST_STEPS]):
+            ref, loss = ref_step(ref, to_device(torch, h, "cuda"), gens(i))
+            ref_losses.append(float(loss))
+        twins[twin] = (ref_losses, _b4r_seq_rows(torch, one, ref, touched))
+        del ref, one
+        torch.cuda.empty_cache()
+    ref_losses, want = twins.get(twin, (None, None))
+    rows = data_slice(mesh, B4R_BATCH * n_data)
+    batches = [{k: v[rows] for k, v in to_device(torch, h, "cuda").items()} for h in host]
+    coll, state, step = _b4r_seq_setup(torch, mesh, arm)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i, b in enumerate(batches[:DIST_STEPS]):
+        state, loss = step(state, b, gens(i))
+        losses.append(float(loss))
+    got = _b4r_seq_rows(torch, coll, state, touched)
+    held = None
+    if rank == 0:
+        bitwise = world == 1 or (n_data == 1 and seq == 1 and arm == "gspmd")
+        if bitwise:
+            if losses != ref_losses or not torch.equal(got, want):
+                raise AssertionError(
+                    f"dist_seq {arm}: not bitwise the single-device step: losses "
+                    f"{losses} vs {ref_losses}, rows max |diff| "
+                    f"{float((got - want).abs().max())}")
+            held = "bitwise"
+        else:
+            rtol, atol = TOL["trajectory"]
+            np.testing.assert_allclose(losses, ref_losses, rtol=rtol, atol=atol)
+            held = _b4r_rows_held(torch, f"dist_seq {arm}", got, want, DIST_STEPS)
+    del got
+
+    def timed():
+        st = state
+        for i, b in enumerate(batches[DIST_STEPS:]):
+            st, loss = step(st, b, gens(DIST_STEPS + i))
+        return float(loss)
+
+    dist.barrier()  # rank 0's checks above: start the window together
+    _, ms, coll_ms, calls = _time_steps(torch, dist, timed)
+    steps = DIST_STEPS + DIST_TIMED
+    counts = flash_counts()
+    per_step = {k: v / steps for k, v in counts.items()}
+    layers = B4R["n_layers"]
+    attn = DIST_SEQ_ARMS[arm][0]["attn"]
+    flash_want = layers * (seq if attn == "ring_flash" else 1 if attn == "flash" else 0)
+    want_counts = {"fat_line_update": 1, **dict.fromkeys(FLASH_KERNELS, flash_want)}
+    if per_step != want_counts:
+        raise AssertionError(f"dist_seq {arm}: launches a step {per_step}, "
+                             f"expected {want_counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"losses": losses, "held": held, "step_ms": ms / DIST_TIMED,
+           "collective_ms": {k: v / DIST_TIMED for k, v in coll_ms.items()},
+           "collective_calls": {k: v / DIST_TIMED for k, v in calls.items()},
+           "launches_per_step": per_step, "peak_gb": peak}
+    print(f"dist seq {arm} world {world} ({backend}, mesh {sizes}) rank {rank}: "
+          f"{held or 'compared on rank 0'}; step_ms {rec['step_ms']:.3f}, collectives "
+          f"{rec['collective_ms']} ms a step, launches a step {per_step}, peak "
+          f"{peak:.2f} GB", flush=True)
+    del state, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _long_arm(torch, dist, mesh, backend) -> dict:
+    """Attention alone at bench_kernels.py:471-511's shape (B 1, H 4, T
+    8192, Dh 64, bf16) over this mesh's seq axis: ``ring_flash`` against
+    the ring (``block_k`` 512), forward and backward of ``sum(out ** 2)``;
+    each timed by CUDA events over LONG_REPS calls."""
+    from tdfo_tpu_torch.core.mesh import SEQ_AXIS, axis_size
+    from tdfo_tpu_torch.parallel.ring_attention import ring_self_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(LONG_SHAPE, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+
+    def run(impl):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = ring_self_attention(mesh, *xs, impl=impl,
+                                  block_k=LONG_BLOCK_K if impl == "xla" else None)
+        return out.detach(), torch.autograd.grad((out.float() ** 2).sum(), xs)
+
+    ring_out, ring_g = run("xla")
+    zero_counts()
+    flash_out, flash_g = run("flash")
+    counts = flash_counts()
+    err = float((flash_out.float() - ring_out.float()).abs().max())
+    gerr = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+               for a, b in zip(flash_g, ring_g))
+    p = axis_size(mesh, SEQ_AXIS)
+    if err > 2e-2 or gerr > 5e-2:
+        raise AssertionError(f"dist_seq long: ring_flash vs ring max |out diff| {err} "
+                             f"(2e-2), largest grad diff / max |grad| {gerr} (5e-2)")
+    if [counts[k] for k in FLASH_KERNELS] != [p] * 3:
+        raise AssertionError(f"dist_seq long: launches {counts}, expected {p} each")
+    ms = {}
+    for impl in ("xla", "flash", "flash", "xla"):  # in turns
+        dist.barrier()
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        for _ in range(LONG_REPS):
+            run(impl)
+        s1.record()
+        torch.cuda.synchronize()
+        ms.setdefault(impl, []).append(s0.elapsed_time(s1) / LONG_REPS)
+    rec = {"ring_ms": min(ms["xla"]), "ring_flash_ms": min(ms["flash"]),
+           "max_abs_err": err, "grad_rel_err": gerr, "seq": p}
+    print(f"dist seq long ({backend}, seq {p}) rank {dist.get_rank()}: ring_flash vs "
+          f"ring (block_k {LONG_BLOCK_K}) fwd+bwd at {LONG_SHAPE} bf16: out max |diff| "
+          f"{err:.3e}, grads {gerr:.3e} of max; ring {rec['ring_ms']:.3f} ms, "
+          f"ring_flash {rec['ring_flash_ms']:.3f} ms a call; flash launches a call "
+          f"{counts}", flush=True)
+    return rec
+
+
+def dist_rank_seq(spec: dict) -> int:
+    """One rank of ``dist_seq`` (``DIST_SEQ_RUNS``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tdfo_tpu_torch.core.config import MeshSpec
+    from tdfo_tpu_torch.core.mesh import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed("cuda", backend=spec["backend"], force=True)
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size(), "arms": {}}
+    meshes: dict = {}
+    twins: dict = {}
+    for arm, (d, m, s) in spec["seq_arms"]:
+        if (d, m, s) not in meshes:
+            meshes[d, m, s] = make_mesh(MeshSpec(data=d, model=m, seq=s), "cuda")
+        mesh = meshes[d, m, s]
+        res["arms"][f"{arm}@{d}x{m}x{s}"] = (
+            _long_arm(torch, dist, mesh, spec["backend"]) if arm == "long"
+            else _seq_arm(torch, dist, mesh, arm, spec["backend"], twins))
+    (Path(spec["out"]) / f"rank{dist.get_rank()}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist_seq(torch, card: str) -> dict:
+    """dist_seq: the Bert4Rec arms of ``DIST_SEQ_RUNS`` (world 1 over NCCL:
+    ring_flash on a ring of one, bitwise flash; worlds 2 and 4 over gloo on
+    the one card: data 2, model 2 under gspmd (bitwise) and alltoall, model
+    2 tensor parallel, seq 2 ring and ring_flash, seq 2 x model 2 ring_flash
+    with tp_heads) and the long-context attention arm at seq 1 and 2; then
+    a ring_flash, ``[mesh] seq = 2`` toml through ``torch.distributed.run``
+    (``--backend gloo``), killed and resumed bitwise (:func:`_seq_cli`).
+    Where there are several cards, NCCL alone: world 1, then the ring,
+    ring_flash, the long arm and (at four or more) seq x model 2 with
+    tp_heads at world = the card count, one rank a card, the rotation
+    NCCL's point-to-point pair."""
+    t0 = time.perf_counter()
+    out: dict = {"launches": {}}
+    runs = list(DIST_SEQ_RUNS)
+    n = torch.cuda.device_count()
+    if n >= 2:  # one rank a card: NCCL (point-to-point for the ring) in
+        # place of the gloo runs that share one card
+        arms = [("ring_flash", (1, 1, n)), ("ring", (1, 1, n)), ("long", (1, 1, n))]
+        if n >= 4 and n % 2 == 0:
+            arms.append(("tp_heads", (1, 2, n // 2)))
+        runs = [r for r in runs if r[0] == "nccl"] + [("nccl", n, tuple(arms))]
+    for backend, world, arms in runs:
+        ranks = _spawn_ranks(world, {"backend": backend, "seq_arms": arms},
+                             f"seq world {world} {backend}", timeout=DIST_SEQ_TIMEOUT_S)
+        for arm, mesh3 in arms:
+            tag = f"{arm}@{'x'.join(map(str, mesh3))}"
+            key = f"{backend}_{world}_{'x'.join(map(str, mesh3))}"
+            a = [r["arms"][tag] for r in ranks]
+            if arm == "long":
+                say(f"dist_seq: long attention seq {a[0]['seq']} ({backend}): ring "
+                    f"{[round(x['ring_ms'], 3) for x in a]} ms, ring_flash "
+                    f"{[round(x['ring_flash_ms'], 3) for x in a]} ms a fwd+bwd per "
+                    f"rank; out max |diff| {a[0]['max_abs_err']:.3e}, grads "
+                    f"{a[0]['grad_rel_err']:.3e} of max")
+                out[f"{key}/long"] = a[0]
+                continue
+            out["launches"][f"{key}/{arm}"] = [x["launches_per_step"] for x in a]
+            say(f"dist_seq: {arm} world {world} ({backend}, data x model x seq "
+                f"{mesh3}): {a[0]['held']}; step_ms "
+                f"{[round(x['step_ms'], 3) for x in a]}, collective ms "
+                f"{[{k: round(v, 4) for k, v in x['collective_ms'].items()} for x in a]}, "
+                f"calls a step {[x['collective_calls'] for x in a]}, launches a step "
+                f"per rank {out['launches'][f'{key}/{arm}']}, peak GB per rank "
+                f"{[round(x['peak_gb'], 2) for x in a]}")
+    if n == 1:  # the toml's two ranks share the card over gloo
+        out["cli"] = _seq_cli(torch)
+    say(f"dist_seq: {time.perf_counter() - t0:.1f} s; on {card}")
+    return out
+
+
+# the seq CLI's toml: configs/bert4rec.toml's model (d 64, 2 heads, 2
+# layers, T 20, dropout 0.1) under ring_flash on a seq axis of 2, its
+# vocabulary the synthetic catalogue's
+SEQ_CLI_USERS, SEQ_CLI_BATCH, SEQ_CLI_EVERY = 2_000, 64, 5
+
+
+def _seq_cli(torch) -> dict:
+    """``python -m torch.distributed.run --nproc-per-node 2 -m
+    tdfo_tpu_torch.launch train --backend gloo`` on a Bert4Rec toml with
+    ``attn = "ring_flash"`` and ``[mesh] seq = 2``: SIGKILLed (torchrun and
+    its workers) once a mid-epoch checkpoint is committed, run again, and
+    held bitwise to an uninterrupted run beside it (every tensor of the
+    final checkpoints)."""
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+    from tdfo_tpu_torch.train.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_synthetic_goodreads(tmp / "data", n_users=SEQ_CLI_USERS)
+        cfgs = {}
+        for name in ("killed", "whole"):
+            cfgs[name] = tmp / f"{name}.toml"
+            cfgs[name].write_text(
+                f'data_dir = "{tmp / "data"}"\nmodel = "bert4rec"\n'
+                'attn = "ring_flash"\nmax_len = 20\nembed_dim = 64\nn_heads = 2\n'
+                "n_layers = 2\ndropout = 0.1\nn_epochs = 1\nlearning_rate = 3e-4\n"
+                f"per_device_train_batch_size = {SEQ_CLI_BATCH}\n"
+                f"per_device_eval_batch_size = {SEQ_CLI_BATCH}\n"
+                f'log_every_n_steps = 5\ncheckpoint_dir = "{tmp / name}"\n'
+                f"checkpoint_every_n_steps = {SEQ_CLI_EVERY}\n"
+                "[mesh]\ndata = 1\nmodel = 1\nseq = 2\n")
+        if launch.main(["preprocess-seq", "--config", str(cfgs["whole"])]) != 0:
+            raise AssertionError("launch preprocess-seq failed")
+
+        def cmd(name):
+            return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                    "2", "--master-port", str(_free_port()), "-m",
+                    "tdfo_tpu_torch.launch", "train", "--backend", "gloo",
+                    "--config", str(cfgs[name])]
+
+        t0 = time.perf_counter()
+        procs: dict = {}
+        try:
+            procs["whole"] = subprocess.Popen(cmd("whole"), cwd=ROOT,
+                                              stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True)
+            with open(tmp / "killed1.log", "w") as log:
+                procs["killed"] = subprocess.Popen(cmd("killed"), cwd=ROOT, stdout=log,
+                                                   stderr=subprocess.STDOUT)
+            mid = None
+            deadline = time.monotonic() + 600
+            while mid is None and time.monotonic() < deadline:
+                if procs["killed"].poll() is not None:
+                    break
+                mid = _mid_checkpoint(tmp / "killed")
+                if mid is not None:
+                    _kill_tree(procs["killed"].pid)
+                    procs["killed"].wait()
+                time.sleep(0.005)
+            if mid is None:
+                raise AssertionError(
+                    f"dist_seq cli: no mid-epoch checkpoint to kill at (rc "
+                    f"{procs['killed'].poll()}); log:\n"
+                    f"{(tmp / 'killed1.log').read_text()[-3000:]}")
+            procs["resumed"] = subprocess.Popen(cmd("killed"), cwd=ROOT,
+                                                stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)
+            outs = {k: p.communicate(timeout=900)[0] for k, p in procs.items()
+                    if k != "killed"}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    _kill_tree(p.pid)
+                    p.wait()
+        for k, log in outs.items():
+            if procs[k].returncode != 0:
+                raise AssertionError(f"dist_seq cli {k} run failed:\n{log[-3000:]}")
+        secs = time.perf_counter() - t0
+        finals = {}
+        for name in ("killed", "whole"):
+            step = CheckpointManager(tmp / name).latest_step()
+            finals[name] = (step, torch.load(tmp / name / str(step) / "state.pt",
+                                             map_location="cpu", weights_only=True))
+        recs = [json.loads(x) for x in (tmp / "killed" / "metrics.jsonl")
+                .read_text().splitlines()]
+    resumed = [r for r in recs if "resumed_mid_epoch" in r]
+    if not resumed:
+        raise AssertionError(f"dist_seq cli: no mid-epoch resume: {recs[-5:]}")
+    (sa, a), (sb, b) = finals["killed"], finals["whole"]
+    fa, fb = state_tensors(a["state"]), state_tensors(b["state"])
+    diff = [k for k in fb if not (k in fa and (torch.equal(fa[k], fb[k])
+                                              if isinstance(fb[k], torch.Tensor)
+                                              else fa[k] == fb[k]))]
+    if sa != sb or fa.keys() != fb.keys() or diff:
+        raise AssertionError(
+            f"dist_seq cli: the resumed run's final checkpoint (step {sa}) is not "
+            f"bitwise the uninterrupted one's (step {sb}): {len(diff)} tensors "
+            f"differ, e.g. {diff[:5]}")
+    keys = [f"{m}@{k}" for k in (10, 20, 50) for m in ("Recall", "NDCG")]
+    tests = [r for r in recs if all(f"test_{k}" in r for k in keys)]
+    say(f"dist_seq cli: torchrun --nproc-per-node 2 --backend gloo, ring_flash, "
+        f"[mesh] seq = 2: SIGKILL after the mid-epoch save at step {mid['step']}, "
+        f"resumed at step {resumed[0]['step']}; final checkpoint (step {sa}, "
+        f"{len(fa)} tensors) bitwise the uninterrupted run's; test "
+        f"{ {k: round(tests[-1]['test_' + k], 4) for k in keys} if tests else None}; "
+        f"{secs:.1f} s")
+    return {"resumed_at": resumed[0]["step"], "final_step": sa}
 
 
 def jagged_rows(rng, b: int = B4R_BATCH):
@@ -5301,7 +5733,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dist-rank"]:  # one rank of dist_main (its own process)
         spec = json.loads(argv[1])
-        return (dist_rank_ctr if "arms" in spec else dist_rank_main)(spec)
+        return (dist_rank_seq if "seq_arms" in spec else dist_rank_ctr
+                if "arms" in spec else dist_rank_main)(spec)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                    help="comma-separated subset of " + ",".join(DEFAULT_PHASES)
@@ -5467,6 +5900,11 @@ def main(argv=None) -> int:
                                         for k, v in r["ctr_launches"].items()}
     if "dist_cli" in phases:
         run("dist_cli", phase_dist_cli, torch)
+    if "dist_seq" in phases:
+        r = run("dist_seq", phase_dist_seq, torch, smi)
+        for rec, name in ((fat, "fat_line_update"), *((recs[k], k) for k in FLASH_KERNELS)):
+            rec["launches_seq_arms"] = {k: [x[name] for x in v]
+                                        for k, v in r["launches"].items()}
     if "profile" in phases:
         run("profile", phase_profile, torch)
     if "profile_b4r" in phases:

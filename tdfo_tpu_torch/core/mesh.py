@@ -10,7 +10,13 @@ rank on card ``LOCAL_RANK``), gloo for the CPU, each set explicitly.
 ``torch.distributed.device_mesh.DeviceMesh`` over the axes ``("data",
 "model", "seq")``, data outermost as in the reference, with its size rules
 (one ``-1`` wildcard; a product other than the world size is an error).
-Rank ``r`` sits at ``(r // (model * seq), (r // seq) % model, r % seq)``.
+Rank ``r`` sits at ``(r // (model * seq), (r // seq) % model, r % seq)``:
+a rank's model group is the ranks with its data and seq coordinates, its
+data group the ranks with its model and seq coordinates, its seq group
+the ranks with its data and model coordinates.  :func:`data_slice` and
+:func:`seq_slice` are this rank's rows of a global batch and its chunk of
+a sequence; :func:`plane_group` is the group of the ranks that share its
+coordinates off some axes (the data x model plane of one seq index).
 
 The reference's ``spoof_cpu_devices`` has no counterpart: CPU ranks are
 gloo processes.  Two ranks can share one card only over gloo (NCCL refuses
@@ -31,7 +37,7 @@ from tdfo_tpu_torch.core.device import resolve_device
 
 __all__ = ["AXES", "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "MeshSpec",
            "axis_group", "axis_index", "axis_size", "data_slice",
-           "initialize_distributed", "make_mesh"]
+           "initialize_distributed", "make_mesh", "plane_group", "seq_slice"]
 
 DATA_AXIS, MODEL_AXIS, SEQ_AXIS = "data", "model", "seq"
 AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS)
@@ -117,3 +123,35 @@ def data_slice(mesh, n: int) -> slice:
         raise ValueError(f"global batch {n} does not split over data = {k}")
     i = axis_index(mesh, DATA_AXIS)
     return slice(i * (n // k), (i + 1) * (n // k))
+
+
+def seq_slice(mesh, t: int) -> slice:
+    """This rank's chunk of a sequence of ``t`` positions split over the
+    seq axis (the whole sequence without a mesh)."""
+    k = axis_size(mesh, SEQ_AXIS)
+    if t % k:
+        raise ValueError(f"sequence length {t} not divisible by seq axis {k}")
+    i = axis_index(mesh, SEQ_AXIS)
+    return slice(i * (t // k), (i + 1) * (t // k))
+
+
+def plane_group(mesh, axes: tuple[str, ...]):
+    """The process group of the ranks that share this rank's coordinates
+    off ``axes`` (``("data", "model")``: the plane of its seq index), in
+    row-major order over ``axes``.  Every rank makes every plane's group on
+    the first call for a mesh (``new_group`` is collective); the mesh keeps
+    them for later calls."""
+    planes = mesh.__dict__.setdefault("_planes", {})
+    axes = tuple(axes)
+    if axes not in planes:
+        ranks = mesh.mesh  # [data, model, seq] global ranks
+        keep = [AXES.index(a) for a in axes]
+        rest = [d for d in range(len(AXES)) if d not in keep]
+        rows = ranks.permute(*rest, *keep).reshape(
+            math.prod(ranks.shape[d] for d in rest), -1).tolist()
+        mine = dist.get_rank()
+        for row in rows:
+            group = dist.new_group(row)
+            if mine in row:
+                planes[axes] = group
+    return planes[axes]

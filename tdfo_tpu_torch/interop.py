@@ -12,6 +12,12 @@ JAX package:
   ``Bert4RecBackbone`` tree loads with ``load_state_dict(strict=True)``; the fused ``qkv`` kernel
   keeps its (head, qkv, dh) column order, which the port's attention reads
   the same way.
+* :func:`tp_backbone_params_from_flax` is the same for one rank of a
+  Megatron tensor-parallel backbone: the flax tree's leaves are first cut
+  to this rank's blocks by the plan of
+  ``parallel.sharding.megatron_tp_rule`` (the reference's plan for the
+  same tree), so the result loads into a backbone after its
+  ``shard_tensor_parallel_``.
 * :func:`dense_params_from_flax` maps a dense-regime model's flax tree
   (``init_twotower``'s or ``init_bert4rec``'s params) to the port's
   ``TwoTower`` or ``Bert4Rec`` state dict: each ``{name}/embedding [V, d]``
@@ -51,7 +57,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["TOL", "backbone_params_from_flax", "bf16_bits",
+__all__ = ["TOL", "backbone_params_from_flax", "bf16_bits", "tp_backbone_params_from_flax",
            "dense_params_from_flax", "flax_params_from_module",
            "gather_to_numpy", "shard_from_numpy", "tables_from_numpy",
            "to_numpy", "to_torch", "tree_from_numpy"]
@@ -111,6 +117,34 @@ def backbone_params_from_flax(tree: Mapping, prefix: str = "") -> dict[str, torc
     return out
 
 
+def _flat(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def tp_backbone_params_from_flax(tree: Mapping, mesh,
+                                 n_heads: int | None) -> dict[str, torch.Tensor]:
+    """This rank's tensor-parallel shards of a flax backbone tree, as a
+    torch ``state_dict`` (the split dims of ``megatron_tp_rule(mesh,
+    n_heads=n_heads)``'s plan sliced to the rank's model index)."""
+    from tdfo_tpu_torch.parallel.sharding import megatron_tp_rule, shard_state
+
+    local = shard_state(_flat(tree), mesh, megatron_tp_rule(mesh, n_heads=n_heads))
+    nested: dict = {}
+    for path, v in local.items():
+        *keys, leaf = path.split("/")
+        node = nested
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return backbone_params_from_flax(nested)
+
+
 def dense_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """A dense-regime model's flax params -> the port model's ``state_dict``
     (loads with ``strict=True``)."""
@@ -128,25 +162,21 @@ def dense_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
 def flax_params_from_module(module: torch.nn.Module) -> dict:
     """A port module's parameters as the reference's flax param tree (nested
     dicts of numpy arrays): the inverse of :func:`dense_params_from_flax`
-    and :func:`backbone_params_from_flax`.  The leaf name follows the
-    owning layer: ``nn.Linear.weight [out, in]`` -> ``kernel [in, out]``,
-    ``nn.LayerNorm.weight`` -> ``scale``, ``nn.Embedding.weight`` ->
-    ``embedding``; biases and plain parameters (``pos_embed``) keep theirs."""
+    and :func:`backbone_params_from_flax`, with the leaves named by
+    ``parallel.sharding.module_flax_paths`` (``Linear`` weights transposed
+    to ``kernel [in, out]``, ``LayerNorm`` weights named ``scale``,
+    ``Embedding`` weights named ``embedding``)."""
+    from tdfo_tpu_torch.parallel.sharding import module_flax_paths
+
+    params = dict(module.named_parameters())
     tree: dict = {}
-    for name, p in module.named_parameters():
-        *path, leaf = name.split(".")
-        owner = module.get_submodule(".".join(path)) if path else module
-        v = to_numpy(p)
-        if leaf == "weight" and isinstance(owner, torch.nn.Linear):
-            leaf, v = "kernel", np.ascontiguousarray(v.T)
-        elif leaf == "weight" and isinstance(owner, torch.nn.LayerNorm):
-            leaf = "scale"
-        elif leaf == "weight" and isinstance(owner, torch.nn.Embedding):
-            leaf = "embedding"
+    for name, (path, flip) in module_flax_paths(module).items():
+        *keys, leaf = path.split("/")
+        v = to_numpy(params[name])
         node = tree
-        for k in path:
+        for k in keys:
             node = node.setdefault(k, {})
-        node[leaf] = v
+        node[leaf] = np.ascontiguousarray(v.T) if flip else v
     return tree
 
 

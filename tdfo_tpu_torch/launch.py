@@ -29,7 +29,8 @@ train --config ... [--device cpu]``.  ``--distributed auto`` (the default)
 starts the process group when torchrun's ``WORLD_SIZE`` is above 1,
 ``always`` also at one rank (the distributed code path on one process),
 ``never`` not at all; NCCL on the card (one rank per card), gloo on the
-CPU.  The ``[mesh]`` table lays the ranks out; only rank 0 writes logs,
+CPU, unless ``--backend`` names one (``gloo`` lets several ranks share one
+card, which NCCL refuses).  The ``[mesh]`` table lays the ranks out; only rank 0 writes logs,
 metrics and checkpoints.  Under ``lookup_mode = "alltoall"``,
 ``[embeddings] grouped_a2a = true`` runs the grouped exchange and ``[train]
 pipeline_overlap = true`` the pipelined step on top of it; int8 storage
@@ -66,6 +67,9 @@ def run(argv: list[str] | None = None):
                    choices=["auto", "always", "never"],
                    help="start torch.distributed from torchrun's environment: "
                         "auto when WORLD_SIZE > 1 (default), always, or never")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend (default: nccl on the card, "
+                        "gloo on the CPU; gloo lets several ranks share a card)")
     args = p.parse_args(argv)
 
     from tdfo_tpu_torch.core.config import read_configs
@@ -152,7 +156,8 @@ def run(argv: list[str] | None = None):
             args.distributed == "auto" and int(os.environ.get("WORLD_SIZE", "1")) > 1)):
         from tdfo_tpu_torch.core.mesh import initialize_distributed
 
-        started = initialize_distributed(args.device, force=True)
+        started = initialize_distributed(args.device, backend=args.backend,
+                                         force=True)
     trainer = Trainer(cfg, log_dir=args.log_dir, device=args.device)
     metrics = trainer.fit()
     if trainer.rank == 0:

@@ -12,11 +12,25 @@ a process group, and its backward is written out:
   the whole gradient of the assembled vectors.  A psum lookup's gradient
   therefore reaches each owned row exactly once (the reference pins the
   same: ``tests/test_embedding_collection.py:92-101``).
-* :class:`AllGatherLast` (the column lookup): forward concatenates the
-  ranks' column blocks; backward keeps this rank's block of the gradient.
 * :class:`AllToAll` (the alltoall lookup's return trip): forward sends
   block ``j`` to rank ``j``; backward sends the gradient blocks back the
   same way (an equal-split all-to-all is its own transpose).
+* :class:`Ppermute` (the ring's rotation, the reference's
+  ``jax.lax.ppermute`` with ``perm = [(i, (i + 1) % P)]``): forward sends
+  to group rank ``(i + 1) % P`` and receives from ``(i - 1) % P``;
+  backward rotates the gradient the other way.
+* :class:`SeqScatter` (a tensor replicated over the seq axis becomes this
+  rank's chunk along a dimension): backward all-gathers the chunks'
+  gradients, because the work upstream is replicated over the group and
+  needs the whole gradient on every rank.  :class:`SeqGather` is its
+  mirror: forward concatenates the ranks' chunks, backward keeps this
+  rank's block of the gradient (the ring's output, and along the last
+  dimension the column lookup's blocks).
+* Megatron's two operators over the model axis: :class:`CopyToModel`
+  (identity forward, sum of the gradients backward: the input of a
+  column-parallel layer) and :class:`AllReduceSum`, which is
+  reduce-from-model (sum forward, identity backward: the output of a
+  row-parallel layer).
 
 :func:`all_to_all` is ``all_to_all_single`` with equal splits, for int32 /
 int64 ids and f32, bf16 and int8 payloads alike; with ``async_op`` it
@@ -24,6 +38,13 @@ returns the work handle beside the output (the pipelined step waits on it
 before it reads the output).  A backend that refuses a dtype on a device
 raises a ``RuntimeError`` naming the backend, the dtype and the device:
 nothing is cast to a dtype the backend takes.
+
+:func:`ring_shift` is the rotation itself.  Its form follows the
+backend, by name: NCCL takes the pair of point-to-point calls
+(``batch_isend_irecv``); gloo, which the card runs when two ranks share
+one device, takes an ``all_to_all_single`` whose splits send the whole
+tensor to one neighbour (gloo moves CUDA all-to-alls, as the sharded
+lookups already rely on).  Bool tensors travel as their bytes.
 
 The plain helpers (:func:`all_gather_cat`, :func:`all_reduce_`,
 :func:`all_to_all`, :func:`gather_to_host`) serve the update, the metrics
@@ -39,8 +60,10 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["AllGatherLast", "AllReduceSum", "AllToAll", "all_gather_cat",
-           "all_reduce_", "all_reduce_tensors", "all_to_all", "gather_to_host"]
+__all__ = ["AllReduceSum", "AllToAll", "CopyToModel",
+           "Ppermute", "SeqGather", "SeqScatter", "all_gather_cat",
+           "all_reduce_", "all_reduce_tensors", "all_to_all", "gather_to_host",
+           "ring_shift"]
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
@@ -110,6 +133,87 @@ def all_to_all(x: torch.Tensor, group, *, async_op: bool = False):
     return (out, work) if async_op else out
 
 
+def ring_shift(x: torch.Tensor, group, *, reverse: bool = False) -> torch.Tensor:
+    """``x`` to group rank ``(i + 1) % P``; returns the tensor of rank
+    ``(i - 1) % P`` (``reverse``: the other way round).  The identity on a
+    group of one."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    me = dist.get_rank(group)
+    step = -1 if reverse else 1
+    dst, src = (me + step) % n, (me - step) % n
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    send, recv = ((x.view(torch.uint8), out.view(torch.uint8))
+                  if x.dtype == torch.bool else (x, out))
+    if dist.get_backend(group) == "nccl":
+        ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, dst), group),
+               dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, src), group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    else:
+        k = send.numel()
+        dist.all_to_all_single(recv.view(-1), send.view(-1),
+                               [k if j == src else 0 for j in range(n)],
+                               [k if j == dst else 0 for j in range(n)],
+                               group=group)
+    return out
+
+
+def _chunk(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n, k = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim]
+    if size % n:
+        raise ValueError(f"dimension {dim} of size {size} does not split "
+                         f"over {n} ranks")
+    return x.narrow(dim, k * (size // n), size // n).contiguous()
+
+
+class Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ring_shift(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ring_shift(grad, ctx.group, reverse=True), None
+
+
+class SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _chunk(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_cat(grad, ctx.group, dim=ctx.dim), None, None
+
+
+class SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _chunk(grad, ctx.group, ctx.dim), None, None
+
+
+class CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
+
+
 class AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -118,19 +222,6 @@ class AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
-
-
-class AllGatherLast(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.width = x.shape[-1]
-        ctx.rank = dist.get_rank(group)
-        return all_gather_cat(x, group, dim=-1)
-
-    @staticmethod
-    def backward(ctx, grad):
-        lo = ctx.rank * ctx.width
-        return grad[..., lo:lo + ctx.width].contiguous(), None
 
 
 class AllToAll(torch.autograd.Function):

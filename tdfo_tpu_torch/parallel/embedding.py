@@ -75,6 +75,10 @@ it, :meth:`grouped_lookup`), and one id plus one grad ``all_to_all`` for
 the update (:meth:`grouped_update`): O(1) collectives per direction, not
 O(tables).  Replicated tables take the per-feature path beside it.
 
+A seq axis (Bert4Rec's ring) replicates everything here: each seq
+replica holds the tables as a mesh without it would and updates its own
+copy identically, one ``fat_line_update`` a step on each rank's shard.
+
 Hot heads and update caches under a mesh are replicated: every rank
 holds the same ones (the reference pins them ``P()``).  ``init`` gathers
 each head from the cold rows it replaces, each row from the rank that owns
@@ -109,6 +113,7 @@ from tdfo_tpu_torch.core.device import resolve_device
 from tdfo_tpu_torch.core.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
+    SEQ_AXIS,
     axis_group,
     axis_index,
     axis_size,
@@ -129,9 +134,9 @@ from tdfo_tpu_torch.ops.quant import (
     table_id,
 )
 from tdfo_tpu_torch.parallel.collectives import (
-    AllGatherLast,
     AllReduceSum,
     AllToAll,
+    SeqGather,
     all_gather_cat,
     all_reduce_,
     all_to_all,
@@ -855,8 +860,8 @@ class ShardedEmbeddingCollection:
                 out[feat] = self._lookup_psum(tables, aname, spec, gid,
                                               fill=mode == "gspmd")
             elif place == "column":
-                out[feat] = AllGatherLast.apply(
-                    self._gather(tables, aname, spec, gid), self._model_group())
+                out[feat] = SeqGather.apply(
+                    self._gather(tables, aname, spec, gid), self._model_group(), -1)
             else:
                 out[feat] = self._gather(tables, aname, spec, gid)
         return out
@@ -1379,7 +1384,8 @@ class ShardedEmbeddingCollection:
         and get ``(None, None)``."""
         if self.mesh is None:
             return dict(tables), dict(slots)
-        if root_only and axis_index(self.mesh, DATA_AXIS) != 0:
+        if root_only and (axis_index(self.mesh, DATA_AXIS)
+                          or axis_index(self.mesh, SEQ_AXIS)):
             return None, None
         return self._each_array(tables, slots, lambda n, t, place: self._gather_one(
             n, t, place, root_only))

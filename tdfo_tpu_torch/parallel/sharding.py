@@ -12,8 +12,9 @@ placement; :func:`shard_state` keeps this rank's block of each leaf (there
 is no GSPMD to place it: the rank holds its block and the program that
 reads it does the communication).
 
-``megatron_tp_rule`` (tensor parallelism) is ``ROADMAP.md`` Queue A item
-12b and refuses.
+``megatron_tp_rule`` places the transformer's dense layers for Megatron
+tensor parallelism; :func:`module_plan` applies a plan to a port module's
+parameters (torch layout: a ``Linear`` weight is the transposed kernel).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Any, Callable, Mapping
 from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_index, axis_size
 
 __all__ = ["PlanRule", "make_sharding_plan", "megatron_tp_rule",
-           "min_size_partitioner_rule", "rowwise_embedding_rule", "shard_state"]
+           "min_size_partitioner_rule", "module_flax_paths", "module_plan",
+           "rowwise_embedding_rule", "shard_module_", "shard_state"]
 
 PlanRule = Callable[[str, Any], "tuple | None"]
 
@@ -73,11 +75,82 @@ def min_size_partitioner_rule(mesh, min_shard_bytes: int = 256 * 1024,
     return rule
 
 
-def megatron_tp_rule(mesh, axis: str = MODEL_AXIS, n_heads: int | None = None):
-    """Tensor parallelism of the transformer's dense layers: not ported."""
-    raise NotImplementedError(
-        "megatron_tp_rule (tensor_parallel) is not ported to tdfo_tpu_torch "
-        "yet (ROADMAP.md Queue A item 12b)")
+def megatron_tp_rule(mesh, axis: str = MODEL_AXIS,
+                     n_heads: int | None = None) -> PlanRule:
+    """Megatron tensor parallelism of the transformer's dense layers, as
+    placements of the flax-layout tree (``kernel [in, out]``):
+
+    * column parallel (output features over ``axis``, biases along):
+      ``fc1``, the vocab ``out_proj`` and the fused ``attn/qkv``, whose
+      (head, qkv, dh) feature order makes the column split a head split;
+    * row parallel (input features over ``axis``; the bias stays whole and
+      is added once, after the sum): ``fc2`` and ``attn/out`` kernels.
+
+    A leaf whose split dimension does not divide stays replicated.
+    ``n_heads`` licenses the attention split: None leaves attention
+    replicated (what ``attn = "flash"`` passes), and a head count the axis
+    does not divide raises ``ValueError``."""
+    col = re.compile(r"(fc1|out_proj|attn/qkv)/(kernel|bias)$")
+    row = re.compile(r"(fc2|attn/out)/kernel$")
+    attn_pat = re.compile(r"attn/(qkv|out)/")
+    size = axis_size(mesh, axis)
+
+    def rule(path: str, leaf):
+        if not hasattr(leaf, "ndim"):
+            return None
+        if attn_pat.search(path):
+            if n_heads is None:
+                return None  # head alignment unproven: replicated
+            if n_heads % size:
+                raise ValueError(
+                    f"tensor parallelism needs n_heads ({n_heads}) divisible "
+                    f"by the {axis!r} mesh axis ({size}); pick a compatible "
+                    "mesh or head count")
+        if col.search(path):
+            if leaf.ndim == 2 and leaf.shape[1] % size == 0:
+                return (None, axis)
+            if leaf.ndim == 1 and leaf.shape[0] % size == 0:
+                return (axis,)
+            return None
+        if row.search(path) and leaf.ndim == 2 and leaf.shape[0] % size == 0:
+            return (axis, None)
+        return None
+
+    return rule
+
+
+def module_flax_paths(module) -> dict[str, tuple[str, bool]]:
+    """``{torch parameter name: (flax path, transposed)}`` of a port
+    module, the leaf named after the owning layer: ``nn.Linear.weight
+    [out, in]`` is the flax ``kernel [in, out]`` (transposed),
+    ``nn.LayerNorm.weight`` its ``scale``, ``nn.Embedding.weight`` its
+    ``embedding``; biases and plain parameters (``pos_embed``) keep their
+    names."""
+    import torch
+
+    leaves = ((torch.nn.Linear, "kernel"), (torch.nn.LayerNorm, "scale"),
+              (torch.nn.Embedding, "embedding"))
+    out = {}
+    for name, _ in module.named_parameters():
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path)) if path else module
+        if leaf == "weight":
+            leaf = next((n for kind, n in leaves if isinstance(owner, kind)), leaf)
+        out[name] = ("/".join([*path, leaf]), leaf == "kernel")
+    return out
+
+
+def module_plan(module, mesh, *rules: PlanRule) -> dict[str, tuple]:
+    """:func:`make_sharding_plan` of a port module's parameters, in torch
+    layout: ``{parameter name: placement}`` with a ``Linear`` weight's
+    placement given for ``[out, in]``."""
+    paths = module_flax_paths(module)
+    params = dict(module.named_parameters())
+    flax_view = {p: (params[n].detach().T if flip else params[n].detach())
+                 for n, (p, flip) in paths.items()}
+    plan = make_sharding_plan(flax_view, mesh, *rules)
+    return {n: (tuple(reversed(plan[p])) if flip and plan[p] else plan[p])
+            for n, (p, flip) in paths.items()}
 
 
 def make_sharding_plan(tree: Mapping[str, Any], mesh, *rules: PlanRule
@@ -95,19 +168,38 @@ def make_sharding_plan(tree: Mapping[str, Any], mesh, *rules: PlanRule
     return plan
 
 
+def _local_block(leaf, spec, mesh):
+    """This rank's block of ``leaf`` under placement ``spec``."""
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        n, k = axis_size(mesh, ax), axis_index(mesh, ax)
+        size = leaf.shape[dim] // n
+        index = [slice(None)] * leaf.ndim
+        index[dim] = slice(k * size, (k + 1) * size)
+        leaf = leaf[tuple(index)]
+    return leaf
+
+
 def shard_state(tree: Mapping[str, Any], mesh, *rules: PlanRule) -> dict[str, Any]:
     """This rank's block of every leaf under :func:`make_sharding_plan`:
     each split dimension sliced to the rank's index along its axis."""
-    out = {}
-    for path, spec in make_sharding_plan(tree, mesh, *rules).items():
-        leaf = tree[path]
-        for dim, ax in enumerate(spec):
-            if ax is None:
-                continue
-            n, k = axis_size(mesh, ax), axis_index(mesh, ax)
-            size = leaf.shape[dim] // n
-            index = [slice(None)] * leaf.ndim
-            index[dim] = slice(k * size, (k + 1) * size)
-            leaf = leaf[tuple(index)]
-        out[path] = leaf
-    return out
+    return {path: _local_block(tree[path], spec, mesh)
+            for path, spec in make_sharding_plan(tree, mesh, *rules).items()}
+
+
+def shard_module_(module, mesh, *rules: PlanRule) -> dict[str, tuple]:
+    """Keep this rank's block of every parameter of ``module`` under
+    :func:`module_plan` (each split parameter replaced by a fresh one of
+    its block); returns the plan."""
+    import torch
+
+    plan = module_plan(module, mesh, *rules)
+    for name, spec in plan.items():
+        if not spec:
+            continue
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path)) if path else module
+        block = _local_block(getattr(owner, leaf).detach(), spec, mesh)
+        setattr(owner, leaf, torch.nn.Parameter(block.clone()))
+    return plan

@@ -56,6 +56,17 @@ gradients are gathered over it, in global batch order, before
 scaled or gathered, so a ``gspmd`` or ``psum`` step on model shards sums
 exactly what the single-device step sums.
 
+The seq axis and tensor parallelism (Bert4Rec): the batch splits over
+the data axis only (and model under ``alltoall``), so a seq or a
+tensor-parallel model rank holds the same rows as its neighbours and the
+batch group leaves them out: seq ranks end the backward with identical
+gradients (the ring gathers its chunks' gradients), and the dense
+gradients of a tensor-parallel shard are summed over the data axis alone
+before AdamW steps each rank's shard; nothing is summed over seq.  The
+step's dropout generator reaches the forward as this rank's share of the
+global batch's rows (``BatchGroup.share``), so the masks are the
+single-device step's.
+
 Grouped exchange (a ``grouped_a2a`` collection under ``alltoall``): every
 row- and table-sharded feature's forward rides the collection's grouped
 lookup and their update is ONE ``coll.grouped_update`` (one id and one
@@ -94,7 +105,15 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from tdfo_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, axis_group, axis_index, axis_size
+from tdfo_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEQ_AXIS,
+    axis_group,
+    axis_index,
+    axis_size,
+    plane_group,
+)
 from tdfo_tpu_torch.ops.kernels.fat_line_update import SENTINEL
 from tdfo_tpu_torch.ops.quant import bytes_to_f32, dequantize_rows
 from tdfo_tpu_torch.ops.quant import sr_key as _make_sr_key
@@ -133,7 +152,9 @@ __all__ = ["BatchGroup", "PipelinedSparseStep", "SparseTrainState",
 class BatchGroup:
     """The ranks that split the global batch under ``mesh`` and lookup
     ``mode``: the data axis, and under ``alltoall`` the model axis too (the
-    lookup's ids are each rank's share).  ``size`` is 1 without a mesh."""
+    lookup's ids are each rank's share).  The seq axis never splits the
+    batch: its ranks hold the same rows (and, outside the ring, compute the
+    same things).  ``size`` is 1 without a mesh."""
 
     def __init__(self, mesh, mode: str):
         self.mesh = mesh
@@ -149,8 +170,19 @@ class BatchGroup:
             self.group = axis_group(mesh, DATA_AXIS)
         elif axis_size(mesh, DATA_AXIS) == 1:
             self.group = axis_group(mesh, MODEL_AXIS)
-        else:  # data x model (seq is 1): every rank, data-major
+        elif axis_size(mesh, SEQ_AXIS) == 1:  # data x model: every rank
             self.group = torch.distributed.group.WORLD
+        else:  # the data x model plane of this rank's seq index
+            self.group = plane_group(mesh, (DATA_AXIS, MODEL_AXIS))
+
+    def share(self, generator):
+        """The step's dropout generator with this rank's rows of the global
+        batch (``models.transformer.RowShare``; as it is at size 1)."""
+        if generator is None or self.size == 1:
+            return generator
+        from tdfo_tpu_torch.models.transformer import RowShare
+
+        return RowShare(generator, self.size, self.index)
 
     def split(self, batch):
         """This rank's share of a data-local batch (every tensor's rows)."""
@@ -290,7 +322,10 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
     (``(state, (loss, aux))`` with ``with_aux``); ``forward(embs, batch)``
     returns the loss (or ``(loss, aux)``).  A forward that also takes a
     ``generator`` keyword receives the step's ``torch.Generator`` (the
-    reference's ``dropout_rng``; ``None`` disables dropout).  ``batch``
+    reference's ``dropout_rng``; ``None`` disables dropout), and one that
+    takes ``batch_group`` the step's :class:`BatchGroup` (a loss whose
+    divisor depends on the data, the masked LM's label count, normalises
+    over the whole group with it).  ``batch``
     holds an id tensor, of any shape, for every feature the collection
     serves (``[B]`` CTR ids, ``[B, T]`` item sequences), after
     ``batch_transform`` (run first, on the device: the jagged path's
@@ -324,6 +359,7 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
     bg = BatchGroup(coll.mesh, mode)
     features = list(coll.features())
     takes_gen = "generator" in inspect.signature(forward).parameters
+    takes_group = "batch_group" in inspect.signature(forward).parameters
     hot_tables = coll.hot_tables()
     if hot_tables and mode != "gspmd":
         raise ValueError("hot/cold tables compose with lookup mode 'gspmd' only")
@@ -520,8 +556,10 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                     coll.lookup(state.tables, ids, mode=mode), features)
                 ctx = {}
         embs = {f: v.requires_grad_(True) for f, v in gathered.items()}
-        out = (forward(embs, batch, generator=generator) if takes_gen
-               else forward(embs, batch))
+        kw = {"generator": bg.share(generator)} if takes_gen else {}
+        if takes_group:
+            kw["batch_group"] = bg
+        out = forward(embs, batch, **kw)
         loss, aux = out if with_aux else (out, None)
         params = list(state.backbone.parameters())
         # the batch group's mean: each rank's share weighs 1 / G

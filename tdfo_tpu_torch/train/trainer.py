@@ -72,7 +72,12 @@ exchange with ``[embeddings] grouped_a2a`` and through the pipelined step
 with ``[train] pipeline_overlap`` (the epoch loop primes on its first
 batch, trains each batch one call later and flushes the last; the carry
 is not checkpointed: a resume primes on the batch the carry held); the
-dense TwoTower regime is data-parallel.  Train losses,
+dense TwoTower regime is data-parallel.  Bert4Rec takes the same table
+layouts and lookups, ``[mesh] seq`` with ``attn = "ring" | "ring_flash"``
+(the seq ranks read the same rows) and ``tensor_parallel`` (the Megatron
+split over the model axis; its shards and their AdamW moments gathered
+into checkpoints), its masked-LM loss normalised by the global batch's
+label count and its eval sums taken over the ranks that split the batch.  Train losses,
 the train AUC and every eval metric are the global batch's on every rank
 (histograms, sums and counts summed over the data axis); eval tops each
 rank up with zero-weight template batches to the longest slice's count, so
@@ -209,14 +214,10 @@ def refuse_unported(cfg: Config, world: int | None = None,
     if world is None:
         world = dist.get_world_size() if dist.is_initialized() else 1
     tele = cfg.telemetry
-    multi = world > 1 or cfg.mesh.model > 1 or cfg.mesh.data > 1
+    multi = (world > 1 or cfg.mesh.model > 1 or cfg.mesh.data > 1
+             or cfg.mesh.seq > 1)
     dense = cfg.model == "twotower" and not cfg.model_parallel
     checks = [
-        (cfg.attn in ("ring", "ring_flash"), f"attn = {cfg.attn!r}", "12b"),
-        (cfg.tensor_parallel, "tensor_parallel = true", "12b"),
-        (cfg.mesh.seq != 1, "[mesh] seq > 1", "12b"),
-        (multi and cfg.model == "bert4rec", "bert4rec under a multi-device mesh",
-         "12b"),
         (multi and dense and cfg.steps_per_execution > 1
          and torch.device(device).type == "cuda",
          "CUDA-graph steps (steps_per_execution > 1, dense regime) under "
@@ -252,33 +253,86 @@ class _Quiet:
 class _GlobalView:
     """A sharded state in the single-device layout (what a checkpoint
     holds).  ``gathered`` gives global rank 0 the whole state, each sharded
-    table and slot gathered onto its host a shard at a time (the other
-    ranks get None); ``state_dict`` is the restore template, the layout's
-    shapes and dtypes with zero-memory stand-ins for the sharded arrays;
-    ``load_state_dict`` keeps this rank's shards."""
+    table and slot, and each tensor-parallel backbone parameter with its
+    AdamW moments (``tp_plan``), gathered onto its host a shard at a time
+    (the other ranks get None); ``state_dict`` is the restore template, the
+    layout's shapes and dtypes with zero-memory stand-ins for the sharded
+    arrays; ``load_state_dict`` keeps this rank's shards."""
 
-    def __init__(self, state, coll):
-        self.state, self.coll = state, coll
+    def __init__(self, state, coll, tp_plan=None, mesh=None):
+        self.state, self.coll, self.mesh = state, coll, mesh
+        # parameter index -> (name, dim split over the model axis)
+        plan = tp_plan or {}
+        self.tp = {i: (n, plan[n].index("model"))
+                   for i, (n, _) in enumerate(state.backbone.named_parameters())
+                   if "model" in plan.get(n, ())}
+
+    def _each_tp(self, sd, fn) -> None:
+        """``fn(tensor, dim)`` over every tensor-parallel parameter and its
+        moments in the ``state_dict`` form ``sd``, in place."""
+        for i, (name, dim) in self.tp.items():
+            sd["backbone"][name] = fn(sd["backbone"][name], dim)
+            moments = dict(sd["optimizer"][i])
+            for k, v in moments.items():
+                if v.dim():  # the step counter stays
+                    moments[k] = fn(v, dim)
+            sd["optimizer"][i] = moments
 
     def gathered(self) -> dict | None:
+        from tdfo_tpu_torch.core.mesh import (
+            DATA_AXIS,
+            MODEL_AXIS,
+            SEQ_AXIS,
+            axis_group,
+            axis_index,
+        )
+        from tdfo_tpu_torch.parallel.collectives import gather_to_host
+
         sd = self.state.state_dict()
         tables, slots = self.coll.global_arrays(sd["tables"], sd["slots"],
                                                 root_only=True)
+        if self.tp and not (axis_index(self.mesh, DATA_AXIS)
+                            or axis_index(self.mesh, SEQ_AXIS)):
+            sd["optimizer"] = dict(sd["optimizer"])
+            group = axis_group(self.mesh, MODEL_AXIS)
+            self._each_tp(sd, lambda t, dim: gather_to_host(t, group, dim))
         if torch.distributed.get_rank() != 0:
             return None
         sd["tables"], sd["slots"] = tables, slots
         return sd
 
     def state_dict(self) -> dict:
+        from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_size
+
         sd = self.state.state_dict()
         sd["tables"], sd["slots"] = self.coll.global_template(sd["tables"],
                                                               sd["slots"])
+        n = axis_size(self.mesh, MODEL_AXIS)
+
+        def stand_in(t, dim):
+            shape = list(t.shape)
+            shape[dim] *= n
+            return torch.empty((), dtype=t.dtype).expand(shape)
+
+        sd["optimizer"] = dict(sd["optimizer"])
+        self._each_tp(sd, stand_in)
         return sd
 
     def load_state_dict(self, tree: dict) -> None:
+        from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_index, axis_size
+
         tree = dict(tree)
         tree["tables"], tree["slots"] = self.coll.local_arrays(tree["tables"],
                                                                tree["slots"])
+        n, k = axis_size(self.mesh, MODEL_AXIS), axis_index(self.mesh, MODEL_AXIS)
+
+        def block(t, dim):
+            size = t.shape[dim] // n
+            return t.narrow(dim, k * size, size)
+
+        tree["backbone"], tree["optimizer"] = (dict(tree["backbone"]),
+                                               dict(tree["optimizer"]))
+        self._each_tp(tree, block)
         self.state.load_state_dict(tree)
 
 
@@ -297,6 +351,10 @@ class Trainer:
         from tdfo_tpu_torch.core.mesh import _resolve_sizes, make_mesh
 
         refuse_unported(config, device=device)
+        if config.tensor_parallel and config.model != "bert4rec":
+            raise ValueError(
+                "tensor_parallel = true splits bert4rec's transformer; "
+                f"model {config.model!r} has none to split")
         if config.use_tpu:
             raise RuntimeError(
                 "use_tpu = true but tdfo_tpu_torch trains on a CUDA card or "
@@ -363,7 +421,9 @@ class Trainer:
         single-device layout under a mesh."""
         if self.mesh is None or self._dense:
             return self.state
-        return _GlobalView(self.state, self.coll)
+        return _GlobalView(self.state, self.coll,
+                           getattr(self.backbone, "tp_plan", None) if self._seq
+                           else None, self.mesh)
 
     def _data_sum(self, tensors):
         """Sums over the data axis (the global batch's totals); identity
@@ -607,10 +667,16 @@ class Trainer:
             n_items=n_items, max_len=cfg.max_len, embed_dim=cfg.embed_dim,
             n_heads=cfg.n_heads, n_layers=cfg.n_layers, dropout=cfg.dropout)
         sharding = cfg.embedding_sharding if cfg.model_parallel else "replicated"
+        self._refuse_bert4rec_knobs()
         self.coll, tables, self.backbone = make_sharded_bert4rec(
             self.model_cfg, seed=cfg.seed, sharding=sharding,
             attn=cfg.attn, fused_threshold=cfg.effective_fused_threshold,
-            fused_kind=cfg.sparse_optimizer, device=self.device)
+            fused_kind=cfg.sparse_optimizer, device=self.device, mesh=self.mesh,
+            a2a_capacity_factor=cfg.a2a_capacity_factor or None,
+            ring_block_k=cfg.ring_block_k or None,
+            tp_heads=cfg.tensor_parallel and cfg.attn in ("ring", "ring_flash"),
+            tensor_parallel=cfg.tensor_parallel,
+            grouped_a2a=cfg.embeddings.grouped_a2a)
         self.state = SparseTrainState.create(
             backbone=self.backbone, tables=tables,
             sparse_opt=sparse_optimizer(cfg.sparse_optimizer,
@@ -631,24 +697,44 @@ class Trainer:
                         for k in ("item", "label")}
 
         if cfg.train.pipeline_overlap:
-            # the port's Bert4Rec trains without a mesh (under one: item
-            # 12b), where the pipelined step refuses by the reference's
-            # message
+            # the pipelined step over the grouped exchange (it refuses
+            # without a mesh, by the reference's message)
             from tdfo_tpu_torch.train.sparse_step import (
                 make_pipelined_sparse_train_step,
             )
 
-            make_pipelined_sparse_train_step(
+            if cfg.dedup_lookup:
+                raise ValueError(
+                    "dedup_lookup (gspmd-only) does not compose with "
+                    "train.pipeline_overlap")
+            self._pipe = make_pipelined_sparse_train_step(
                 self.coll, bert4rec_sparse_forward(self.backbone),
                 batch_transform=transform)
-        self.train_step = make_sparse_train_step(
-            self.coll, bert4rec_sparse_forward(self.backbone),
-            mode=cfg.lookup_mode, dedup_lookup=cfg.dedup_lookup,
-            batch_transform=transform)
+        else:
+            self.train_step = make_sparse_train_step(
+                self.coll, bert4rec_sparse_forward(self.backbone),
+                mode=cfg.lookup_mode, dedup_lookup=cfg.dedup_lookup,
+                batch_transform=transform)
         self._set_patterns("parquet_bert4rec")
         self._eval_schema = {"seqs": np.int32, "cands": np.int32}
         self._eval_rename = lambda raw: {"seqs": raw["eval_seqs"],
                                          "cands": raw["candidate_items"]}
+
+    def _refuse_bert4rec_knobs(self) -> None:
+        """Bert4Rec's knobs that do not compose, by name: hot/cold storage
+        (a CTR table form), and under a mesh tensor parallelism with the
+        alltoall lookup."""
+        cfg = self.config
+        if (self.mesh is not None and cfg.tensor_parallel
+                and cfg.lookup_mode == "alltoall"):
+            raise ValueError(
+                "tensor_parallel composes with lookup_mode \"gspmd\" or "
+                "\"psum\": alltoall splits each batch over the model ranks, "
+                "which tensor parallelism needs to hold the same rows")
+        if cfg.embeddings.hot_vocab > 0:
+            raise ValueError(
+                "embeddings.hot_vocab splits the CTR tables the CTR ETL lists "
+                "in hot_ids.json; bert4rec's item table has no hot/cold form")
 
     # ------------------------------------------------------------- streams
 
@@ -753,14 +839,21 @@ class Trainer:
 
     def _pipelined_step(self, state, batch, carry):
         """The pipelined step: trains the CARRIED batch, so the AUC folds the
-        carry's labels (reference ``_wrap_auc_pipelined``).  ``(state,
-        loss, carry)``."""
+        carry's labels (reference ``_wrap_auc_pipelined``); Bert4Rec takes
+        the dropout generator of the step it trains.  ``(state, loss,
+        carry)``."""
+        if self._seq:
+            gen = dropout_generator(self.config.seed + 1, state.step, self.device)
+            return self._pipe.step(state, batch, carry, gen)
         labels = carry[0]["label"]
         state, (loss, logits), carry = self._pipe.step(state, batch, carry)
         self._fold_auc(labels, logits)
         return state, loss, carry
 
     def _pipelined_flush(self, state, carry):
+        if self._seq:
+            gen = dropout_generator(self.config.seed + 1, state.step, self.device)
+            return self._pipe.flush(state, carry, gen)
         labels = carry[0]["label"]
         state, (loss, logits) = self._pipe.flush(state, carry)
         self._fold_auc(labels, logits)
@@ -1041,18 +1134,24 @@ class Trainer:
         weighted Recall/NDCG@{10,20,50}, folded on the device.  Runs the
         inference forward (flash: no lse)."""
         from tdfo_tpu_torch.models.bert4rec import key_padding_mask
+        from tdfo_tpu_torch.parallel.collectives import all_reduce_tensors
         from tdfo_tpu_torch.train.seq import score_candidates
+        from tdfo_tpu_torch.train.sparse_step import BatchGroup
 
+        mode = self.config.lookup_mode
+        bg = BatchGroup(self.mesh, mode)  # the ranks whose rows differ
         acc = {"w_sum": torch.zeros((), device=self.device)}
         for k in self._METRIC_KS:
             acc[f"Recall@{k}"] = torch.zeros((), device=self.device)
             acc[f"NDCG@{k}"] = torch.zeros((), device=self.device)
         for batch in self._eval_batches(pattern):
+            batch = bg.split(batch)
             w = batch["_weight"]
             embs = self.coll.lookup(self.state.tables, {"item": batch["seqs"]},
-                                    mode=self.config.lookup_mode)
+                                    mode=mode)
             logits = self.backbone(embs["item"], key_padding_mask(batch["seqs"]))
-            scores = score_candidates(logits, batch["cands"])
+            scores = score_candidates(logits, batch["cands"],
+                                      vocab_split=self.backbone.vocab_tp)
             labels = torch.zeros_like(scores)
             labels[:, 0] = 1.0
             m = recalls_and_ndcgs_for_ks(scores, labels, ks=self._METRIC_KS,
@@ -1060,6 +1159,8 @@ class Trainer:
             acc["w_sum"] += w.sum()
             for k, v in m.items():
                 acc[k] += v * w.sum()
+        if bg.size > 1:  # the global batch's sums
+            acc = dict(zip(acc, all_reduce_tensors(list(acc.values()), bg.group)))
         w_sum = max(float(acc.pop("w_sum")), 1.0)
         metrics = {prefix + k: float(v) / w_sum for k, v in acc.items()}
         self.logger.log(epoch=epoch, **metrics)

@@ -295,10 +295,29 @@ def test_dropout_draws_from_the_step_generator():
 
 
 def test_ring_attention_refuses():
-    _, tcfg = _cfgs()
-    for attn in ("ring", "ring_flash"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tb4r.make_sharded_bert4rec(tcfg, attn=attn, device="cpu")
+    """Ring attention no longer refuses: a ring of one (no mesh) is full
+    attention at the logits rung (``ring``: the online softmax sums in
+    another order) and the flash path bitwise (``ring_flash``: one merge,
+    weights 0 and exp(0)), forward and backward."""
+    _, tcfg = _cfgs(n_layers=2)
+    rng = np.random.default_rng(7)
+    item, _ = _seqs(rng)
+    embs = torch.from_numpy(rng.uniform(-1, 1, (B, T, D)).astype(np.float32))
+    mask = tb4r.key_padding_mask(torch.from_numpy(item))
+    got = {}
+    for attn in ("full", "ring", "flash", "ring_flash"):
+        _, _, bb = tb4r.make_sharded_bert4rec(tcfg, attn=attn, device="cpu")
+        e = embs.clone().requires_grad_(True)
+        logits = bb(e, mask)
+        grads = torch.autograd.grad(logits.square().mean(), [e, *bb.parameters()])
+        got[attn] = (logits.detach(), grads)
+    rtol, atol = TOL["logits"]
+    np.testing.assert_allclose(got["ring"][0].numpy(), got["full"][0].numpy(),
+                               rtol=rtol, atol=atol)
+    for a, b in zip(got["ring"][1], got["full"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol, atol=atol)
+    assert torch.equal(got["ring_flash"][0], got["flash"][0])
+    assert all(torch.equal(a, b) for a, b in zip(got["ring_flash"][1], got["flash"][1]))
 
 
 def test_dedup_lookup_matches_default_path():

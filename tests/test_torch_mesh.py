@@ -8,8 +8,10 @@
 * on four gloo ranks (``tests/torch_dist_worker.py``), a ``MeshSpec(data=2,
   model=2)`` mesh is named ``("data", "model", "seq")`` with data
   outermost: rank r sits at ``(r // 2, r % 2, 0)``, as the reference's
-  ``make_mesh`` lays ``jax.devices()`` out;
-* the placement rules give the reference's plans.
+  ``make_mesh`` lays ``jax.devices()`` out; a seq axis is innermost, and
+  ``plane_group`` and ``seq_slice`` follow the layout;
+* the placement rules give the reference's plans, ``megatron_tp_rule``'s
+  included.
 """
 
 import tempfile
@@ -71,7 +73,8 @@ def test_initialize_distributed_reads_the_environment(monkeypatch):
 
 def test_mesh_layout_over_four_ranks():
     cases = {"m22": dict(fn="mesh_info", mesh=(2, 2)),
-             "m14": dict(fn="mesh_info", mesh=(1, 4))}
+             "m14": dict(fn="mesh_info", mesh=(1, 4)),
+             "m122": dict(fn="mesh_info", mesh=(1, 2, 2))}
     res = run_ranks(4, cases, Path(tempfile.mkdtemp(prefix="mesh4_")))
     jm = make_mesh(JMeshSpec(data=2, model=2, seq=1), devices=jax.devices()[:4])
     dev = np.asarray(jm.devices)
@@ -87,6 +90,14 @@ def test_mesh_layout_over_four_ranks():
         assert m["lines"]["seq"] == [r]
         assert out["m14"]["coords"] == (0, r, 0)
         assert out["m14"]["lines"]["model"] == [0, 1, 2, 3]
+        assert m["plane"] == [0, 1, 2, 3] and m["seq_slice"] == slice(0, 8)
+        # data 1 x model 2 x seq 2: rank r at (0, r // 2, r % 2); its model
+        # line shares its seq index, its data x model plane too
+        s = out["m122"]
+        assert s["coords"] == (0, r // 2, r % 2)
+        assert s["lines"]["seq"] == [2 * (r // 2), 2 * (r // 2) + 1]
+        assert s["lines"]["model"] == s["plane"] == [r % 2, 2 + r % 2]
+        assert s["seq_slice"] == slice(4 * (r % 2), 4 * (r % 2) + 4)
 
 
 class _Sizes:
@@ -136,5 +147,26 @@ def test_sharding_rules_match_the_reference_plans():
             if spec:  # model index 1 keeps the second half of the rows
                 n = flat[k].shape[0] // 2
                 np.testing.assert_array_equal(local[k], flat[k][n:])
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tsh.megatron_tp_rule(tmesh)
+    # Megatron tensor parallelism: the reference's plan of a Bert4Rec
+    # backbone's tree, head guard included
+    from tdfo_tpu.models.bert4rec import Bert4RecConfig, make_sharded_bert4rec
+
+    _, _, _, dense = make_sharded_bert4rec(
+        jax.random.key(0), Bert4RecConfig(n_items=40, max_len=8, embed_dim=16,
+                                          n_heads=2, n_layers=1), None,
+        sharding="replicated")
+    dflat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+             for path, v in jax.tree_util.tree_leaves_with_path(dense)}
+    for n_heads in (2, None):
+        jplan = jsh.make_sharding_plan(dense, jmesh,
+                                       jsh.megatron_tp_rule(jmesh, n_heads=n_heads))
+        want = {"/".join(str(getattr(k, "key", k)) for k in path): tuple(s.spec)
+                for path, s in jax.tree_util.tree_leaves_with_path(
+                    jplan, is_leaf=lambda x: hasattr(x, "spec"))}
+        got = tsh.make_sharding_plan(dflat, tmesh,
+                                     tsh.megatron_tp_rule(tmesh, n_heads=n_heads))
+        assert got == {k: tuple(v) for k, v in want.items()}
+    assert got["block_0/ff/fc1/kernel"] == (None, "model")
+    with pytest.raises(ValueError, match="n_heads"):
+        tsh.megatron_tp_rule(tmesh, n_heads=3)("block_0/attn/qkv/kernel",
+                                                dflat["block_0/attn/qkv/kernel"])

@@ -18,7 +18,8 @@
 * Every knob of ``ROADMAP.md`` Queue A item 12b still to port refuses by
   name under a multi-device mesh; the ported ones (the grouped exchange,
   the pipelined step, int8 storage, column sharding under rowwise_adagrad,
-  the update cache, hot/cold tables, ``dedup_lookup``) do not.
+  the update cache, hot/cold tables, ``dedup_lookup``, and Bert4Rec with
+  the seq axis, ring attention and tensor parallelism) do not.
 """
 
 import functools
@@ -181,13 +182,10 @@ def test_rank_without_eval_rows_takes_template_batches():
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"mesh": {"seq": 2}}, "seq > 1"),
-    ({"attn": "ring", "model": "bert4rec"}, "attn = 'ring'"),
-    ({"attn": "ring_flash", "model": "bert4rec"}, "attn = 'ring_flash'"),
-    ({"tensor_parallel": True}, "tensor_parallel"),
-    ({"model_parallel": False, "steps_per_execution": 2}, "CUDA-graph steps"),
-    ({"model": "bert4rec"}, "bert4rec"),
-    ({"model_parallel": False, "mesh": {"data": 1, "model": 2}}, "dense regime"),
+    pytest.param({"model_parallel": False, "steps_per_execution": 2},
+                 "CUDA-graph steps", id="kw4-CUDA-graph steps"),
+    pytest.param({"model_parallel": False, "mesh": {"data": 1, "model": 2}},
+                 "dense regime", id="kw6-dense regime"),
 ])
 def test_12b_knobs_refuse_by_name(kw, what):
     body = dict(model="twotower", model_parallel=True, size_map={"user": 10})
@@ -206,14 +204,22 @@ def test_12b_knobs_refuse_by_name(kw, what):
     {"embeddings": {"cache_rows": 64}},
     {"embeddings": {"hot_vocab": 8}},
     {"dedup_lookup": True},
+    {"mesh": {"seq": 2}},
+    {"attn": "ring", "model": "bert4rec"},
+    {"attn": "ring_flash", "model": "bert4rec"},
+    {"tensor_parallel": True, "model": "bert4rec"},
+    {"model": "bert4rec"},
 ], ids=["grouped_pipelined", "int8", "column_rowwise_adagrad", "cache_rows",
-        "hot_vocab", "dedup_lookup"])
+        "hot_vocab", "dedup_lookup", "seq", "ring", "ring_flash",
+        "tensor_parallel", "bert4rec"])
 def test_ported_12b_knobs_build_under_world_two(kw):
     """The grouped exchange, the pipelined step, int8 storage, column
-    sharding under rowwise_adagrad, the update cache, hot/cold tables and
-    ``dedup_lookup`` pass the refusals under a world of two
-    (``tests/test_torch_grouped_a2a.py`` and
-    ``tests/test_torch_sharded_dedup_cache.py`` train them on two ranks);
+    sharding under rowwise_adagrad, the update cache, hot/cold tables,
+    ``dedup_lookup``, the seq axis, ring and ring_flash attention, tensor
+    parallelism and Bert4Rec itself pass the refusals under a world of two
+    (``tests/test_torch_grouped_a2a.py``,
+    ``tests/test_torch_sharded_dedup_cache.py`` and
+    ``tests/test_torch_sharded_bert4rec.py`` train them on two ranks);
     the dense regime's multi-step refuses only where it replays CUDA
     graphs, on the card."""
     body = dict(model="twotower", model_parallel=True, size_map={"user": 10})

@@ -105,12 +105,17 @@ def test_pad_batch_zero_weights():
     assert w.tolist() == [1, 1, 1, 0, 0]
 
 
-@pytest.mark.parametrize("extra", [
-    {"tensorboard": True}, {"tensor_parallel": True},
+@pytest.mark.parametrize("extra,error,match", [
+    pytest.param({"tensorboard": True}, NotImplementedError,
+                 "ROADMAP.md Queue A item", id="extra0"),
+    # tensor parallelism is ported for bert4rec; a model without a
+    # transformer refuses it by name instead of ignoring it
+    pytest.param({"tensor_parallel": True}, ValueError,
+                 "tensor_parallel = true splits bert4rec", id="extra1"),
 ])
-def test_unported_knobs_refuse(tmp_path, extra):
+def test_unported_knobs_refuse(tmp_path, extra, error, match):
     cfg = read_configs(_write_config(tmp_path, **extra))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
+    with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
 
 
@@ -222,16 +227,42 @@ def test_bert4rec_flash_fit_cpu(tmp_path):
     assert fwd > 2 * steps  # training steps plus the eval forwards
 
 
-@pytest.mark.parametrize("extra,item", [
-    pytest.param({"attn": "ring_flash"}, "12b", id="extra0-12"),
-    pytest.param({"attn": "ring"}, "12b", id="extra1-12"),
-    pytest.param({"tensor_parallel": True}, "12b", id="extra2-12"),
+@pytest.mark.parametrize("extra,twin", [
+    pytest.param({"attn": "ring_flash"}, {"attn": "flash"}, id="extra0-12"),
+    pytest.param({"attn": "ring"}, {"attn": "full"}, id="extra1-12"),
+    pytest.param({"tensor_parallel": True}, {}, id="extra2-12"),
 ])
-def test_bert4rec_unported_knobs_name_their_item(tmp_path, extra, item):
-    cfg = read_configs(_write_config(tmp_path, model="bert4rec", **extra))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue A item {item}\\)"):
-        Trainer(cfg, device="cpu")
+def test_bert4rec_unported_knobs_name_their_item(tmp_path, extra, twin):
+    """The knobs of ``ROADMAP.md`` item 12b that once refused here train
+    at world 1: a ring of one, and tensor parallelism over one rank.  One
+    step of each equals its one-device twin from the same seed: bitwise
+    for ``ring_flash`` (``flash``: one merge, weights 0 and exp(0)) and
+    ``tensor_parallel`` (nothing to split), at the logits rung for
+    ``ring`` (``full``: the online softmax sums in another order)."""
+    from tdfo_tpu_torch.interop import TOL
+
+    rng = np.random.default_rng(2)
+    item = torch.from_numpy(rng.integers(1, 41, (8, 12)).astype(np.int64))
+    item[0, 6:] = 0
+    batch = {"item": item, "label": torch.where(item % 3 == 0, item, 0)}
+    out = {}
+    for name, kw in (("knob", extra), ("twin", twin)):
+        (tmp_path / name).mkdir()
+        cfg = read_configs(_write_config(tmp_path / name, model="bert4rec",
+                                         max_len=12, n_heads=2, **kw),
+                           size_map={"n_items": 40})
+        tr = Trainer(cfg, device="cpu")
+        state, loss = tr._one_step(tr.state, batch)
+        out[name] = (float(loss), state.step,
+                     [p.detach().clone() for p in tr.backbone.parameters()])
+    (lk, sk, pk), (lt, st, pt) = out["knob"], out["twin"]
+    assert sk == st == 1 and np.isfinite(lk)
+    if extra.get("attn") == "ring":
+        rtol, atol = TOL["logits"]
+        np.testing.assert_allclose(lk, lt, rtol=rtol, atol=atol)
+    else:
+        assert lk == lt
+        assert all(torch.equal(a, b) for a, b in zip(pk, pt))
 
 
 def _with_embeddings(path: Path, **emb) -> Path:

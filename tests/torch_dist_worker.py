@@ -98,10 +98,10 @@ def _mesh(case):
     """The case's mesh, built once per shape (each build makes its groups)."""
     from tdfo_tpu_torch.core.mesh import MeshSpec, make_mesh
 
-    d, m = case["mesh"]
-    if (d, m) not in _MESHES:
-        _MESHES[d, m] = make_mesh(MeshSpec(data=d, model=m, seq=1), device="cpu")
-    return _MESHES[d, m]
+    d, m, s = (*case["mesh"], 1)[:3]
+    if (d, m, s) not in _MESHES:
+        _MESHES[d, m, s] = make_mesh(MeshSpec(data=d, model=m, seq=s), device="cpu")
+    return _MESHES[d, m, s]
 
 
 def _coll(case, mesh):
@@ -135,11 +135,19 @@ def _local_ids(mesh, mode, feats):
 
 def case_mesh_info(case):
     """This rank's coordinates, the axis names, and the ranks of its line
-    along each axis (an all-gather of the global rank over that group)."""
+    along each axis and of its data x model plane (an all-gather of the
+    global rank over that group)."""
     import torch
     import torch.distributed as dist
 
-    from tdfo_tpu_torch.core.mesh import AXES, axis_group, axis_index, axis_size
+    from tdfo_tpu_torch.core.mesh import (
+        AXES,
+        axis_group,
+        axis_index,
+        axis_size,
+        plane_group,
+        seq_slice,
+    )
     from tdfo_tpu_torch.parallel.collectives import all_gather_cat
 
     mesh = _mesh(case)
@@ -148,7 +156,9 @@ def case_mesh_info(case):
             "coords": tuple(axis_index(mesh, a) for a in AXES),
             "sizes": tuple(axis_size(mesh, a) for a in AXES),
             "lines": {a: all_gather_cat(me, axis_group(mesh, a)).tolist()
-                      for a in AXES}}
+                      for a in AXES},
+            "plane": all_gather_cat(me, plane_group(mesh, ("data", "model"))).tolist(),
+            "seq_slice": seq_slice(mesh, 8)}
 
 
 def case_init(case):
@@ -527,6 +537,148 @@ def case_dense_step(case):
             "params": {k: to_numpy(v) for k, v in model.state_dict().items()}}
 
 
+def case_ring(case):
+    """``ring_self_attention`` of the case's global ``q, k, v`` (bf16 when
+    ``bf16``) and ``valid`` on the case's mesh: the output and, with
+    ``grad``, the gradients of ``sum(out ** 2)``, all global (f32)."""
+    import torch
+
+    from tdfo_tpu_torch.interop import to_numpy
+    from tdfo_tpu_torch.parallel.ring_attention import ring_self_attention
+
+    mesh = _mesh(case)
+    dtype = torch.bfloat16 if case.get("bf16") else torch.float32
+    xs = [torch.from_numpy(case[n]).to(dtype).requires_grad_(case.get("grad", False))
+          for n in ("q", "k", "v")]
+    valid = None if case.get("valid") is None else torch.from_numpy(case["valid"])
+    out = ring_self_attention(mesh, *xs, valid, block_k=case.get("block_k"),
+                              head_axis=case.get("head_axis"),
+                              batch_axis=case.get("batch_axis"),
+                              impl=case.get("impl", "xla"))
+    res = {"out": to_numpy(out), "dtype": str(out.dtype)}
+    if case.get("grad"):
+        grads = torch.autograd.grad((out.float() ** 2).sum(), xs)
+        res["grads"] = [to_numpy(g) for g in grads]
+    return res
+
+
+def _b4r(case, mesh):
+    """The case's Bert4Rec ``(collection, tables, backbone)`` on ``mesh``
+    (None: one device) with the reference's tables and dense parameters."""
+    from tdfo_tpu_torch.interop import (
+        backbone_params_from_flax,
+        shard_from_numpy,
+        tp_backbone_params_from_flax,
+    )
+    from tdfo_tpu_torch.models.bert4rec import Bert4RecConfig, make_sharded_bert4rec
+
+    cfg = Bert4RecConfig(**case["cfg"])
+    attn, tp = case.get("attn", "full"), case.get("tp", False)
+    coll, _, bb = make_sharded_bert4rec(
+        cfg, mesh=mesh, attn=attn, device="cpu",
+        sharding=case.get("sharding", "row"),
+        fused_threshold=case.get("fused_threshold", 16),
+        ring_block_k=case.get("block_k"), tp_heads=case.get("tp_heads", False),
+        tensor_parallel=tp, grouped_a2a=case.get("grouped", False))
+    sd = (tp_backbone_params_from_flax(case["dense"], mesh,
+                                       None if attn == "flash" else cfg.n_heads)
+          if tp else backbone_params_from_flax(case["dense"]))
+    bb.load_state_dict(sd, strict=True)
+    tables, _ = shard_from_numpy(coll, case["tables"])
+    return coll, tables, bb
+
+
+def case_b4r_logits(case):
+    """Backbone logits of the case's item vectors and ids (eval forward)."""
+    import torch
+
+    from tdfo_tpu_torch.interop import to_numpy
+    from tdfo_tpu_torch.models.bert4rec import key_padding_mask
+
+    _, _, bb = _b4r(case, _mesh(case))
+    with torch.no_grad():
+        out = bb(torch.from_numpy(case["embs"]),
+                 key_padding_mask(torch.from_numpy(case["ids"])))
+    return {"logits": to_numpy(out)}
+
+
+def _full_backbone(bb, mesh):
+    """Every backbone parameter whole (tensor-parallel shards gathered over
+    the model axis), by torch name."""
+    from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_group
+    from tdfo_tpu_torch.interop import to_numpy
+    from tdfo_tpu_torch.parallel.collectives import all_gather_cat
+
+    out = {}
+    for name, p in bb.named_parameters():
+        spec = bb.tp_plan.get(name, ())
+        if mesh is not None and "model" in spec:
+            p = all_gather_cat(p.detach(), axis_group(mesh, MODEL_AXIS),
+                               dim=spec.index("model"))
+        out[name] = to_numpy(p)
+    return out
+
+
+def case_b4r_steps(case):
+    """K Bert4Rec sparse steps (``make_sparse_train_step``, lookup
+    ``mode``) on the case's mesh (None: one device), each on this rank's
+    data slice of the global batch, with dropout drawn per step from
+    ``dropout_generator(seed, step)`` when the config's rate is not 0: the
+    global losses, the gathered tables and backbone, and the flash and
+    fat-line kernels' plain runs."""
+    import torch
+
+    from tdfo_tpu_torch.core.mesh import data_slice
+    from tdfo_tpu_torch.interop import gather_to_numpy
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+    from tdfo_tpu_torch.ops.sparse import sparse_optimizer
+    from tdfo_tpu_torch.train.seq import bert4rec_sparse_forward, dropout_generator
+    from tdfo_tpu_torch.train.sparse_step import (
+        SparseTrainState,
+        make_pipelined_sparse_train_step,
+        make_sparse_train_step,
+    )
+
+    mesh = None if case["mesh"] is None else _mesh(case)
+    coll, tables, bb = _b4r(case, mesh)
+    lr, wd = case["lr"], case["wd"]
+    state = SparseTrainState.create(
+        backbone=bb, tables=tables,
+        sparse_opt=sparse_optimizer("adam", lr=lr, weight_decay=wd),
+        learning_rate=lr, weight_decay=wd)
+    fwd = bert4rec_sparse_forward(bb)
+    counts = lambda: [fa.flash_fwd.plain_runs, fa.flash_bwd_dq.plain_runs,  # noqa: E731
+                      fa.flash_bwd_dkv.plain_runs, kl.fat_line_update.plain_runs]
+    before = counts()
+    batches = []
+    for item, label in case["batches"]:
+        rows = data_slice(mesh, item.shape[0])
+        batches.append({"item": torch.from_numpy(item)[rows],
+                        "label": torch.from_numpy(label)[rows]})
+    gen = (lambda i: dropout_generator(case["seed"], i, "cpu")  # noqa: E731
+           if case["cfg"].get("dropout", 0.1) else None)
+    losses = []
+    if case.get("pipelined"):
+        pipe = make_pipelined_sparse_train_step(coll, fwd)
+        carry = pipe.prime(batches[0])
+        for b in batches[1:]:
+            state, loss, carry = pipe.step(state, b, carry, gen(state.step))
+            losses.append(float(loss))
+        state, loss = pipe.flush(state, carry, gen(state.step))
+        losses.append(float(loss))
+    else:
+        step = make_sparse_train_step(coll, fwd, mode=case.get("mode", "gspmd"),
+                                      dedup_lookup=case.get("dedup", False))
+        for b in batches:
+            state, loss = step(state, b, gen(state.step))
+            losses.append(float(loss))
+    runs = [a - b for a, b in zip(counts(), before)]
+    return {"losses": losses, "runs": runs,
+            "tables": gather_to_numpy(coll, state.tables)[0],
+            "backbone": _full_backbone(bb, mesh)}
+
+
 class _Killed(Exception):
     pass
 
@@ -579,6 +731,8 @@ def case_fit(case):
         out["eval"] = trainer.evaluate(epoch=99)
     if hasattr(trainer, "coll"):
         out["tables"] = gather_to_numpy(trainer.coll, trainer.state.tables)[0]
+    if getattr(trainer, "_seq", False):
+        out["backbone"] = _full_backbone(trainer.backbone, trainer.mesh)
     return out
 
 
