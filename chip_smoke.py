@@ -295,8 +295,10 @@ Phases (each prints its lines; any failure raises, so the script never exits
    DLRM-Criteo regime with ``dedup_lookup`` (the routed kernel on the
    replicated fat stack at model 1, ``fat_line_update`` on each shard at
    model 2), phase 23's int8 stack with the 2,097,152-row update cache,
-   phase 24's hot/cold regime (f32 and int8 cold) and, at model 2, phase
-   3's tables column-sharded under rowwise_adagrad; each rank holds its
+   phase 24's hot/cold regime (f32 and int8 cold), at model 2 phase 3's
+   tables column-sharded under rowwise_adagrad, and at world 1 and model 2
+   the same with a 65,536-row update cache (each rank caching its
+   columns; bitwise the uncached column step); each rank holds its
    arm to the single-device step it also runs (bitwise at world 1 and
    data 1 x model 2; at data 2 x model 1 rtol 1e-4, the int8 rule and
    the head rule), the alternate path (``dedup_lookup`` off, the cache
@@ -313,8 +315,42 @@ Phases (each prints its lines; any failure raises, so the script never exits
    SIGKILLed after a mid-epoch save, run again, and its final checkpoint
    bitwise an uninterrupted run's.
 
+31. dist_seq — Bert4Rec across ranks (``DIST_SEQ_RUNS``; ``PERF.md`` §6).
+32. dist_dense — phase 17's dense TwoTower (``build_train_bench``'s
+   width, 45.2M parameters under AdamW, B = 8192) in rank processes
+   (``DIST_DENSE_RUNS``): world 1 over NCCL, eager steps through the
+   distributed code and CUDA-graph replays (steps_per_execution 2),
+   bitwise the one-process eager and graph runs; world 2 over gloo at data
+   1 x model 2 with the PS partition (``ps_min_shard_bytes`` 256 KB:
+   ``user``, ``item`` and ``publisher`` held as row blocks, all-gathered
+   for each forward), bitwise one device; CUDA-graph steps under gloo
+   refused, naming NCCL.  NCCL at world = the card count where there are
+   several: data n, and on four or more data n/2 x model 2 with the PS
+   partition, graph replays bitwise their eager steps, both within rtol
+   1e-4 of one device (at most 0.1% of the parameter elements outside,
+   each within 2 lr a step).  ``segment_sum`` must launch in each eager
+   run; step ms, all-gather ms and peak memory per rank.
+33. dist_serve — phases 26-27's widths over ranks, the corpus sharded
+   over the data axis (``DIST_SERVE_RUNS``: world 1 NCCL, world 2 gloo at
+   data 2; NCCL at data = the card count where there are several): the
+   TwoTower bundle scored on replicated parameters, its 200,000-item
+   item-tower corpus built sharded, and the Bert4Rec head corpus, each
+   retrieved for 8,192 queries exact (top-100) and int8 two-stage
+   (coarse_k 1,000), ids as the one-device programs at every separated
+   rank and scores within rtol 1e-5 on the first and the last 256
+   queries (the first and the last query chunks), no padding id, no
+   kernel launched; queries/s, build s and peak memory per rank.  Then
+   ``launch serve`` through ``torch.distributed.run --nproc-per-node 2
+   ... --backend gloo`` on ``config.toml`` at ``[mesh] data = 2`` with
+   int8 two-stage retrieval: rank 0 alone prints its stats and writes
+   ``metrics.jsonl``, and the stats that do not hang on the host's clock
+   equal a one-rank serve of the same toml's.
+
 Every phase prints ``phase <name>: start`` and ``phase <name>: ok in <s>
-s`` around itself, so a failing run names its phase.
+s`` around itself, so a failing run names its phase.  The CLI journeys
+(``JOURNEYS``: phases 19, 25, 28 and 30) run side by side, each in a
+process of its own, beside phase 31 (after phase 27), and print their
+output when all have ended; then phases 29, 32 and 33.
 
 ``--phases profile`` / ``profile_b4r`` / ``profile_dlrm`` /
 ``profile_bf16`` / ``profile_dlrm_bf16`` / ``profile_dense`` (not in the
@@ -339,6 +375,9 @@ the script stands outside the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
+import functools
 import json
 import subprocess
 import sys
@@ -421,7 +460,7 @@ DEFAULT_PHASES = ("build", "oracle", "timing", "segsum", "main", "cli", "flash_o
                   "resume", "quickstart_cli", "b4r_jagged", "int8_main",
                   "int8_fused", "dlrm_int8_cache", "dlrm_hot_cold",
                   "criteo_int8_cli", "serve_main", "serve_seq_main", "serve_cli",
-                  "dist_main", "dist_cli", "dist_seq")
+                  "dist_main", "dist_cli", "dist_seq", "dist_dense", "dist_serve")
 
 
 def say(*parts) -> None:
@@ -3433,14 +3472,21 @@ def phase_dist_main(torch, card: str) -> dict:
 # DLRM-Criteo regime (dedup_lookup: the routed kernel on the replicated fat
 # stack at model 1, fat_line_update on each shard at model 2), "cache"
 # phase 23's int8 stack with the 2,097,152-row update cache (zipf ids),
-# "hot_f32" / "hot_int8" phase 24's hot/cold regime, and "column" phase
-# 3's tables column-sharded, plain, under rowwise_adagrad.  Each run's rank
+# "hot_f32" / "hot_int8" phase 24's hot/cold regime, "column" phase
+# 3's tables column-sharded, plain, under rowwise_adagrad, and
+# "column_cache" the same with the update cache (each rank caching its
+# columns; the alternate path, the cache off, is the "column" arm).  Each run's rank
 # processes take their arms in order: (backend, world, (data, model), arms).
 DIST_CTR_RUNS = (
-    ("nccl", 1, (1, 1), ("criteo", "cache", "hot_f32", "hot_int8")),
+    ("nccl", 1, (1, 1), ("criteo", "cache", "hot_f32", "hot_int8", "column_cache")),
     ("gloo", 2, (2, 1), ("criteo", "cache", "hot_f32", "hot_int8")),
-    ("gloo", 2, (1, 2), ("criteo", "cache", "hot_f32", "hot_int8", "column")),
+    ("gloo", 2, (1, 2), ("criteo", "cache", "hot_f32", "hot_int8", "column",
+                         "column_cache")),
 )
+# the column arm's update cache: B 8192 uniform ids over user's 500,000
+# rows touch at most 16,384 rows in a DIST_CTR_FLUSH-step interval, which
+# the retained half must cover
+COLUMN_CACHE_ROWS = 65_536
 DIST_CTR_FLUSH = 2  # the cache arm's flush cadence, in steps
 # the kernels each arm's main path must launch once a step, by model size
 DIST_CTR_KERNELS = {("criteo", 1): "fat_line_update_routed",
@@ -3460,12 +3506,14 @@ def _ctr_arm_setup(torch, arm):
     n = DIST_STEPS + DIST_TIMED
     rng = np.random.default_rng(31)
     kw = dict(stack_tables=True, fused_kind="rowwise_adagrad")
-    if arm == "column":
+    if arm.startswith("column"):
         specs = ctr_embedding_specs(SIZE_MAP, DIM, "column", fused_threshold=None)
         kw = dict(fused_kind="rowwise_adagrad")
         host = [make_host_batch(rng, BATCH) for _ in range(n)]
         backbone0 = TwoTowerBackbone(DIM, generator=torch.Generator().manual_seed(1))
         alt = None
+        if arm == "column_cache":
+            kw["cache_rows"], alt = COLUMN_CACHE_ROWS, "eager"
     else:
         backbone0 = DLRMBackbone(CRITEO_DIM, cat_columns=CRITEO_CATS,
                                  cont_columns=CRITEO_CONTS,
@@ -3668,7 +3716,7 @@ def _ctr_arm(torch, dist, mesh, arm, backend) -> dict:
 
         return state, train
 
-    dedup = arm != "column"
+    dedup = not arm.startswith("column")
     # the single-device step (the ranks' data slices are its batch)
     one = make_coll(None)
     ref, train = build(one, dedup, {k: v.clone() for k, v in tables0.items()})
@@ -3720,7 +3768,7 @@ def _ctr_arm(torch, dist, mesh, arm, backend) -> dict:
     alt_held = None
     if alt is not None:  # the alternate path: the main path's bits
         acoll = make_coll(mesh, cached=alt != "eager")
-        st, atrain = build(acoll, alt != "default", acoll.local_arrays(
+        st, atrain = build(acoll, dedup and alt != "default", acoll.local_arrays(
             {k: v.clone() for k, v in tables0.items()}, {})[0])
         st, alosses = atrain(st, batches[:DIST_STEPS], 0)
         if alosses != losses:
@@ -4290,7 +4338,7 @@ def phase_dist_seq(torch, card: str) -> dict:
 # the seq CLI's toml: configs/bert4rec.toml's model (d 64, 2 heads, 2
 # layers, T 20, dropout 0.1) under ring_flash on a seq axis of 2, its
 # vocabulary the synthetic catalogue's
-SEQ_CLI_USERS, SEQ_CLI_BATCH, SEQ_CLI_EVERY = 2_000, 64, 5
+SEQ_CLI_USERS, SEQ_CLI_BATCH, SEQ_CLI_EVERY = 800, 64, 5
 
 
 def _seq_cli(torch) -> dict:
@@ -5726,15 +5774,565 @@ def phase_serve_cli(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------- dist_dense
+# ROADMAP item 12b's dense half: phase 17's dense TwoTower over ranks.
+# Each run: (backend, world, (data, model), arms).  "graph": eager steps
+# through the distributed code, then CUDA-graph replays
+# (steps_per_execution DIST_DENSE_SPE) over the same batches; "ps": the PS
+# partition (ps_min_shard_bytes DIST_DENSE_PS_BYTES), eager; "graph_ps":
+# both; "refuse": CUDA-graph steps under gloo refuse, naming NCCL.
+DIST_DENSE_RUNS = (
+    ("nccl", 1, (1, 1), ("graph",)),
+    ("gloo", 2, (1, 2), ("ps", "refuse")),
+)
+DIST_DENSE_SPE = 2
+DIST_DENSE_PS_BYTES = 256 * 1024  # TF MinSizePartitioner's default
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_model0(torch):
+    """``dense_initial``'s model, drawn once a process (runs take copies)."""
+    return dense_initial(torch)
+
+
+def _dense_run(torch, dist, mesh, host, graph: bool, ps: bool, timed: bool):
+    """``steps`` dense steps on this rank's slice of each host batch from
+    ``dense_initial``: eager, or as CUDA-graph replays of
+    ``DIST_DENSE_SPE``-step chunks; the model PS-partitioned when ``ps``.
+    Returns ``(losses [n] on the CPU, whole state dict (the PS blocks
+    all-gathered), host ms a step over the last chunks or steps, collective
+    ms and calls a step, peak GB)``."""
+    from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_group, data_slice
+    from tdfo_tpu_torch.parallel.collectives import all_gather_cat
+    from tdfo_tpu_torch.parallel.sharding import (
+        min_size_partitioner_rule,
+        ps_shard_module_,
+    )
+    from tdfo_tpu_torch.train.state import TrainState
+    from tdfo_tpu_torch.train.step import (
+        CudaGraphStep,
+        make_multi_step,
+        make_train_step,
+    )
+
+    model = copy.deepcopy(_dense_model0(torch)).cuda()
+    plan = {}
+    if ps:
+        plan = ps_shard_module_(model, mesh,
+                                min_size_partitioner_rule(mesh, DIST_DENSE_PS_BYTES))
+    state = TrainState.create(model=model, learning_rate=LR, weight_decay=WD,
+                              capturable=True)
+    inner = make_train_step(mesh=mesh)
+    rows = data_slice(mesh, BATCH) if mesh is not None else slice(None)
+    dev = [{k: v[rows] for k, v in to_device(torch, h, "cuda").items()} for h in host]
+    k = DIST_DENSE_SPE if graph else 1
+    units = [{n: torch.stack([b[n] for b in dev[i:i + k]]) for n in dev[0]}
+             for i in range(0, len(dev), k)] if graph else dev
+    run = make_multi_step(CudaGraphStep(inner)) if graph else inner
+    warm = (DIST_STEPS + k - 1) // k  # the compared steps (graph: the capture)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for u in units[:warm]:
+        state, loss = run(state, u)
+        losses.append(loss.reshape(-1))
+
+    def rest():
+        nonlocal state
+        for u in units[warm:]:
+            state, loss = run(state, u)
+            losses.append(loss.reshape(-1))
+
+    if timed:
+        _, ms, coll_ms, calls = _time_steps(torch, dist, rest)
+    else:
+        rest()
+        ms, coll_ms, calls = 0.0, {}, {}
+    n_timed = len(host) - warm * k
+    sd = state.state_dict()
+    for i, (name, p) in enumerate(model.named_parameters()):
+        spec = plan.get(name, ())
+        if MODEL_AXIS in spec:  # the whole leaf and its moments
+            group, dim = axis_group(mesh, MODEL_AXIS), spec.index(MODEL_AXIS)
+            sd["params"][name] = all_gather_cat(p.detach(), group, dim=dim)
+            sd["optimizer"][i] = {m: (all_gather_cat(v, group, dim=dim) if v.dim() else v)
+                                  for m, v in sd["optimizer"][i].items()}
+    return (torch.cat(losses).cpu(), sd, ms / n_timed,
+            {n: v / n_timed for n, v in coll_ms.items()},
+            {n: v / n_timed for n, v in calls.items()},
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _dense_params_held(torch, what, got, want, steps) -> str:
+    """Every parameter of a split-batch run against the single-device run's
+    (``b4r_main``'s rule over the whole model): within rtol 1e-4 but for at
+    most 0.1% of the elements, each within 2 lr a step (Adam's sign on
+    gradients inside the f32 noise of two summation orders)."""
+    from tdfo_tpu_torch.interop import TOL
+
+    rtol, atol = TOL["trajectory"]
+    n = n_out = 0
+    worst = big = 0.0
+    for k, c in want.items():
+        diff = (got[k] - c).abs()
+        out = diff > atol + rtol * c.abs()
+        n, n_out = n + c.numel(), n_out + int(out.sum())
+        big = max(big, float(diff.max()))
+        if bool(out.any()):
+            worst = max(worst, float(diff[out].max()))
+    bound = 2 * LR * steps
+    if n_out > 1e-3 * n or worst > bound:
+        raise AssertionError(f"{what}: {n_out} of {n} parameter elements outside "
+                             f"rtol {rtol} (max |diff| {worst}, bound {bound})")
+    return (f"every parameter within rtol {rtol} of one device (max |diff| "
+            f"{big:.3e}; {n_out} of {n} elements outside, each within {bound:.1e})")
+
+
+def _dense_arm(torch, dist, mesh, arm, host, ref) -> dict:
+    """One dense arm on this rank (``DIST_DENSE_RUNS``), held to ``ref``, the
+    single-device run (eager: losses and state)."""
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.core.mesh import DATA_AXIS, axis_size
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.train.step import CudaGraphStep, make_train_step
+    from tdfo_tpu_torch.train.trainer import refuse_unported
+
+    if arm == "refuse":  # CUDA-graph steps under gloo: refused by name
+        cfg = read_configs(None, model="twotower", model_parallel=False,
+                           steps_per_execution=DIST_DENSE_SPE, size_map=SIZE_MAP)
+        said = []
+        for fn in (lambda: CudaGraphStep(make_train_step(mesh=mesh)),
+                   lambda: refuse_unported(cfg, device="cuda")):
+            try:
+                fn()
+            except ValueError as e:
+                if "need NCCL" not in str(e):
+                    raise
+                said.append(str(e))
+            else:
+                raise AssertionError("dist_dense: CUDA-graph steps under "
+                                     f"{dist.get_backend()} did not refuse")
+        return {"refused": said[0]}
+    from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
+
+    ps = arm in ("ps", "graph_ps")
+    segment_sum.launches = 0  # the embedding grads' sums, counted over the run
+    ls_e, sd_e, ms_e, coll_e, calls_e, peak_e = _dense_run(
+        torch, dist, mesh, host, False, ps, True)
+    if not segment_sum.launches:
+        raise AssertionError(f"dist_dense {arm}: segment_sum launched no time")
+    rec = {"eager_ms": ms_e, "collective_ms": coll_e, "collective_calls": calls_e,
+           "peak_gb": peak_e, "segment_sum_launches": segment_sum.launches}
+    one = axis_size(mesh, DATA_AXIS) == 1  # every rank steps the whole batch
+    if one:
+        d = state_diff(torch, sd_e, ref[1])
+        if d != 0.0 or not torch.equal(ls_e, ref[0]):
+            raise AssertionError(f"dist_dense {arm}: not bitwise one device "
+                                 f"(state max diff {d})")
+        rec["held"] = "bitwise one device"
+    else:
+        rtol, atol = TOL["trajectory"]
+        torch.testing.assert_close(ls_e, ref[0], rtol=rtol, atol=atol)
+        rec["held"] = "losses and " + _dense_params_held(
+            torch, f"dist_dense {arm}", sd_e["params"], ref[1]["params"], len(host))
+    del sd_e
+    torch.cuda.empty_cache()
+    if arm.startswith("graph"):
+        ls_g, sd_g, ms_g, _, _, peak_g = _dense_run(torch, dist, mesh, host, True,
+                                                    ps, True)
+        if not torch.equal(ls_g, ls_e):
+            raise AssertionError(f"dist_dense {arm}: graph losses {ls_g.tolist()} "
+                                 f"vs eager {ls_e.tolist()}")
+        again = _dense_run(torch, dist, mesh, host, False, ps, False)[1]
+        d = state_diff(torch, sd_g, again)
+        if d != 0.0:
+            raise AssertionError(f"dist_dense {arm}: graph state vs eager: {d}")
+        rec.update(graph_ms=ms_g, graph_peak_gb=peak_g,
+                   graph_held="replays bitwise the eager steps")
+        if one:
+            rec["graph_held"] += " and one device"
+        del sd_g, again
+        torch.cuda.empty_cache()
+    return rec
+
+
+def dist_rank_dense(spec: dict) -> int:
+    """One rank of ``dist_dense`` (``DIST_DENSE_RUNS``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tdfo_tpu_torch.core.config import MeshSpec
+    from tdfo_tpu_torch.core.mesh import initialize_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed("cuda", backend=spec["backend"], force=True)
+    mesh = make_mesh(MeshSpec(data=spec["mesh"][0], model=spec["mesh"][1], seq=1),
+                     "cuda")
+    rng = np.random.default_rng(21)
+    host = [make_host_batch(rng, BATCH) for _ in range(DIST_STEPS + DIST_TIMED)]
+    # the single-device run on the whole batches (eager, then the graph:
+    # at world 1 the distributed runs must be its bits)
+    ref = _dense_run(torch, dist, None, host, False, False, False)[:2]
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size(), "arms": {}}
+    if dist.get_world_size() == 1:
+        ls_g, sd_g = _dense_run(torch, dist, None, host, True, False, False)[:2]
+        if not torch.equal(ls_g, ref[0]) or state_diff(torch, sd_g, ref[1]) != 0.0:
+            raise AssertionError("dist_dense: the one-process graph is not "
+                                 "bitwise its eager steps")
+        del sd_g
+    for arm in spec["dense_arms"]:
+        rec = _dense_arm(torch, dist, mesh, arm, host, ref)
+        res["arms"][arm] = rec
+        print(f"dist dense {arm} world {dist.get_world_size()} ({dist.get_backend()}, "
+              f"mesh {spec['mesh']}) rank {dist.get_rank()}: "
+              f"{ {k: (round(v, 4) if isinstance(v, float) else v) for k, v in rec.items()} }",
+              flush=True)
+    (Path(spec["out"]) / f"rank{dist.get_rank()}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist_dense(torch, card: str) -> dict:
+    """dist_dense: the dense TwoTower at ``build_train_bench``'s width over
+    ranks (``DIST_DENSE_RUNS``; NCCL at world = the card count where there
+    are several: data n and, on four or more, data n/2 x model 2 with the
+    PS partition, graph replays bitwise their eager steps and within rtol
+    1e-4 of one device)."""
+    runs = list(DIST_DENSE_RUNS)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        runs.append(("nccl", n, (n, 1), ("graph",)))
+    if n >= 4 and n % 2 == 0:
+        runs.append(("nccl", n, (n // 2, 2), ("graph_ps",)))
+    out = {}
+    t0 = time.perf_counter()
+    for backend, world, (d, m), arms in runs:
+        key = f"{backend}_{world}_{d}x{m}"
+        ranks = _spawn_ranks(world, {"backend": backend, "mesh": [d, m],
+                                     "dense_arms": list(arms)},
+                             f"dense world {world} {backend} mesh {d}x{m}",
+                             timeout=DIST_CTR_TIMEOUT_S)
+        for arm in arms:
+            a = [r["arms"][arm] for r in ranks]
+            out[f"{key}/{arm}"] = a
+            if arm == "refuse":
+                say(f"dist_dense: {key} CUDA-graph steps refused: {a[0]['refused']}")
+                continue
+            say(f"dist_dense: {key} {arm}: {a[0]['held']}"
+                f"{'; ' + a[0]['graph_held'] if 'graph_held' in a[0] else ''}; "
+                f"segment_sum launches per rank in {DIST_STEPS + DIST_TIMED} eager "
+                f"steps {[x['segment_sum_launches'] for x in a]}; "
+                f"eager step_ms {[round(x['eager_ms'], 3) for x in a]}"
+                + (f", graph replay step_ms {[round(x['graph_ms'], 3) for x in a]}"
+                   if "graph_ms" in a[0] else "")
+                + f", collective ms a step "
+                f"{[{k: round(v, 4) for k, v in x['collective_ms'].items()} for x in a]}"
+                f" (calls {[x['collective_calls'] for x in a]}), peak GB per rank "
+                f"{[round(x['peak_gb'], 2) for x in a]}; on {card}")
+    say(f"dist_dense: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------- dist_serve
+# ROADMAP item 12b's serving half: phases 26-27's widths over ranks, the
+# corpus sharded over the data axis.  (backend, world, data).
+DIST_SERVE_RUNS = (("nccl", 1, 1), ("gloo", 2, 2))
+# queries held to the one-device retrieval at each end of the batch (in
+# the first and the last query chunks)
+DIST_SERVE_CHECK = 256
+# the launch serve stats that do not depend on the host's clock
+SERVE_STABLE = ("requests", "batches", "shed", "swaps", "programs", "step",
+                "retrieved")
+
+
+def _sharded_round(torch, what, make_one, make_mesh_corpus, q, mesh) -> dict:
+    """Exact and int8 two-stage top-k over the corpus sharded on ``mesh``
+    against the one-device programs on the same rows (ids at every
+    separated rank, scores rtol 1e-5): times (CUDA events) and build s."""
+    from tdfo_tpu_torch.serve.corpus import store_corpus
+    from tdfo_tpu_torch.serve.retrieval import make_retrieval
+
+    k = SERVE_TOP_K
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = make_mesh_corpus()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    corpus8 = store_corpus(corpus.vectors, corpus.ids, corpus.n_items, "int8",
+                           shard=corpus.shard, n_shards=corpus.n_shards)
+    one = make_one()
+    one8 = store_corpus(one.vectors, one.ids, one.n_items, "int8")
+    rec = {"build_s": build_s, "n_items": corpus.n_items,
+           "rows_per_shard": corpus.rows_per_shard}
+    c, b = DIST_SERVE_CHECK, q.shape[0]
+    held = torch.cat([torch.arange(c), torch.arange(b - c, b)]).to(q.device)
+    for name, cp, op, coarse in (("exact", corpus, one, 0),
+                                 ("two_stage", corpus8, one8, SERVE_COARSE_K)):
+        run = make_retrieval(cp, mesh=mesh, top_k=k, coarse_k=coarse)
+        got = run(q)  # the first call warms up; two timed after it
+        ms = _event_ms(torch, lambda: run(q), n=2, warm=0)
+        ref = make_retrieval(op, top_k=k + 1, coarse_k=coarse)(q[held])
+        if bool((got[1] < 0).any()):
+            raise AssertionError(f"{what} {name}: a padding id was returned")
+        line = _check_retrieval(torch, f"{what} {name}",
+                                (got[0][held], got[1][held]), ref, k)
+        rec[name] = {"ms": ms, "qps": q.shape[0] / ms * 1e3, "held": line}
+    del corpus, corpus8, one, one8
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_rank_serve(spec: dict) -> int:
+    """One rank of ``dist_serve``: the TwoTower bundle (phase 26's
+    collection at a seeded init, written by rank 0) scored on replicated
+    parameters, its item-tower corpus (200,000 items) built sharded, and
+    the Bert4Rec head corpus of phase 27's bundle, each retrieved with
+    ``BATCH`` queries, exact and int8 two-stage."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tdfo_tpu_torch.core.config import MeshSpec
+    from tdfo_tpu_torch.core.mesh import initialize_distributed, make_mesh
+    from tdfo_tpu_torch.models.bert4rec import Bert4RecConfig, make_sharded_bert4rec
+    from tdfo_tpu_torch.models.twotower import TwoTowerBackbone, ctr_embedding_specs
+    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
+    from tdfo_tpu_torch.serve import (
+        build_corpus,
+        export_bundle,
+        load_bundle,
+        make_scorer,
+        synthetic_item_features,
+    )
+    from tdfo_tpu_torch.serve.seq_scoring import item_corpus
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed("cuda", backend=spec["backend"], force=True)
+    mesh = make_mesh(MeshSpec(data=spec["mesh"][0], model=1, seq=1), "cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = Path(spec["out"])
+    if rank == 0:  # the bundles, written once
+        coll = ShardedEmbeddingCollection(ctr_embedding_specs(SIZE_MAP, DIM, "row"))
+        export_bundle(out / "twotower", model="twotower", embed_dim=DIM,
+                      cat_columns=("user_id", "item_id", "language", "is_ebook",
+                                   "format", "publisher", "pub_decade"),
+                      cont_columns=("avg_rating", "num_pages"), size_map=SIZE_MAP,
+                      coll=coll, tables=coll.init(0, device="cuda"),
+                      dense_params=TwoTowerBackbone(
+                          DIM, generator=torch.Generator().manual_seed(1)))
+        cfg = Bert4RecConfig(**SEQ_SERVE)
+        scoll, stables, sbb = make_sharded_bert4rec(cfg, seed=0, fused_threshold=None,
+                                                    device="cuda")
+        export_bundle(out / "bert4rec", model="bert4rec", embed_dim=cfg.embed_dim,
+                      cat_columns=(), cont_columns=(),
+                      size_map={"n_items": cfg.n_items}, coll=scoll, tables=stables,
+                      dense_params=sbb, seq={"max_len": cfg.max_len,
+                                             "n_heads": cfg.n_heads,
+                                             "n_layers": cfg.n_layers})
+        del coll, scoll, stables, sbb
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    before = all_launches()
+    rng = np.random.default_rng(26)
+    bundle = load_bundle(out / "twotower")
+    scorer = make_scorer(bundle, mesh=mesh, device="cuda")
+    feats = synthetic_item_features(SIZE_MAP, SIZE_MAP["item"], seed=0)
+    q = scorer.user_embed({"user_id": rng.integers(0, SIZE_MAP["user"], BATCH,
+                                                   dtype=np.int32)})
+    res = {"backend": dist.get_backend(), "world": world}
+    res["twotower"] = _sharded_round(
+        torch, "dist_serve twotower",
+        lambda: build_corpus(scorer, feats, corpus_batch=8192),
+        lambda: build_corpus(scorer, feats, corpus_batch=8192, mesh=mesh), q, mesh)
+    seq = load_bundle(out / "bert4rec")
+    sscorer = make_scorer(seq, mesh=mesh, device="cuda")
+    sq = sscorer.query_embed(_seq_panels(np.random.default_rng(27), BATCH,
+                                         SEQ_SERVE["n_items"], SEQ_SERVE["max_len"]))
+    res["bert4rec"] = _sharded_round(
+        torch, "dist_serve bert4rec", lambda: item_corpus(seq, device="cuda"),
+        lambda: item_corpus(seq, mesh=mesh, device="cuda"), sq, mesh)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launched = {k: v - before[k] for k, v in all_launches().items()}
+    if any(launched.values()):  # serving runs no kernel of the port
+        raise AssertionError(f"dist_serve: kernels launched while serving: {launched}")
+    print(f"dist serve world {world} ({dist.get_backend()}, data {spec['mesh'][0]}) "
+          f"rank {rank}: {json.dumps(res)}", flush=True)
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist_serve(torch, card: str) -> dict:
+    """dist_serve: ``DIST_SERVE_RUNS`` (and NCCL at data = the card count
+    where there are several), then ``launch serve`` through
+    ``torch.distributed.run --nproc-per-node 2 ... --backend gloo`` on a
+    quickstart toml at ``[mesh] data = 2`` with int8 two-stage retrieval,
+    its clock-free stats held to a one-rank serve of the same toml."""
+    import ast
+    import io
+
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+
+    runs = list(DIST_SERVE_RUNS)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        runs.append(("nccl", n, n))
+    out = {}
+    t0 = time.perf_counter()
+    for backend, world, d in runs:
+        key = f"{backend}_{world}"
+        ranks = _spawn_ranks(world, {"backend": backend, "mesh": [d, 1],
+                                     "serve": True}, f"serve world {world} {backend}",
+                             timeout=DIST_CTR_TIMEOUT_S)
+        out[key] = ranks
+        for model in ("twotower", "bert4rec"):
+            a = [r[model] for r in ranks]
+            say(f"dist_serve: {key} {model}: corpus of {a[0]['n_items']} items over "
+                f"{d} shard(s) of {a[0]['rows_per_shard']} rows, built in "
+                f"{[round(x['build_s'], 3) for x in a]} s; exact top-{SERVE_TOP_K} "
+                f"{[round(x['exact']['qps'], 1) for x in a]} queries/s "
+                f"({[round(x['exact']['ms'], 3) for x in a]} ms for {BATCH}); "
+                f"int8 two-stage (coarse_k {SERVE_COARSE_K}) "
+                f"{[round(x['two_stage']['qps'], 1) for x in a]} queries/s "
+                f"({[round(x['two_stage']['ms'], 3) for x in a]} ms); vs one device: "
+                f"exact {a[0]['exact']['held']}; two-stage {a[0]['two_stage']['held']}; "
+                f"peak GB per rank {[round(r['peak_gb'], 2) for r in ranks]}; on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_synthetic_goodreads(tmp / "data", n_users=SERVE_CLI_USERS)
+        text = (ROOT / "config.toml").read_text()
+        lines = [f'data_dir = "{tmp / "data"}"' if x.startswith("data_dir =") else x
+                 for x in text.splitlines()]
+        for d in (1, 2):
+            (tmp / f"serve{d}.toml").write_text(
+                "\n".join(lines) + f"\n[mesh]\ndata = {d}\nmodel = 1\n"
+                f"[serving]\ncoarse_k = {SERVE_CLI_COARSE_K}\n")
+        cfg = tmp / "serve2.toml"
+        if launch.main(["preprocess-ctr", "--config", str(cfg)]) != 0:
+            raise AssertionError("launch preprocess-ctr failed")
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+             "--master-port", str(_free_port()), "-m", "tdfo_tpu_torch.launch", "serve",
+             "--config", str(cfg), "--backend", "gloo", "--log-dir", str(tmp / "cli2")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"launch serve on 2 ranks failed (rc {res.returncode}):"
+                                 f"\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        printed = [x for x in res.stdout.splitlines() if x.startswith("{'requests'")]
+        if len(printed) != 1:
+            raise AssertionError(f"launch serve on 2 ranks printed {len(printed)} "
+                                 f"stats lines (rank 0 alone prints):\n{res.stdout[-3000:]}")
+        stats = ast.literal_eval(printed[0])
+        if stats["requests"] != 64 or stats.get("retrieved") != 100:
+            raise AssertionError(f"launch serve on 2 ranks: {stats}")
+        recs = [json.loads(x) for x in
+                (tmp / "cli2" / "metrics.jsonl").read_text().splitlines()]
+        if sum(r.get("event") == "serve_summary" for r in recs) != 1:
+            raise AssertionError("launch serve on 2 ranks: rank 0 alone writes "
+                                 "one serve_summary")
+        with contextlib.redirect_stdout(io.StringIO()):  # its request log
+            one = launch.run(["serve", "--config", str(tmp / "serve1.toml"),
+                              "--log-dir", str(tmp / "cli1")])
+        if {k: stats[k] for k in SERVE_STABLE} != {k: one[k] for k in SERVE_STABLE}:
+            raise AssertionError(f"launch serve: 2 ranks {stats} != 1 rank {one}")
+        say(f"dist_serve: launch serve on 2 gloo ranks (data 2, int8 two-stage "
+            f"coarse_k {SERVE_CLI_COARSE_K}): {stats['requests']} requests in "
+            f"{stats['batches']} batches, programs {stats['programs']}, retrieved "
+            f"{stats['retrieved']}, p50 {stats['p50_ms']:.3f} ms, p99 "
+            f"{stats['p99_ms']:.3f} ms (rank 0); {SERVE_STABLE} equal to one "
+            f"rank's; {time.perf_counter() - t1:.1f} s")
+        out["cli"] = stats
+    say(f"dist_serve: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------ the journeys
+# The CLI journeys drive ``launch`` subprocesses and time no kernel, so they
+# run side by side, each in a process of its own, beside dist_seq (rank
+# processes too), where serve_cli stood in the order; their host-clock
+# numbers (serve_cli's p50 / p99 / qps, dist_seq's step ms) are taken
+# under that load.
+JOURNEYS = ("quickstart_cli", "criteo_int8_cli", "serve_cli", "dist_cli")
+JOURNEY_TIMEOUT_S = 900
+
+
+def journey_main(name: str) -> int:
+    """``chip_smoke.py --journey NAME``: one journey between its phase
+    markers."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn = {"quickstart_cli": phase_quickstart_cli, "criteo_int8_cli":
+          phase_criteo_int8_cli, "serve_cli": phase_serve_cli,
+          "dist_cli": phase_dist_cli}[name]
+    say(f"phase {name}: start")
+    t0 = time.perf_counter()
+    fn(torch)
+    say(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+@contextlib.contextmanager
+def journeys_beside(names):
+    """Start ``names``, one ``--journey`` process each (output to a file),
+    run the body beside them, then wait for them and print their output
+    in order.  A journey that fails or outlasts ``JOURNEY_TIMEOUT_S``
+    fails the run by name; a body that fails kills them."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_journeys_"))
+    procs = {}
+    try:
+        for n in names:
+            with open(tmp / f"{n}.log", "w") as f:
+                procs[n] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--journey", n],
+                    cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+        yield
+        deadline = time.monotonic() + JOURNEY_TIMEOUT_S
+        for p in procs.values():
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                _kill_tree(p.pid)
+                p.wait()
+        for n in procs:
+            print((tmp / f"{n}.log").read_text().rstrip(), flush=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = {n: p.returncode for n, p in procs.items() if p.returncode != 0}
+    if bad:
+        raise AssertionError(f"journeys failed (name: rc): {bad}")
+    if names:
+        say(f"journeys {', '.join(names)}: side by side in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--journey"]:  # one CLI journey (its own process)
+        return journey_main(argv[1])
     if argv[:1] == ["--dist-rank"]:  # one rank of dist_main (its own process)
         spec = json.loads(argv[1])
         return (dist_rank_seq if "seq_arms" in spec else dist_rank_ctr
-                if "arms" in spec else dist_rank_main)(spec)
+                if "arms" in spec else dist_rank_dense if "dense_arms" in spec
+                else dist_rank_serve if "serve" in spec else dist_rank_main)(spec)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                    help="comma-separated subset of " + ",".join(DEFAULT_PHASES)
@@ -5868,8 +6466,6 @@ def main(argv=None) -> int:
         run("dense_main", phase_dense_main, torch, smi)
     if "resume" in phases:
         run("resume", phase_resume, torch, smi)
-    if "quickstart_cli" in phases:
-        run("quickstart_cli", phase_quickstart_cli, torch)
     if "b4r_jagged" in phases:
         run("b4r_jagged", phase_b4r_jagged, torch, smi)
     if "int8_main" in phases:
@@ -5882,14 +6478,17 @@ def main(argv=None) -> int:
         run("dlrm_hot_cold", phase_dlrm_hot_cold, torch, smi)
     if "hot_head_inits" in phases:
         run("hot_head_inits", phase_hot_head_inits, torch, smi)
-    if "criteo_int8_cli" in phases:
-        run("criteo_int8_cli", phase_criteo_int8_cli, torch)
     if "serve_main" in phases:
         run("serve_main", phase_serve_main, torch, smi)
     if "serve_seq_main" in phases:
         run("serve_seq_main", phase_serve_seq_main, torch, smi)
-    if "serve_cli" in phases:
-        run("serve_cli", phase_serve_cli, torch)
+    with journeys_beside([j for j in JOURNEYS if j in phases]):
+        if "dist_seq" in phases:
+            r = run("dist_seq", phase_dist_seq, torch, smi)
+            for rec, name in ((fat, "fat_line_update"),
+                              *((recs[k], k) for k in FLASH_KERNELS)):
+                rec["launches_seq_arms"] = {k: [x[name] for x in v]
+                                            for k, v in r["launches"].items()}
     if "dist_main" in phases:
         r = run("dist_main", phase_dist_main, torch, smi)
         fat["launches_sharded"] = r["launches"]
@@ -5898,13 +6497,13 @@ def main(argv=None) -> int:
                           (recs["segment_sum"], "segment_sum")):
             rec["launches_ctr_arms"] = {k: [x[name] for x in v]
                                         for k, v in r["ctr_launches"].items()}
-    if "dist_cli" in phases:
-        run("dist_cli", phase_dist_cli, torch)
-    if "dist_seq" in phases:
-        r = run("dist_seq", phase_dist_seq, torch, smi)
-        for rec, name in ((fat, "fat_line_update"), *((recs[k], k) for k in FLASH_KERNELS)):
-            rec["launches_seq_arms"] = {k: [x[name] for x in v]
-                                        for k, v in r["launches"].items()}
+    if "dist_dense" in phases:
+        r = run("dist_dense", phase_dist_dense, torch, smi)
+        recs["segment_sum"]["launches_dense_arms"] = {
+            k: [x["segment_sum_launches"] for x in v] for k, v in r.items()
+            if not k.endswith("/refuse")}
+    if "dist_serve" in phases:
+        run("dist_serve", phase_dist_serve, torch, smi)
     if "profile" in phases:
         run("profile", phase_profile, torch)
     if "profile_b4r" in phases:

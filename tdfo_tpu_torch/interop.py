@@ -159,16 +159,18 @@ def dense_params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def flax_params_from_module(module: torch.nn.Module) -> dict:
+def flax_params_from_module(module: torch.nn.Module, params=None) -> dict:
     """A port module's parameters as the reference's flax param tree (nested
     dicts of numpy arrays): the inverse of :func:`dense_params_from_flax`
     and :func:`backbone_params_from_flax`, with the leaves named by
     ``parallel.sharding.module_flax_paths`` (``Linear`` weights transposed
     to ``kernel [in, out]``, ``LayerNorm`` weights named ``scale``,
-    ``Embedding`` weights named ``embedding``)."""
+    ``Embedding`` weights named ``embedding``).  ``params``: the values by
+    parameter name in the module's place (a sharded module's parameters
+    gathered whole)."""
     from tdfo_tpu_torch.parallel.sharding import module_flax_paths
 
-    params = dict(module.named_parameters())
+    params = dict(params if params is not None else module.named_parameters())
     tree: dict = {}
     for name, (path, flip) in module_flax_paths(module).items():
         *keys, leaf = path.split("/")

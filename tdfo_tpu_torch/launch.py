@@ -25,7 +25,7 @@ and refuse to start when CUDA is asked for and absent.
 
 Several ranks (the reference's ``--distributed``, ``tdfo_tpu/launch.py:80``):
 ``python -m torch.distributed.run --nproc-per-node N -m tdfo_tpu_torch.launch
-train --config ... [--device cpu]``.  ``--distributed auto`` (the default)
+{train,serve} --config ... [--device cpu]``.  ``--distributed auto`` (the default)
 starts the process group when torchrun's ``WORLD_SIZE`` is above 1,
 ``always`` also at one rank (the distributed code path on one process),
 ``never`` not at all; NCCL on the card (one rank per card), gloo on the
@@ -34,7 +34,8 @@ card, which NCCL refuses).  The ``[mesh]`` table lays the ranks out; only rank 0
 metrics and checkpoints.  Under ``lookup_mode = "alltoall"``,
 ``[embeddings] grouped_a2a = true`` runs the grouped exchange and ``[train]
 pipeline_overlap = true`` the pipelined step on top of it; int8 storage
-runs under a mesh too.  The other
+runs under a mesh too.  ``serve`` under several ranks shards the retrieval
+corpus over the ``data`` axis (``serve/frontend.py``).  The other
 subcommands of the reference (serve-fleet, loadgen, online, plan, ...)
 arrive with their slices (``ROADMAP.md``).
 """
@@ -133,21 +134,13 @@ def run(argv: list[str] | None = None):
 
     if args.command == "serve":
         from tdfo_tpu_torch.core.config import serving_model_kind
-        from tdfo_tpu_torch.serve.frontend import serve_from_config
 
         try:
             kind = serving_model_kind(cfg)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-        print(f"serve: model {cfg.model!r} -> {kind} serving family", flush=True)
-        stats = serve_from_config(cfg, log_dir=args.log_dir, device=args.device)
-        print({k: round(v, 5) if isinstance(v, float) else v
-               for k, v in stats.items()})
-        return stats
 
     import os
-
-    from tdfo_tpu_torch.train.trainer import Trainer
 
     import torch.distributed as dist
 
@@ -158,14 +151,27 @@ def run(argv: list[str] | None = None):
 
         started = initialize_distributed(args.device, backend=args.backend,
                                          force=True)
-    trainer = Trainer(cfg, log_dir=args.log_dir, device=args.device)
-    metrics = trainer.fit()
-    if trainer.rank == 0:
-        print({k: round(v, 5) for k, v in metrics.items()})
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    if args.command == "serve":
+        from tdfo_tpu_torch.serve.frontend import serve_from_config
+
+        if rank0:
+            print(f"serve: model {cfg.model!r} -> {kind} serving family", flush=True)
+        out = serve_from_config(cfg, log_dir=args.log_dir, device=args.device)
+        if rank0:
+            print({k: round(v, 5) if isinstance(v, float) else v
+                   for k, v in out.items()})
+    else:
+        from tdfo_tpu_torch.train.trainer import Trainer
+
+        out = Trainer(cfg, log_dir=args.log_dir, device=args.device)
+        metrics = out.fit()
+        if rank0:
+            print({k: round(v, 5) for k, v in metrics.items()})
     if started:  # every rank done, then the group's teardown
         dist.barrier()
         dist.destroy_process_group()
-    return trainer
+    return out
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ with its dQ and dK/dV kernels.
   Without grad (eval) it takes the inference forward, which writes no lse.
 * :func:`flash_attention_with_lse` and :func:`flash_attention_bwd` are the
   same two halves as plain functions, for callers that combine partial
-  attentions themselves (the ring path, ``ROADMAP.md`` Queue A item 12b).
+  attentions themselves (the ring path, ``parallel/ring_attention.py``).
 * The kernel wrappers :func:`flash_fwd`, :func:`flash_bwd_dq` and
   :func:`flash_bwd_dkv` launch the kernel for CUDA tensors or raise; for CPU
   tensors they run the plain versions :func:`flash_fwd_plain`,

@@ -914,7 +914,8 @@ class SparseOptimizer:
         return cache
 
     def cache_update_unique(self, cache, table, slots, uids, g, valid, *,
-                            step, sr_key=None, qscale=None, gather=None):
+                            step, sr_key=None, qscale=None, gather=None,
+                            row_sq_mean=_row_sq_mean):
         """Cached step on PRE-deduplicated ``(uids, g, valid)``: admit the
         misses (gathers of the table, its sidecar and slot rows only), then
         the ``sparse_*`` math on the cached rows and mirrors, written into
@@ -924,7 +925,9 @@ class SparseOptimizer:
         re-grids the new rows with the plain path's block and key.
         ``gather(t, rows)``: rows of the table, its sidecar or a slot
         (clamped into the table; default a local gather; a row-sharded
-        table's reads each row from its owner).  Returns ``(cache,
+        table's reads each row from its owner).  ``row_sq_mean``:
+        rowwise_adagrad's per-row mean of squares (a column shard's covers
+        the whole row, as :meth:`update_unique`'s).  Returns ``(cache,
         slots)``."""
         valid = valid.to(torch.bool)
         gid = torch.where(valid, uids.to(torch.int64), 0)
@@ -935,11 +938,11 @@ class SparseOptimizer:
                  for key in _cache_mirror_keys(self.kind)}
         count = slots[2] if self.kind == "adam" else None
         cache = self._cache_math(cache, uids, g, valid, urows, uslot, step,
-                                 count, sr_key, uqs)
+                                 count, sr_key, uqs, row_sq_mean)
         return cache, slots
 
     def _cache_math(self, cache, uids, g, valid, urows, uslot, step, count,
-                    sr_key, uqs=None):
+                    sr_key, uqs=None, row_sq_mean=_row_sq_mean):
         """Admission, then the per-kind update of the cached rows (reference
         ``_cache_math``).  Returns the new cache dict."""
         cache = _cache_admit(cache, urows, uslot, uids, valid, self.kind,
@@ -983,7 +986,7 @@ class SparseOptimizer:
         elif self.kind == "rowwise_adagrad":
             acc_r = cache["acc"][csc]  # [U], always f32
             g2 = g + wd * cur
-            acc_n = acc_r + torch.mean(g2 * g2, dim=-1)
+            acc_n = acc_r + row_sq_mean(g2)
             put_rows(cur - lr * g2 / (torch.sqrt(acc_n)[:, None] + eps),
                      component_key(sr_key, 0))
             put("acc", acc_n)
@@ -1009,7 +1012,8 @@ class SparseOptimizer:
     def cache_update(self, cache, table, slots, ids, grads, *, step,
                      capacity: int | None = None,
                      max_distinct: int | None = None, sr_key=None,
-                     qscale=None, gather=None, vocab_rows: int | None = None):
+                     qscale=None, gather=None, vocab_rows: int | None = None,
+                     row_sq_mean=_row_sq_mean):
         """Cached analogue of :meth:`update` for plain 2D tables: the same
         :func:`dedupe_grads` (``vocab_rows``: the rows of the whole table
         when ``table`` is a shard), then :meth:`cache_update_unique`.
@@ -1020,7 +1024,8 @@ class SparseOptimizer:
             max_distinct=max_distinct)
         return self.cache_update_unique(cache, table, slots, uids, g, valid,
                                         step=step, sr_key=sr_key,
-                                        qscale=qscale, gather=gather)
+                                        qscale=qscale, gather=gather,
+                                        row_sq_mean=row_sq_mean)
 
     def cache_flush(self, cache, table, slots, qscale=None, owned=None):
         """Write every dirty cached row and its mirrors back into the table

@@ -89,9 +89,12 @@ the same way, and its flush writes each row into its owner only
 (:meth:`owned_rows`).  A column shard under ``rowwise_adagrad`` keeps the
 whole ``[V]`` accumulator, the same on every rank: its update all-gathers
 the ``[C, d / M]`` grad blocks and takes each row's mean of squares over
-the whole row, as one device does.  The update cache over column-sharded
-tables under a mesh is not ported (``ROADMAP.md`` Queue A item 12b) and
-refuses.  As in the reference, bf16 and int8 fused tables under
+the whole row, as one device does.  Over a column-sharded table the cache's
+directory (ids, slots, dirty bits, frequencies) is replicated, and its
+value rows and elementwise mirrors hold this rank's columns ``[C, d / M]``,
+so its memory falls with M as the table's does; rowwise_adagrad's cached
+accumulator is the whole-row mean, the same on every rank.  As in the
+reference, bf16 and int8 fused tables under
 ``rowwise_adagrad`` refuse: a fat line holds the table and its optimizer
 state together, and the per-row accumulator is f32 by contract.
 
@@ -342,12 +345,6 @@ class ShardedEmbeddingCollection:
         self.a2a_capacity_factor = a2a_capacity_factor
         self.grouped_a2a = grouped_a2a
         self._grouped_plans: dict[tuple[str, ...], tuple[_A2AGroup, ...]] = {}
-        if (cache_rows > 0 and self.n_shards > 1
-                and any(s.sharding == "column" for s in specs)):
-            raise NotImplementedError(
-                "the update cache (cache_rows > 0) over column-sharded "
-                "tables under a device mesh is not ported to tdfo_tpu_torch "
-                "yet (ROADMAP.md Queue A item 12b)")
         self.cache_rows = cache_rows
         self.fused_kind = fused_kind
         self.specs = {s.name: s for s in specs}
@@ -782,7 +779,8 @@ class ShardedEmbeddingCollection:
         """Empty update caches for every cached array, keyed
         ``CACHE_PREFIX + array name`` (the trainer merges them into the
         slots, so checkpoints and rollback snapshots carry them).  Under a
-        mesh each rank builds the same cache: caches are replicated."""
+        mesh each rank builds the same directory; a column shard's cache
+        holds its columns (the module note)."""
         return {CACHE_PREFIX + a: opt.cache_init(tables[a], self.cache_rows)
                 for a in self.cached_array_names(opt, tables)}
 
@@ -1272,22 +1270,30 @@ class ShardedEmbeddingCollection:
         if place == "replicated":
             return opt.update(table, slots, ids, grads, embedding_dim=d,
                               sr_key=sr_key, **kw)
-        if sr_key is not None:
-            sr_key = threefry.fold_in(sr_key, self.shard)
         ids = ids.reshape(-1).to(torch.int64)
         grads = grads.reshape(-1, grads.shape[-1])
         if place == "column":
-            w = d // self.n_shards
-            return opt.update(table, slots, ids,
-                              grads[:, self.shard * w:(self.shard + 1) * w],
-                              embedding_dim=w, sr_key=sr_key,
+            grads, sr_key = self.column_share(grads, sr_key)
+            return opt.update(table, slots, ids, grads,
+                              embedding_dim=grads.shape[-1], sr_key=sr_key,
                               row_sq_mean=self._whole_row_sq_mean, **kw)
+        if sr_key is not None:
+            sr_key = threefry.fold_in(sr_key, self.shard)
         rps = self.rows_per_shard(array_name)
         local = ids - self.shard * rps
         mine = (local >= 0) & (local < rps)
         return opt.update(table, slots, torch.where(mine, local, -1),
                           torch.where(mine[:, None], grads, 0.0),
                           embedding_dim=d, sr_key=sr_key, **kw)
+
+    def column_share(self, grads, sr_key=None):
+        """A column shard's part of whole-row grads ``[n, d]``: its
+        columns ``[n, d / M]`` and the rounding key folded with its model
+        index (each shard draws its own bits)."""
+        w = grads.shape[-1] // self.n_shards
+        if sr_key is not None:
+            sr_key = threefry.fold_in(sr_key, self.shard)
+        return grads[:, self.shard * w:(self.shard + 1) * w], sr_key
 
     def _whole_row_sq_mean(self, g):
         """rowwise_adagrad's per-row mean of squares for a column shard's
@@ -1326,6 +1332,15 @@ class ShardedEmbeddingCollection:
         # a column shard's rowwise accumulator is whole on every rank
         return "replicated" if place == "column" and t.dim() == 1 else place
 
+    def _cache_placement(self, cache_name: str, t) -> str:
+        """An update cache tensor over a column-sharded table holds this
+        rank's columns when it has the table's width (value rows,
+        elementwise mirrors); the directory, the per-row counters and a
+        rowwise accumulator replicate."""
+        parent = cache_name.removeprefix(CACHE_PREFIX)
+        column = self.array_placement(parent) == "column"
+        return "column" if column and t.dim() == 2 else "replicated"
+
     def _global_shape(self, array_name: str, t, place: str) -> tuple:
         """The single-device layout's shape of this rank's array ``t``."""
         if place == "replicated" or self.mesh is None:
@@ -1347,10 +1362,10 @@ class ShardedEmbeddingCollection:
 
     def _each_array(self, tables, slots, fn):
         """``fn(array name, tensor, placement)`` over every table and slot
-        tensor, in one order on every rank (an update cache, a dict of
-        tensors, is replicated)."""
+        tensor, in one order on every rank (an update cache is a dict of
+        tensors, :meth:`_cache_placement`)."""
         gt = {n: fn(n, t, self.array_placement(n)) for n, t in tables.items()}
-        gs = {n: ({k: fn(n, t, "replicated") for k, t in sl.items()}
+        gs = {n: ({k: fn(n, t, self._cache_placement(n, t)) for k, t in sl.items()}
                   if isinstance(sl, dict) else
                   type(sl)(fn(n, t, self._slot_placement(n, tables[n], t))
                            for t in sl))
@@ -1414,7 +1429,8 @@ class ShardedEmbeddingCollection:
 
         lt = {n: self._shard_one(n, t, self.array_placement(n))
               for n, t in tables.items()}
-        ls = {n: (dict(sl) if isinstance(sl, dict) else type(sl)(
+        ls = {n: ({k: self._shard_one(n, t, self._cache_placement(n, t))
+                  for k, t in sl.items()} if isinstance(sl, dict) else type(sl)(
                   self._shard_one(n, t, self._slot_placement(n, tables[n], t))
                   for t in sl))
               for n, sl in slots.items()}

@@ -15,6 +15,8 @@ reads it does the communication).
 ``megatron_tp_rule`` places the transformer's dense layers for Megatron
 tensor parallelism; :func:`module_plan` applies a plan to a port module's
 parameters (torch layout: a ``Linear`` weight is the transposed kernel).
+:func:`ps_shard_module_` is the dense regime's PS partition: each split
+parameter held as this rank's block, all-gathered whole for every forward.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_index, axis_size
 
 __all__ = ["PlanRule", "make_sharding_plan", "megatron_tp_rule",
            "min_size_partitioner_rule", "module_flax_paths", "module_plan",
-           "rowwise_embedding_rule", "shard_module_", "shard_state"]
+           "ps_shard_module_", "rowwise_embedding_rule", "shard_module_",
+           "shard_state"]
 
 PlanRule = Callable[[str, Any], "tuple | None"]
 
@@ -202,4 +205,48 @@ def shard_module_(module, mesh, *rules: PlanRule) -> dict[str, tuple]:
         owner = module.get_submodule(".".join(path)) if path else module
         block = _local_block(getattr(owner, leaf).detach(), spec, mesh)
         setattr(owner, leaf, torch.nn.Parameter(block.clone()))
+    return plan
+
+
+def ps_shard_module_(module, mesh, *rules: PlanRule) -> dict[str, tuple]:
+    """The PS partition of ``module`` (the reference shards the dense
+    regime's state with ``min_size_partitioner_rule``): :func:`shard_module_`
+    keeps this rank's block of every split parameter (an optimizer made
+    after it holds block moments), and every forward of ``module`` reads
+    each split parameter whole, all-gathered over the model axis by a
+    forward pre-hook and put back after the forward.  The gather's backward
+    is this rank's slice of the whole parameter's gradient: every model
+    rank computes the same loss on the same rows, so the slice is the
+    single-device gradient of the block (a sum over the axis would scale it
+    by M).  Returns the plan."""
+    from tdfo_tpu_torch.core.mesh import axis_group
+    from tdfo_tpu_torch.parallel.collectives import SeqGather
+
+    plan = shard_module_(module, mesh, *rules)
+    split = []
+    for name, spec in plan.items():
+        if spec:
+            *path, leaf = name.split(".")
+            owner = module.get_submodule(".".join(path)) if path else module
+            split.append((owner, leaf, spec.index(MODEL_AXIS)))
+    if not split:
+        return plan
+    group = axis_group(mesh, MODEL_AXIS)
+    blocks: list = []
+
+    def gather(mod, args):
+        for owner, leaf, dim in split:
+            block = owner._parameters[leaf]
+            blocks.append(block)
+            # a plain tensor in the parameter's place, as torch.func's
+            # functional_call puts one there, for this forward only
+            owner._parameters[leaf] = SeqGather.apply(block, group, dim)
+
+    def put_back(mod, args, out):
+        for (owner, leaf, _), block in zip(split, blocks):
+            owner._parameters[leaf] = block
+        blocks.clear()
+
+    module.register_forward_pre_hook(gather)
+    module.register_forward_hook(put_back, always_call=True)
     return plan

@@ -428,19 +428,54 @@ _CORPUS_MANIFEST = "corpus.json"
 _CORPUS_ARRAYS = "corpus.npz"
 
 
-def export_corpus(out_dir: str | Path, corpus, *, step: int = 0) -> Path:
+def _gathered_corpus(corpus, mesh):
+    """A sharded corpus's ``(vectors, ids, qscale)`` in the single-device
+    layout on global rank 0's host (shard by shard over the data axis;
+    ``None`` on the other ranks); the corpus itself when unsharded."""
+    if corpus.n_shards == 1:
+        return corpus.vectors, corpus.ids, corpus.qscale
+    from tdfo_tpu_torch.core.mesh import DATA_AXIS, axis_group
+    from tdfo_tpu_torch.parallel.collectives import gather_to_host
+
+    if mesh is None:
+        raise ValueError("a sharded corpus exports through its mesh (mesh=)")
+    group = axis_group(mesh, DATA_AXIS)
+    parts = [None if t is None else gather_to_host(t, group)
+             for t in (corpus.vectors, corpus.ids, corpus.qscale)]
+    return None if parts[0] is None else parts
+
+
+def export_corpus(out_dir: str | Path, corpus, *, step: int = 0,
+                  mesh=None) -> Path:
     """Write a retrieval corpus directory (the unpadded rows at their
     stored dtype; bf16 as uint16 bit patterns; int8 with its ``qscale``
-    sidecar and the ``qscale_layout`` stamp) and return its path."""
-    n = corpus.n_items
-    vectors = corpus.vectors[:n].detach().cpu()
+    sidecar and the ``qscale_layout`` stamp) and return its path.  A
+    corpus sharded over ``mesh``: every rank calls this, the shards are
+    gathered to global rank 0, which alone writes (the others wait for it
+    at a barrier)."""
+    out = Path(out_dir)
+    if corpus.n_shards > 1:
+        import torch.distributed as dist
+
+        got = _gathered_corpus(corpus, mesh)
+        if dist.get_rank() == 0:
+            vectors, ids, qscale = got
+            _write_corpus(out, vectors, ids, qscale, corpus.n_items, step)
+        dist.barrier()
+        return out
+    return _write_corpus(out, corpus.vectors, corpus.ids, corpus.qscale,
+                         corpus.n_items, step)
+
+
+def _write_corpus(out: Path, vectors, ids, qscale, n: int, step: int) -> Path:
+    vectors = vectors[:n].detach().cpu()
     dtype_name = _dtype_name(vectors.dtype)
     if dtype_name not in STORAGE_DTYPES:
         raise ValueError(f"corpus dtype {dtype_name!r} not in {STORAGE_DTYPES}")
     arrays: dict[str, np.ndarray] = {
         "vectors": (vectors.view(torch.int16).numpy().view(np.uint16)
                     if dtype_name == "bfloat16" else vectors.numpy()),
-        "ids": np.asarray(_host(corpus.ids[:n].cpu()), np.int32),
+        "ids": np.asarray(_host(ids[:n].cpu()), np.int32),
     }
     manifest: dict[str, Any] = {
         "bundle_version": BUNDLE_VERSION,
@@ -451,18 +486,17 @@ def export_corpus(out_dir: str | Path, corpus, *, step: int = 0) -> Path:
         "step": int(step),
     }
     if dtype_name == "int8":
-        if corpus.qscale is None:
+        if qscale is None:
             raise ValueError(
                 "int8 corpus has no qscale sidecar — it cannot be "
                 "dequantized; refusing to export garbage")
-        arrays["qscale"] = np.asarray(_host(corpus.qscale[:n].cpu()), np.float32)
+        arrays["qscale"] = np.asarray(_host(qscale[:n].cpu()), np.float32)
         manifest["qscale_layout"] = QSCALE_LAYOUT
-    elif corpus.qscale is not None:
+    elif qscale is not None:
         raise ValueError(
             f"{dtype_name} corpus carries a qscale sidecar — only int8 "
             "rows are scaled; refusing an inconsistent corpus")
     manifest["digest"] = bundle_digest(manifest, arrays)
-    out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     np.savez(out / _CORPUS_ARRAYS, **arrays)
     (out / _CORPUS_MANIFEST).write_text(json.dumps(manifest, indent=1, sort_keys=True))
@@ -475,11 +509,12 @@ def load_corpus(corpus_dir: str | Path, *, mesh=None, device="cuda"):
     ``bundle_version`` mismatch, an unknown dtype, a content-digest
     mismatch, shape drift, an int8 corpus without (or with another)
     ``qscale_layout`` or without its sidecar, and a float corpus that
-    carries one.  ``mesh`` (a sharded corpus) refuses: item 12b."""
-    from tdfo_tpu_torch.serve.corpus import Corpus
-    from tdfo_tpu_torch.serve.scoring import refuse_mesh
+    carries one.  ``mesh``: this rank's shard over its data axis, the
+    padding re-derived for THIS mesh whatever mesh wrote the corpus (zero
+    rows of id -1; int8 padding quantized from zero rows, as
+    ``build_corpus`` stores it), so a same-mesh round trip is bitwise."""
+    from tdfo_tpu_torch.serve.corpus import Corpus, pad_shard, shard_rows
 
-    refuse_mesh(mesh)
     device = resolve_device(device)
     cdir = Path(corpus_dir)
     mpath = cdir / _CORPUS_MANIFEST
@@ -534,5 +569,19 @@ def load_corpus(corpus_dir: str | Path, *, mesh=None, device="cuda"):
             f"corpus store {cdir}: {dtype_name} corpus carries a qscale "
             "sidecar — only int8 rows are scaled; refusing an "
             "inconsistent corpus")
-    ids = to_torch(np.asarray(arrays["ids"], np.int32)).to(device)
-    return Corpus(vectors=vectors.to(device), ids=ids, n_items=n, qscale=qscale)
+    ids = to_torch(np.asarray(arrays["ids"], np.int32))
+    shard, n_shards, lo, hi = shard_rows(n, mesh)
+    vectors, ids = vectors[lo:hi].to(device), ids[lo:hi].to(device)
+    if qscale is None:  # float padding rows are stored zeros
+        vectors, ids = pad_shard(vectors, ids, n, n_shards)
+    else:  # int8 ones are zero rows quantized, as a build stores them
+        from tdfo_tpu_torch.ops.quant import quantize_rows
+
+        _, ids = pad_shard(vectors, ids, n, n_shards)
+        qscale = qscale[lo:hi]
+        if ids.shape[0] > hi - lo:
+            codes, qs = quantize_rows(torch.zeros((ids.shape[0] - (hi - lo), dim),
+                                                  device=device), divide=True)
+            vectors, qscale = torch.cat([vectors, codes]), torch.cat([qscale, qs])
+    return Corpus(vectors=vectors, ids=ids, n_items=n, qscale=qscale,
+                  shard=shard, n_shards=n_shards)

@@ -20,7 +20,16 @@ shapes, as the reference's does:
   accepted requests on the old one.
 
 The clock is injectable (default ``time.monotonic``), so tests drive the
-deadlines.  Not ported yet, and refused by :func:`serve_from_config`:
+deadlines.
+
+Under a process group (``launch serve`` through ``torch.distributed.run``)
+every rank is one process of the same program: rank 0 gathers the
+restored state into the single-device layout and writes the bundle, the
+others wait and load it; each rank scores the same seeded request trace
+on its replicated parameters (only rank 0 logs), and the corpus shards
+over the mesh's ``data`` axis (``serve/corpus.py``, ``serve/retrieval.py``).
+
+Not ported yet, and refused by :func:`serve_from_config`:
 ``[serving] replicas > 1`` (the fleet, ``ROADMAP.md`` Queue A item 15b),
 ``log_features`` (the replayable request log, item 16) and the serving
 watchdog (``telemetry.stall_timeout_s``, item 16).
@@ -298,7 +307,10 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
     ships ragged histories folded into eval windows
     (:func:`~tdfo_tpu_torch.serve.seq_scoring.history_window`) with a
     1 + 100 candidate panel.  Returns the stats dict."""
+    import torch.distributed as dist
+
     from tdfo_tpu_torch.core.config import serving_model_kind
+    from tdfo_tpu_torch.interop import flax_params_from_module
     from tdfo_tpu_torch.serve.export import export_bundle, load_bundle
     from tdfo_tpu_torch.serve.scoring import make_scorer
     from tdfo_tpu_torch.train.trainer import Trainer, _ctr_columns
@@ -307,13 +319,18 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
     refuse_unported_serving(config)
     trainer = Trainer(config, log_dir=log_dir, device=device)
     step, state = trainer.restore_latest()
+    mesh = trainer.mesh
 
     out_dir = Path(log_dir or config.checkpoint_dir or ".") / "serving_bundle"
-    if hasattr(state, "tables"):  # DMP/sparse regime
-        kwargs: dict[str, Any] = dict(coll=trainer.coll, tables=state.tables,
-                                      dense_params=state.backbone)
+    sd = trainer.single_device_state()  # None off rank 0 under a mesh
+    if sd is None:
+        kwargs: dict[str, Any] = {}
+    elif hasattr(state, "tables"):  # DMP/sparse regime
+        kwargs = dict(coll=trainer.coll, tables=sd["tables"],
+                      dense_params=flax_params_from_module(state.backbone,
+                                                           sd["backbone"]))
     else:
-        kwargs = dict(params=state.model)
+        kwargs = dict(params=flax_params_from_module(state.model, sd["params"]))
     if kind == "seq":
         cat_cols: tuple[str, ...] = ()
         cont_cols: tuple[str, ...] = ()
@@ -321,13 +338,16 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
                          "n_layers": config.n_layers}
     else:
         cat_cols, cont_cols = _ctr_columns(config)
-    export_bundle(out_dir, model=config.model, embed_dim=config.embed_dim,
-                  cat_columns=cat_cols, cont_columns=cont_cols,
-                  size_map=config.size_map, step=step,
-                  mixed_precision=config.mixed_precision,
-                  platform=trainer.device.type, **kwargs)
+    if trainer.rank == 0:
+        export_bundle(out_dir, model=config.model, embed_dim=config.embed_dim,
+                      cat_columns=cat_cols, cont_columns=cont_cols,
+                      size_map=config.size_map, step=step,
+                      mixed_precision=config.mixed_precision,
+                      platform=trainer.device.type, **kwargs)
+    if mesh is not None:
+        dist.barrier()  # the bundle is written
     bundle = load_bundle(out_dir)
-    scorer = make_scorer(bundle, device=trainer.device)
+    scorer = make_scorer(bundle, mesh=mesh, device=trainer.device)
 
     rng = np.random.default_rng(config.seed)
     spec = config.serving
@@ -385,8 +405,8 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
             corpus = build_corpus(
                 scorer, synthetic_item_features(config.size_map, n_items,
                                                 seed=config.seed),
-                corpus_batch=spec.corpus_batch, dtype=corpus_dtype)
-            retrieve = make_retrieval(corpus, top_k=spec.top_k,
+                corpus_batch=spec.corpus_batch, mesh=mesh, dtype=corpus_dtype)
+            retrieve = make_retrieval(corpus, mesh=mesh, top_k=spec.top_k,
                                       coarse_k=spec.coarse_k)
             q_batch = {"user_id": np.arange(8, dtype=np.int32) %
                        max(vocab.get("user_id", 1), 1)}
@@ -397,8 +417,9 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
         from tdfo_tpu_torch.serve.seq_scoring import history_window, item_corpus
 
         if scorer.n_items > spec.top_k:
-            corpus = item_corpus(bundle, device=trainer.device, dtype=corpus_dtype)
-            retrieve = make_retrieval(corpus, top_k=spec.top_k,
+            corpus = item_corpus(bundle, mesh=mesh, device=trainer.device,
+                                 dtype=corpus_dtype)
+            retrieve = make_retrieval(corpus, mesh=mesh, top_k=spec.top_k,
                                       coarse_k=spec.coarse_k)
             q = np.stack([
                 history_window(

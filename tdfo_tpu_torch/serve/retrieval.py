@@ -1,7 +1,8 @@
 """Top-k maximum-inner-product retrieval over a corpus — port of
 ``tdfo_tpu/serve/retrieval.py`` (``mips_scores``, ``_masked_top_k``,
 ``_coarse_scores``, ``_gather_dequant``, ``_rerank_scores``,
-``make_retrieval``, ``retrieval_reference``), on one device.
+``make_retrieval``, ``retrieval_reference``), on one device or over a
+corpus sharded across the ``data`` axis of a mesh.
 
 * :func:`mips_scores` is the serving score formula: operands rounded to
   bf16, products and sums in f32 (the reference's bf16 ``dot_general``
@@ -25,8 +26,18 @@
   ``2**27`` elements, so a batch of 8,192 queries against 200,000 items
   does not hold a 6.5 GB score matrix.
 
-A ``mesh`` (corpus sharded over devices) waits for the multi-GPU slice
-(``ROADMAP.md`` Queue A item 12b).
+Over a sharded corpus (``serve/corpus.py``; S ranks, one process each,
+every rank holding the same queries) the programs are the reference's:
+
+* exact: each shard's top ``k_local = min(top_k, rows_per_shard)``, the
+  ``[B, k_local]`` blocks all-gathered and concatenated shard-major, then
+  one top-k over them: equal scores keep the lower shard, then the lower
+  position, so ties go to the lower global position as on one device;
+* two-stage: each shard's coarse top ``k_local`` as GLOBAL positions,
+  merged shard-major to ``n_cand = min(coarse_k, k_local * S)`` sorted
+  ascending; each candidate row is gathered and decoded by its owner,
+  every other rank adding -0.0 (ids: 0), so the sum over the axis is the
+  owner's bits; then the exact re-rank on every rank.
 """
 
 from __future__ import annotations
@@ -35,9 +46,10 @@ from typing import Callable
 
 import torch
 
+from tdfo_tpu_torch.core.mesh import DATA_AXIS, axis_group, axis_size
 from tdfo_tpu_torch.ops.quant import dequantize_rows
+from tdfo_tpu_torch.parallel.collectives import all_gather_cat, all_reduce_
 from tdfo_tpu_torch.serve.corpus import Corpus
-from tdfo_tpu_torch.serve.scoring import refuse_mesh
 
 __all__ = ["make_retrieval", "mips_scores", "retrieval_reference", "top_k_ordered"]
 
@@ -109,8 +121,14 @@ def make_retrieval(corpus: Corpus, *, mesh=None, top_k: int = 100,
                    coarse_k: int = 0) -> Callable:
     """``retrieve(queries [B, D]) -> (scores [B, k] f32, ids [B, k] int32)``
     over ``corpus``, candidates in descending score order.  ``coarse_k`` = 0
-    runs the exact scan; ``coarse_k >= top_k`` the two-stage program."""
-    refuse_mesh(mesh)
+    runs the exact scan; ``coarse_k >= top_k`` the two-stage program.
+    ``mesh``: the mesh ``corpus`` is sharded over (every rank calls
+    ``retrieve`` with the same queries and gets the whole result)."""
+    n_shards = axis_size(mesh, DATA_AXIS)
+    if corpus.n_shards != n_shards:
+        raise ValueError(
+            f"the corpus is sharded {corpus.n_shards} ways and the mesh's "
+            f"data axis has {n_shards} ranks: build or load it for this mesh")
     if top_k < 1:
         raise ValueError("top_k must be >= 1")
     if top_k > corpus.n_items:
@@ -124,26 +142,50 @@ def make_retrieval(corpus: Corpus, *, mesh=None, top_k: int = 100,
     if coarse_k >= corpus.n_items:
         coarse_k = 0  # degenerate routing: nothing could be dropped
     vectors, ids, qs = corpus.vectors, corpus.ids, corpus.qscale
-    n_rows = vectors.shape[0]
-    n_cand = min(coarse_k, n_rows)
+    rps, sharded = corpus.rows_per_shard, n_shards > 1
+    base = corpus.shard * rps
+    group = axis_group(mesh, DATA_AXIS) if sharded else None
+
+    def merge(*blocks):
+        """Every rank's ``[c, k_local]`` blocks along dim 1, shard-major."""
+        return [all_gather_cat(b, group, dim=1) for b in blocks]
 
     def exact(q):
         # the corpus operand is rounded once per call, the queries per chunk
         vb = _bf16_f32(vectors if qs is None else dequantize_rows(vectors, qs))
-        return [_masked_top_k(_bf16_f32(c) @ vb.T, ids, top_k)
-                for c in _chunks(q, n_rows)]
+        out = []
+        for c in _chunks(q, rps):
+            s, i = _masked_top_k(_bf16_f32(c) @ vb.T, ids, min(top_k, rps))
+            if sharded:
+                s, i = merge(s, i)
+                s, pos = top_k_ordered(s, top_k)
+                i = torch.gather(i, 1, pos)
+            out.append((s, i))
+        return out
+
+    k_local = min(coarse_k, rps)
+    n_cand = min(coarse_k, k_local * n_shards)
 
     def two_stage(q):
         out = []
         vb = _bf16_f32(vectors)  # stored rows: int8 codes are exact in bf16
-        for c in _chunks(q, n_rows):
+        for c in _chunks(q, rps):
             coarse = torch.where(ids[None, :] >= 0, _coarse_scores(c, vb, qs),
                                  float("-inf"))
-            _, pos = top_k_ordered(coarse, n_cand)
+            s, pos = top_k_ordered(coarse, k_local)
+            if sharded:
+                s, pos = merge(s, pos + base)  # GLOBAL positions
+                _, sel = top_k_ordered(s, n_cand)
+                pos = torch.gather(pos, 1, sel)
             pos = torch.sort(pos, dim=1).values  # lower position first on ties
-            cand = _gather_dequant(vectors, qs, pos.reshape(-1)).reshape(
-                *pos.shape, -1)
-            cand_ids = ids[pos]
+            loc = pos - base
+            flat = torch.clamp(loc, 0, rps - 1).reshape(-1)
+            cand = _gather_dequant(vectors, qs, flat).reshape(*pos.shape, -1)
+            cand_ids = ids[flat].reshape(pos.shape)
+            if sharded:  # the owner's rows and ids; the others add -0.0 and 0
+                mine = (loc >= 0) & (loc < rps)
+                cand = all_reduce_(torch.where(mine[..., None], cand, -0.0), group)
+                cand_ids = all_reduce_(torch.where(mine, cand_ids, 0), group)
             rr = torch.where(cand_ids >= 0, _rerank_scores(c, cand), float("-inf"))
             s, sel = top_k_ordered(rr, top_k)
             out.append((s, torch.gather(cand_ids, 1, sel)))

@@ -33,15 +33,7 @@ from tdfo_tpu_torch.models.twotower import (
 )
 from tdfo_tpu_torch.serve.export import ServingBundle
 
-__all__ = ["CountedScore", "Scorer", "make_scorer", "refuse_mesh", "to_device_batch"]
-
-
-def refuse_mesh(mesh) -> None:
-    """Serving runs on one device; a mesh waits for the multi-GPU slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "serving over a device mesh is not ported to tdfo_tpu_torch yet "
-            "(ROADMAP.md Queue A item 12b)")
+__all__ = ["CountedScore", "Scorer", "make_scorer", "to_device_batch"]
 
 
 def to_device_batch(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor]:
@@ -111,13 +103,14 @@ def make_scorer(bundle: ServingBundle, *, mesh=None, device="cuda"):
     """Bundle -> :class:`Scorer` on ``device`` (the card unless the caller
     asks for the CPU).  Bert4Rec bundles go to
     ``serve/seq_scoring.py::make_seq_scorer``, so callers serve either
-    family through one function."""
-    refuse_mesh(mesh)
+    family through one function.  Under a ``mesh`` every rank holds the
+    whole parameters (replicated, as the reference places them) and scores
+    its requests alone: the scorer runs no collective."""
     device = resolve_device(device)
     if bundle.model == "bert4rec":
         from tdfo_tpu_torch.serve.seq_scoring import make_seq_scorer
 
-        return make_seq_scorer(bundle, device=device)
+        return make_seq_scorer(bundle, mesh=mesh, device=device)
     if bundle.kind == "dense":
         return _dense_scorer(bundle, device)
     return _sparse_scorer(bundle, device)

@@ -37,9 +37,9 @@ from tdfo_tpu_torch.models.bert4rec import (
     key_padding_mask,
 )
 from tdfo_tpu_torch.ops.quant import STORAGE_DTYPES
-from tdfo_tpu_torch.serve.corpus import Corpus, store_corpus
+from tdfo_tpu_torch.serve.corpus import Corpus, corpus_from_rows
 from tdfo_tpu_torch.serve.export import ServingBundle
-from tdfo_tpu_torch.serve.scoring import CountedScore, refuse_mesh, to_device_batch
+from tdfo_tpu_torch.serve.scoring import CountedScore, to_device_batch
 
 __all__ = ["SeqScorer", "history_window", "item_corpus", "make_seq_scorer"]
 
@@ -122,13 +122,13 @@ def _check_seq_bundle(bundle: ServingBundle) -> tuple[int, dict]:
 
 
 def make_seq_scorer(bundle: ServingBundle, *, mesh=None, device="cuda") -> SeqScorer:
-    """Bundle -> :class:`SeqScorer` on ``device``."""
+    """Bundle -> :class:`SeqScorer` on ``device`` (under a ``mesh`` the
+    parameters replicate: every rank scores its requests alone)."""
     from tdfo_tpu_torch.parallel.embedding import (
         EmbeddingSpec,
         ShardedEmbeddingCollection,
     )
 
-    refuse_mesh(mesh)
     device = resolve_device(device)
     n_items, seq = _check_seq_bundle(bundle)
     if bundle.torch_dtype != torch.float32:
@@ -193,8 +193,8 @@ def item_corpus(bundle: ServingBundle, *, mesh=None, device="cuda",
     """The bundle's output head as a retrieval corpus: row ``v`` is
     ``[W_out[:, v]; b_out[v]]`` for the catalogue items ``v = 1..n_items``
     (PAD and MASK are never candidates), ids the 1-based item ids; stored
-    at ``dtype`` like ``build_corpus``."""
-    refuse_mesh(mesh)
+    at ``dtype`` like ``build_corpus``, and under a ``mesh`` this rank's
+    shard over its data axis, padded as ``build_corpus`` pads."""
     if dtype not in STORAGE_DTYPES:
         raise ValueError(f"corpus dtype {dtype!r} not in {STORAGE_DTYPES}")
     device = resolve_device(device)
@@ -214,6 +214,6 @@ def item_corpus(bundle: ServingBundle, *, mesh=None, device="cuda",
             f"not match embed_dim {bundle.embed_dim} x vocab {vocab} — "
             "head drift; the bundle and the catalog disagree")
     head = np.concatenate([kernel.T, bias[:, None]], axis=1)  # [V, d+1]
-    vectors = torch.from_numpy(np.ascontiguousarray(head[1:n_items + 1])).to(device)
-    ids = torch.arange(1, n_items + 1, dtype=torch.int32, device=device)
-    return store_corpus(vectors, ids, n_items, dtype)
+    vectors = torch.from_numpy(np.ascontiguousarray(head[1:n_items + 1]))
+    ids = torch.arange(1, n_items + 1, dtype=torch.int32)
+    return corpus_from_rows(vectors, ids, dtype, mesh=mesh, device=device)

@@ -90,11 +90,14 @@ assembles them, a fat stack then taking the default sharded update
 (``fat_line_update`` on each rank's lines) and a plain one the shared
 dedupe restricted to its own rows (``coll.update_unique``).  Each rank
 expands its own positions.  Column-sharded tables keep the default lookup
-and update, as in the reference.  The hot heads and the caches are
-replicated: every rank runs the head step and the cache math on the global
-batch's head positions, ids and grads, so every copy stays the same; the
-cache's admission reads each row of a sharded table from its owner and its
-flush writes each row into its owner only.
+and update, as in the reference.  The hot heads and the caches' directories
+are replicated: every rank runs the head step and the cache math on the
+global batch's head positions, ids and grads, so every copy stays the same;
+the cache's admission reads each row of a sharded table from its owner and
+its flush writes each row into its owner only.  A column shard's cache
+holds its columns: the step updates them from its columns of the grads
+(rowwise_adagrad's mean over the whole row) and the forward all-gathers
+the cached columns it serves.
 """
 
 from __future__ import annotations
@@ -386,6 +389,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
     hot_list = [f for f in features if f in hot_feats]
     column = {a for a in by_table
               if a in coll.specs and coll.specs[a].sharding == "column"}
+    # column shards under a mesh: each rank holds (and caches) its columns
+    col_split = {a for a in column if coll.array_placement(a) == "column"}
 
     def _concat_ids(feats, ids, rows_per_line: int = 1):
         """Stacked ids of ``feats`` (offsets added), per-feature sizes, and
@@ -457,6 +462,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                     cold = cold_ids[f].to(torch.int64)
                     gid = torch.where(cold >= 0, cold + off, 0)
                 cur, hit = cache_lookup_rows(cache, gid)
+                if aname in col_split:  # the cached columns, whole rows
+                    cur = all_gather_cat(cur, coll._model_group(), dim=-1)
                 if hp is not None:
                     hit = hit & (hp < 0)
                 embs[f] = torch.where(hit[..., None], cur.to(embs[f].dtype), embs[f])
@@ -648,12 +655,16 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                 # than the id count (reference ``_concat_ids``)
                 md = -(-bound // 8) * 8 if bound < all_ids.shape[0] else None
                 if aname in cached and not small_adam:
+                    key, kw = _sr_key(aname), {}
+                    if aname in col_split:
+                        all_grads, key = coll.column_share(all_grads, key)
+                        kw["row_sq_mean"] = coll._whole_row_sq_mean
                     state.slots[ck], _ = opt.cache_update(
                         state.slots[ck], table, state.slots[aname], all_ids,
                         all_grads, step=state.step, capacity=md,
-                        max_distinct=md, sr_key=_sr_key(aname),
-                        qscale=qscale_of(aname), gather=coll.owner_gather(aname),
-                        vocab_rows=coll.array_rows(aname))
+                        max_distinct=md, sr_key=key, qscale=qscale_of(aname),
+                        gather=coll.owner_gather(aname),
+                        vocab_rows=coll.array_rows(aname), **kw)
                     continue
                 coll.sparse_update(
                     opt, aname, table, state.slots[aname], all_ids, all_grads,

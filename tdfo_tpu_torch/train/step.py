@@ -12,9 +12,11 @@ rollback, with ``torch.where`` in place of a branch: no host sync).
 :func:`make_multi_step` runs a stacked ``[K, B, ...]`` chunk as K steps and
 keeps the K losses on the device.  On the card, :class:`CudaGraphStep`
 captures the dense step once over static batch buffers and each step of a
-chunk is one graph replay; a capture that fails raises.  It is single-rank:
-under a multi-rank process group it refuses (capture across NCCL calls is
-``ROADMAP.md`` Queue A item 12b).
+chunk is one graph replay; a capture that fails raises.  Under several
+ranks the graph holds the step's collectives (the data all-reduce of the
+gradients and of the loss, and the PS partition's all-gathers), which only
+NCCL can capture: the warm-up steps create its communicators before the
+capture, and several ranks under another backend refuse.
 
 Data parallelism (``make_train_step(mesh=...)``): each rank steps on its
 data slice; the loss is divided by the data axis size D before the
@@ -144,16 +146,18 @@ class CudaGraphStep:
     reading them).  Every call then copies the batch into the static
     buffers, replays the graph, advances ``state.step`` and returns clones
     of the outputs.  The state's optimizer must be capturable.  A capture
-    that fails raises: nothing falls back to eager steps."""
+    that fails raises: nothing falls back to eager steps.  Several ranks
+    need NCCL (the module note)."""
 
     def __init__(self, step_fn: Callable):
         import torch.distributed as dist
 
-        if dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "CudaGraphStep under a multi-rank process group (graph "
-                "capture across NCCL calls) is not ported to tdfo_tpu_torch "
-                "yet (ROADMAP.md Queue A item 12b)")
+        if (dist.is_initialized() and dist.get_world_size() > 1
+                and dist.get_backend() != "nccl"):
+            raise ValueError(
+                "CUDA-graph steps need NCCL: the "
+                f"{dist.get_backend()} backend's collectives run on the host "
+                "and cannot be captured")
         self.step_fn = step_fn
         self.graph = None
         self._static_in: dict[str, torch.Tensor] = {}

@@ -9,7 +9,12 @@ Regimes:
   the dense regime, every parameter (the 7 ``[V, d]`` tables included) in
   one ``TwoTower`` under AdamW (``train/state.py::TrainState``,
   ``train/step.py``); f16 loss scaling under ``mixed_precision`` on the
-  card.  ``ps_min_shard_bytes`` is the identity placement on one device.
+  card.  Under a ``[mesh]`` with ``model > 1`` the state replicates, or
+  with ``ps_min_shard_bytes > 0`` takes the reference's PS partition
+  (``parallel/sharding.py::ps_shard_module_``: each leaf the
+  ``min_size_partitioner_rule`` splits, with its AdamW moments, held as
+  this rank's block and all-gathered for every forward); CUDA-graph steps
+  replay the data all-reduce and that all-gather over NCCL.
 * TwoTower with ``model_parallel = true`` and DLRM: the tables (TwoTower's
   7, or one per ``categorical_features`` column such as Criteo's 26) in a
   ShardedEmbeddingCollection with the row-sparse in-backward optimizer
@@ -202,30 +207,31 @@ def _check_cache_overflow(overflow: dict, mesh=None) -> None:
 
 
 def refuse_unported(cfg: Config, world: int | None = None,
-                    device="cuda") -> None:
+                    device="cuda", backend: str | None = None) -> None:
     """Raise ``NotImplementedError`` for every knob value whose code path the
     port does not have yet, naming the ``ROADMAP.md`` item that ports it.
     ``world``: the ranks of the process group (default: the running one's,
-    1 without one); the mesh is multi-device when it or ``[mesh]`` says so.
-    ``device``: where the run trains (the dense regime's multi-step runs as
-    CUDA-graph replays on the card only)."""
+    1 without one).  ``device`` and ``backend`` (default: the running
+    group's): the dense regime's multi-step runs as CUDA-graph replays on
+    the card, which capture collectives only over NCCL, so several ranks
+    under gloo refuse it (a ``ValueError``)."""
     import torch.distributed as dist
 
     if world is None:
         world = dist.get_world_size() if dist.is_initialized() else 1
-    tele = cfg.telemetry
-    multi = (world > 1 or cfg.mesh.model > 1 or cfg.mesh.data > 1
-             or cfg.mesh.seq > 1)
+    if backend is None and dist.is_initialized():
+        backend = dist.get_backend()
     dense = cfg.model == "twotower" and not cfg.model_parallel
+    if (world > 1 and dense and cfg.steps_per_execution > 1
+            and torch.device(device).type == "cuda" and backend != "nccl"):
+        raise ValueError(
+            "steps_per_execution > 1 in the dense regime replays CUDA "
+            "graphs, and CUDA-graph steps need NCCL: the "
+            f"{backend or 'non-NCCL'} backend's collectives run on the host "
+            "and cannot be captured (run one rank per card over NCCL, or "
+            "steps_per_execution = 1)")
+    tele = cfg.telemetry
     checks = [
-        (multi and dense and cfg.steps_per_execution > 1
-         and torch.device(device).type == "cuda",
-         "CUDA-graph steps (steps_per_execution > 1, dense regime) under "
-         "several ranks", "12b"),
-        (multi and cfg.model == "twotower" and not cfg.model_parallel
-         and cfg.mesh.model > 1,
-         "the dense regime (model_parallel = false) with [mesh] model > 1",
-         "12b"),
         (bool(cfg.planner.plan), "planner.plan", 14),
         (cfg.write_format != "parquet", f"write_format = {cfg.write_format!r}", 16),
         (cfg.faults.any(), "[faults] injection", 16),
@@ -253,25 +259,30 @@ class _Quiet:
 class _GlobalView:
     """A sharded state in the single-device layout (what a checkpoint
     holds).  ``gathered`` gives global rank 0 the whole state, each sharded
-    table and slot, and each tensor-parallel backbone parameter with its
-    AdamW moments (``tp_plan``), gathered onto its host a shard at a time
-    (the other ranks get None); ``state_dict`` is the restore template, the
-    layout's shapes and dtypes with zero-memory stand-ins for the sharded
-    arrays; ``load_state_dict`` keeps this rank's shards."""
+    table and slot (``coll``; None for the dense regime), and each
+    parameter that ``plan`` splits over the model axis (tensor parallel,
+    or the dense regime's PS partition) with its AdamW moments, gathered
+    onto its host a shard at a time (the other ranks get None);
+    ``state_dict`` is the restore template, the layout's shapes and dtypes
+    with zero-memory stand-ins for the sharded arrays; ``load_state_dict``
+    keeps this rank's shards.  ``key``: where the state's tensor-dict form
+    keeps the module's parameters (``"backbone"``, or the dense
+    ``"params"``)."""
 
-    def __init__(self, state, coll, tp_plan=None, mesh=None):
-        self.state, self.coll, self.mesh = state, coll, mesh
+    def __init__(self, state, coll, plan=None, mesh=None, key="backbone"):
+        self.state, self.coll, self.mesh, self.key = state, coll, mesh, key
+        module = state.model if key == "params" else state.backbone
         # parameter index -> (name, dim split over the model axis)
-        plan = tp_plan or {}
-        self.tp = {i: (n, plan[n].index("model"))
-                   for i, (n, _) in enumerate(state.backbone.named_parameters())
+        plan = plan or {}
+        self.split = {i: (n, plan[n].index("model"))
+                   for i, (n, _) in enumerate(module.named_parameters())
                    if "model" in plan.get(n, ())}
 
-    def _each_tp(self, sd, fn) -> None:
-        """``fn(tensor, dim)`` over every tensor-parallel parameter and its
-        moments in the ``state_dict`` form ``sd``, in place."""
-        for i, (name, dim) in self.tp.items():
-            sd["backbone"][name] = fn(sd["backbone"][name], dim)
+    def _each_split(self, sd, fn) -> None:
+        """``fn(tensor, dim)`` over every split parameter and its moments
+        in the ``state_dict`` form ``sd``, in place."""
+        for i, (name, dim) in self.split.items():
+            sd[self.key][name] = fn(sd[self.key][name], dim)
             moments = dict(sd["optimizer"][i])
             for k, v in moments.items():
                 if v.dim():  # the step counter stays
@@ -289,24 +300,28 @@ class _GlobalView:
         from tdfo_tpu_torch.parallel.collectives import gather_to_host
 
         sd = self.state.state_dict()
-        tables, slots = self.coll.global_arrays(sd["tables"], sd["slots"],
-                                                root_only=True)
-        if self.tp and not (axis_index(self.mesh, DATA_AXIS)
+        if self.coll is not None:
+            tables, slots = self.coll.global_arrays(sd["tables"], sd["slots"],
+                                                    root_only=True)
+        if self.split and not (axis_index(self.mesh, DATA_AXIS)
                             or axis_index(self.mesh, SEQ_AXIS)):
-            sd["optimizer"] = dict(sd["optimizer"])
+            sd[self.key], sd["optimizer"] = (dict(sd[self.key]),
+                                             dict(sd["optimizer"]))
             group = axis_group(self.mesh, MODEL_AXIS)
-            self._each_tp(sd, lambda t, dim: gather_to_host(t, group, dim))
+            self._each_split(sd, lambda t, dim: gather_to_host(t, group, dim))
         if torch.distributed.get_rank() != 0:
             return None
-        sd["tables"], sd["slots"] = tables, slots
+        if self.coll is not None:
+            sd["tables"], sd["slots"] = tables, slots
         return sd
 
     def state_dict(self) -> dict:
         from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_size
 
         sd = self.state.state_dict()
-        sd["tables"], sd["slots"] = self.coll.global_template(sd["tables"],
-                                                              sd["slots"])
+        if self.coll is not None:
+            sd["tables"], sd["slots"] = self.coll.global_template(
+                sd["tables"], sd["slots"])
         n = axis_size(self.mesh, MODEL_AXIS)
 
         def stand_in(t, dim):
@@ -314,25 +329,26 @@ class _GlobalView:
             shape[dim] *= n
             return torch.empty((), dtype=t.dtype).expand(shape)
 
-        sd["optimizer"] = dict(sd["optimizer"])
-        self._each_tp(sd, stand_in)
+        sd[self.key], sd["optimizer"] = dict(sd[self.key]), dict(sd["optimizer"])
+        self._each_split(sd, stand_in)
         return sd
 
     def load_state_dict(self, tree: dict) -> None:
         from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_index, axis_size
 
         tree = dict(tree)
-        tree["tables"], tree["slots"] = self.coll.local_arrays(tree["tables"],
-                                                               tree["slots"])
+        if self.coll is not None:
+            tree["tables"], tree["slots"] = self.coll.local_arrays(
+                tree["tables"], tree["slots"])
         n, k = axis_size(self.mesh, MODEL_AXIS), axis_index(self.mesh, MODEL_AXIS)
 
         def block(t, dim):
             size = t.shape[dim] // n
             return t.narrow(dim, k * size, size)
 
-        tree["backbone"], tree["optimizer"] = (dict(tree["backbone"]),
-                                               dict(tree["optimizer"]))
-        self._each_tp(tree, block)
+        tree[self.key], tree["optimizer"] = (dict(tree[self.key]),
+                                             dict(tree["optimizer"]))
+        self._each_split(tree, block)
         self.state.load_state_dict(tree)
 
 
@@ -419,8 +435,11 @@ class Trainer:
     def _ckpt_view(self):
         """What checkpoints save and restore: the state, in the
         single-device layout under a mesh."""
-        if self.mesh is None or self._dense:
+        if self.mesh is None:
             return self.state
+        if self._dense:
+            return _GlobalView(self.state, None, self._ps_plan, self.mesh,
+                               key="params")
         return _GlobalView(self.state, self.coll,
                            getattr(self.backbone, "tp_plan", None) if self._seq
                            else None, self.mesh)
@@ -461,6 +480,19 @@ class Trainer:
         dtype = compute_dtype(cfg.mixed_precision, self.device)
         model = init_twotower(cfg.seed, cfg.size_map, cfg.embed_dim, dtype=dtype,
                               device=self.device)
+        # the PS partition (the reference's dense regime under a mesh with
+        # ps_min_shard_bytes > 0): every rank drew the whole model and keeps
+        # its blocks; without it the state replicates
+        self._ps_plan = None
+        if self.mesh is not None and cfg.ps_min_shard_bytes > 0:
+            from tdfo_tpu_torch.parallel.sharding import (
+                min_size_partitioner_rule,
+                ps_shard_module_,
+            )
+
+            self._ps_plan = ps_shard_module_(
+                model, self.mesh,
+                min_size_partitioner_rule(self.mesh, cfg.ps_min_shard_bytes))
         loss_scale = (DynamicLossScale.create(device=self.device)
                       if cfg.mixed_precision and cfg.loss_scale == "dynamic"
                       and dtype == torch.float16 else None)
@@ -859,14 +891,21 @@ class Trainer:
         self._fold_auc(labels, logits)
         return state, loss
 
+    def single_device_state(self) -> dict | None:
+        """The state's tensor-dict form in the single-device layout (what a
+        checkpoint or a serving bundle holds): under a mesh every rank
+        calls this and global rank 0 gets the sharded arrays gathered onto
+        its host (the others get None); without one, the state's own."""
+        view = self._ckpt_view()
+        return (view.gathered() if isinstance(view, _GlobalView)
+                else view.state_dict())
+
     def _save(self, gstep: int, cursor: dict) -> None:
         """Rank 0 gathers the sharded arrays onto its host and writes; the
         others send their shards and wait for it."""
         import torch.distributed as dist
 
-        view = self._ckpt_view()
-        tree = (view.gathered() if isinstance(view, _GlobalView)
-                else view.state_dict())
+        tree = self.single_device_state()
         if self.rank == 0:
             self._ckpt.save(gstep, tree, force=True, cursor=cursor,
                             stamps=self._ckpt_stamps)

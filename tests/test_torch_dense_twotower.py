@@ -23,13 +23,16 @@ of the PyTorch port against the JAX package, on the CPU.
 import json
 from pathlib import Path
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tdfo_tpu.models.twotower import init_twotower as j_init
+from tdfo_tpu.models.twotower import TwoTower as JTwoTower
+from tdfo_tpu.models.twotower import dummy_batch
 from tdfo_tpu.train.state import TrainState as JState
 from tdfo_tpu.train.state import make_adamw as j_adamw
 from tdfo_tpu.train.step import make_train_step as j_make_step
@@ -68,8 +71,16 @@ def _batch(rng):
     return b
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_model():
+    """The reference's ``init_twotower``, its init jitted (the same
+    params), made once for the file (its arrays are immutable)."""
+    model = JTwoTower(size_map=dict(SIZE_MAP), embed_dim=D)
+    return model, jax.jit(model.init)(jax.random.key(0), dummy_batch())["params"]
+
+
 def _pair():
-    model, params = j_init(jax.random.key(0), SIZE_MAP, D)
+    model, params = _jax_model()
     sd = dense_params_from_flax(jax.tree.map(np.asarray, params))
     tm = TwoTower(SIZE_MAP, D)
     tm.load_state_dict(sd, strict=True)

@@ -116,7 +116,7 @@ class _Sizes:
 def test_sharding_rules_match_the_reference_plans():
     from jax.sharding import PartitionSpec as P
 
-    from tdfo_tpu.models.twotower import init_twotower as j_init
+    from tdfo_tpu.models.twotower import TwoTower, dummy_batch
     from tdfo_tpu.parallel import sharding as jsh
     from tdfo_tpu_torch.parallel import sharding as tsh
 
@@ -124,7 +124,9 @@ def test_sharding_rules_match_the_reference_plans():
     tmesh = _Sizes(4, 2)
     sizes = {"user": 100, "item": 150, "language": 5, "is_ebook": 2,
              "format": 4, "publisher": 7, "pub_decade": 6}
-    _, params = j_init(jax.random.key(0), sizes, 8)
+    # the reference's init_twotower, its init jitted (the same params)
+    params = jax.jit(TwoTower(size_map=sizes, embed_dim=8).init)(
+        jax.random.key(0), dummy_batch())["params"]
     flat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
             for path, v in jax.tree_util.tree_leaves_with_path(params)}
     cases = [((jsh.min_size_partitioner_rule(jmesh, 512),),
@@ -151,11 +153,12 @@ def test_sharding_rules_match_the_reference_plans():
     # backbone's tree, head guard included
     from tdfo_tpu.models.bert4rec import Bert4RecConfig, make_sharded_bert4rec
 
-    _, _, _, dense = make_sharded_bert4rec(
-        jax.random.key(0), Bert4RecConfig(n_items=40, max_len=8, embed_dim=16,
-                                          n_heads=2, n_layers=1), None,
-        sharding="replicated")
-    dflat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+    # the plans read shapes only: the backbone's tree traced, not drawn
+    b4r = Bert4RecConfig(n_items=40, max_len=8, embed_dim=16, n_heads=2, n_layers=1)
+    dense = jax.eval_shape(lambda k: make_sharded_bert4rec(
+        k, b4r, None, sharding="replicated")[3], jax.random.key(0))
+    dflat = {"/".join(str(getattr(k, "key", k)) for k in path):
+             np.empty(v.shape, v.dtype)
              for path, v in jax.tree_util.tree_leaves_with_path(dense)}
     for n_heads in (2, None):
         jplan = jsh.make_sharding_plan(dense, jmesh,

@@ -15,11 +15,17 @@
 * At data 2 over an eval split of one row, the rank without eval rows
   runs zero-weight template batches and both ranks report the one-rank
   evaluation of the same (fresh) state.
-* Every knob of ``ROADMAP.md`` Queue A item 12b still to port refuses by
-  name under a multi-device mesh; the ported ones (the grouped exchange,
-  the pipelined step, int8 storage, column sharding under rowwise_adagrad,
-  the update cache, hot/cold tables, ``dedup_lookup``, and Bert4Rec with
-  the seq axis, ring attention and tensor parallelism) do not.
+* The dense regime (``model_parallel = false``) at data 1 x model 2 under
+  the PS partition (``ps_min_shard_bytes`` splitting ``user`` and
+  ``item``): the fit is bitwise the one-rank fit, its checkpoint restores
+  at world 1, and a world-1 checkpoint restores at world 2.
+* Every knob of ``ROADMAP.md`` Queue A item 12b builds under a
+  multi-device mesh (the grouped exchange, the pipelined step, int8
+  storage, column sharding under rowwise_adagrad, the update cache,
+  hot/cold tables, ``dedup_lookup``, Bert4Rec with the seq axis, ring
+  attention and tensor parallelism, the dense regime at model 2); the one
+  refusal left is CUDA-graph steps under a backend other than NCCL, which
+  names NCCL.
 """
 
 import functools
@@ -88,7 +94,15 @@ def _runs():
     cfg = root / "psum.toml"
     cfg.write_text(_toml(_body(root, size_map, "w2_psum", lookup_mode="psum",
                                mesh=mesh)))
+    # the dense regime's PS fit, and a world-1 one that world 2 restores
+    ps = dict(model_parallel=False, ps_min_shard_bytes=_ps_bytes(size_map))
+    Trainer(read_configs(None, **_body(root, size_map, "w1_dense", **ps)),
+            device="cpu").fit()
     cases = {
+        "dense_ps": dict(fn="fit", body=_body(root, size_map, "w2_dense",
+                                              mesh=mesh, **ps)),
+        "dense_restore": dict(fn="restore", body=_body(root, size_map, "w1_dense",
+                                                       mesh=mesh, **ps)),
         "psum": dict(fn="fit", cli=True, argv=["train", "--config", str(cfg),
                                                "--device", "cpu"]),
         "alltoall": dict(fn="fit", body=_body(root, size_map, "w2_a2a",
@@ -101,6 +115,12 @@ def _runs():
             mesh={"data": 2, "model": 1})),
     }
     return root, size_map, ranks.send(cases).wait()
+
+
+def _ps_bytes(size_map):
+    """A threshold that splits ``user`` and ``item`` (d = 16, f32) in two
+    and no tower weight."""
+    return min(size_map["user"], size_map["item"]) * 16 * 4 // 2
 
 
 def _one_rank(name, **kw):
@@ -181,6 +201,32 @@ def test_rank_without_eval_rows_takes_template_batches():
     assert a["eval_loss"] == b["eval_loss"] and math.isnan(a["auc"]) == math.isnan(b["auc"])
 
 
+def test_dense_ps_fit_equals_one_rank_and_restores_across_worlds():
+    root, size_map, res = _runs()
+    ps = dict(model_parallel=False, ps_min_shard_bytes=_ps_bytes(size_map))
+    tr, metrics = _one_rank("w1_dense_again", **ps)
+    want = {k: v.detach().numpy() for k, v in tr.state.model.named_parameters()}
+    ref, _ = _losses(root / "w1_dense_again" / "metrics.jsonl")
+    got, _ = _losses(root / "w2_dense" / "metrics.jsonl")
+    assert len(ref) > 6 and got == ref
+    for r in res:
+        assert r["dense_ps"]["metrics"] == metrics
+        for k, v in want.items():
+            np.testing.assert_array_equal(r["dense_ps"]["params"][k], v, err_msg=k)
+    # the world-2 checkpoint at world 1, the world-1 one at world 2
+    one = Trainer(read_configs(None, **_body(root, size_map, "w2_dense", **ps)),
+                  device="cpu")
+    step, state = one.restore_latest()
+    assert step == res[0]["dense_ps"]["step"]
+    for k, v in state.model.named_parameters():
+        np.testing.assert_array_equal(v.detach().numpy(), want[k], err_msg=k)
+    for r in res:
+        assert r["dense_restore"]["step"] == step
+        for k, v in want.items():
+            np.testing.assert_array_equal(r["dense_restore"]["params"][k], v,
+                                          err_msg=k)
+
+
 @pytest.mark.parametrize("kw,what", [
     pytest.param({"model_parallel": False, "steps_per_execution": 2},
                  "CUDA-graph steps", id="kw4-CUDA-graph steps"),
@@ -188,12 +234,19 @@ def test_rank_without_eval_rows_takes_template_batches():
                  "dense regime", id="kw6-dense regime"),
 ])
 def test_12b_knobs_refuse_by_name(kw, what):
+    """The two item-12b knobs that refused: CUDA-graph steps under several
+    ranks on the card still refuse under gloo, naming NCCL (no item), and
+    take NCCL; the dense regime at model 2 builds."""
     body = dict(model="twotower", model_parallel=True, size_map={"user": 10})
     body.update(kw)
     cfg = read_configs(None, **body)
-    with pytest.raises(NotImplementedError, match="item 12b") as e:
-        refuse_unported(cfg, world=2)
-    assert what in str(e.value)
+    if what == "CUDA-graph steps":
+        with pytest.raises(ValueError, match="need NCCL") as e:
+            refuse_unported(cfg, world=2, backend="gloo")
+        assert "12b" not in str(e.value) and what in str(e.value)
+        refuse_unported(cfg, world=2, backend="nccl")
+    else:
+        refuse_unported(cfg, world=2, backend="gloo")
 
 
 @pytest.mark.parametrize("kw", [
@@ -231,14 +284,19 @@ def test_ported_12b_knobs_build_under_world_two(kw):
 
 
 def test_graph_step_refuses_under_several_ranks(monkeypatch):
+    """Under several gloo ranks the graph step refuses, naming NCCL; under
+    NCCL it builds (the capture itself needs the card)."""
     import torch.distributed as dist
 
     from tdfo_tpu_torch.train.step import CudaGraphStep
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "gloo")
+    with pytest.raises(ValueError, match="need NCCL"):
         CudaGraphStep(lambda s, b: (s, torch.zeros(())))
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    assert CudaGraphStep(lambda s, b: (s, torch.zeros(()))).graph is None
 
 
 @pytest.mark.parametrize("n_files", [1, 2])

@@ -26,6 +26,7 @@ from torch_serve_helpers import (
     CONT_COLS,
     DIM,
     SIZE_MAP,
+    StubMesh,
     assert_same_bundle,
     jax_twotower,
     port_twotower,
@@ -298,5 +299,10 @@ def test_corpus_store_is_the_reference_store(tmp_path, dtype):
         (tmp_path / "t" / "corpus.json").write_text(json.dumps(m))
         with pytest.raises(ValueError, match="qscale_layout"):
             texp.load_corpus(tmp_path / "t", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        texp.load_corpus(tmp_path / "j", mesh=object(), device="cpu")
+    # a data-2 mesh's shards: 25 rows each, together the corpus
+    shards = [texp.load_corpus(tmp_path / "j", mesh=StubMesh(2, r), device="cpu")
+              for r in range(2)]
+    assert [(c.shard, c.n_shards, c.rows_per_shard, c.n_items) for c in shards] == [
+        (0, 2, 25, 50), (1, 2, 25, 50)]
+    assert torch.equal(torch.cat([c.vectors for c in shards]), back.vectors)
+    assert torch.equal(torch.cat([c.ids for c in shards]), back.ids)

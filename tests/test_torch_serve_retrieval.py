@@ -13,6 +13,7 @@ import torch
 
 from torch_serve_helpers import (
     SIZE_MAP,
+    StubMesh,
     jax_twotower,
     np_of,
     port_twotower,
@@ -144,8 +145,9 @@ def test_retrieval_validation():
                     (dict(top_k=5, coarse_k=3), "must be >= top_k")]:
         with pytest.raises(ValueError, match=msg):
             tret.make_retrieval(tc, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tret.make_retrieval(tc, mesh=object())
+    # a corpus built for one device does not retrieve over a data-2 mesh
+    with pytest.raises(ValueError, match="sharded 1 ways"):
+        tret.make_retrieval(tc, mesh=StubMesh(2))
 
 
 def test_corpus_build_matches_the_reference(tmp_path):

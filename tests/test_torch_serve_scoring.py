@@ -19,6 +19,7 @@ from torch_serve_helpers import (
     CAT_COLS,
     CONT_COLS,
     SIZE_MAP,
+    StubMesh,
     ctr_batch,
     jax_twotower,
     np_of,
@@ -164,8 +165,11 @@ def test_dense_twotower_bundles_score_across_packages(tmp_path):
 def test_scorer_refusals(twotower, tmp_path):
     import json
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_scorer(t_load(twotower["tdir"]), mesh=object(), device="cpu")
+    # under a mesh the parameters replicate: the same scores
+    batch = ctr_batch(np.random.default_rng(3), 16)
+    assert torch.equal(
+        t_scorer(t_load(twotower["tdir"]), mesh=StubMesh(2), device="cpu").score(batch),
+        t_scorer(t_load(twotower["tdir"]), device="cpu").score(batch))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             t_scorer(t_load(twotower["tdir"]))  # the card is the default

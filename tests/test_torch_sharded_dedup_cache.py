@@ -26,7 +26,10 @@ and carries hot heads (a prefix, a scattered set and a fully hot table);
 
 Column sharding under rowwise_adagrad: the TwoTower tables column-sharded
 and plain, against the reference at the rung and bitwise the port's
-single-device step.  The trainer: a Criteo-shaped fit at world 2 (``d2``)
+single-device step; and the update cache over column-sharded tables (each
+rank caching its columns; a DLRM on two of the tables) against the
+reference's cached step at the rung, its directories and overflow counts
+exactly the reference's, and bitwise the uncached run.  The trainer: a Criteo-shaped fit at world 2 (``d2``)
 with ``dedup_lookup``, the cache and ``hot_vocab`` restores at world 1 in
 the single-device layout, and a world-1 checkpoint restores at world 2.
 """
@@ -89,6 +92,9 @@ HOT = {"c0": np.arange(32, dtype=np.int32),
        "c2": np.arange(12, dtype=np.int32)}
 MESHES = {"m2": (1, 2), "d2": (2, 1)}
 CACHE_ROWS, FLUSH_EVERY = 1024, 2
+# the column cache's DLRM: two of the tables column-sharded and cached
+# (the retained half of 256 rows covers a flush interval's 128 ids)
+COL_CATS, COL_CACHE_ROWS = ("c0", "c3"), 256
 STACK = "__tablestack_8_row_float32"
 # the TwoTower tables of the column arm
 TT_SIZES = {"user": 300, "item": 200, "language": 8, "is_ebook": 2,
@@ -225,6 +231,29 @@ def _runs():
         tables={k: np.asarray(v) for k, v in jcol_tables.items()},
         dense=jax.tree.map(np.asarray, tt_dense), model="twotower", d=TT_DIM,
         batches=tt_batches, kind=KIND, lr=LR, wd=WD, sparse_lr=SPARSE_LR, sparse_wd=0.0)
+    # the update cache over column-sharded tables: a DLRM on two of them,
+    # cached and not
+    col_sizes = {c: SIZES[c] for c in COL_CATS}
+    jcol_cached = JColl(j_dlrm_specs(col_sizes, COL_CATS, DIM, "column",
+                                     fused_threshold=None),
+                        mesh=mesh, fused_kind=KIND, cache_rows=COL_CACHE_ROWS)
+    col_tables = TColl(t_dlrm_specs(col_sizes, COL_CATS, DIM, "column",
+                                    fused_threshold=None)).init(2, device="cpu")
+    jcol_cached_tables = {k: jax.device_put(v.numpy(), NamedSharding(
+        mesh, P(None, "model"))) for k, v in col_tables.items()}
+    jcol_b = JDLRM(embed_dim=DIM, cat_columns=COL_CATS, cont_columns=CONTS)
+    col_dense = _params(TDLRM(DIM, cat_columns=COL_CATS, cont_columns=CONTS,
+                              generator=torch.Generator().manual_seed(4)))
+    cases["column_eager_m2"] = dict(
+        fn="step", mesh=MESHES["m2"],
+        specs=_specs_dicts(t_dlrm_specs(col_sizes, COL_CATS, DIM, "column",
+                                        fused_threshold=None)),
+        tables={k: v.numpy() for k, v in col_tables.items()},
+        dense=jax.tree.map(np.asarray, col_dense), model="dlrm", d=DIM,
+        cats=COL_CATS, conts=CONTS, batches=batches, kind=KIND, lr=LR, wd=WD,
+        sparse_lr=SPARSE_LR, sparse_wd=0.0)
+    cases["column_cache_m2"] = dict(cases["column_eager_m2"], cache_rows=COL_CACHE_ROWS,
+                                    flush_every=FLUSH_EVERY)
     # the trainer: a world-2 fit, and a world-1 checkpoint restored at world 2
     criteo, size_map = _criteo(tmp)
     one = Trainer(read_configs(None, **_fit_body(criteo, size_map, tmp / "w1")),
@@ -236,12 +265,15 @@ def _runs():
         criteo, size_map, tmp / "w1", mesh={"data": 2, "model": 1}))
     ranks.send(cases)
     # the reference side while the ranks run
-    # (three programs: XLA compiles them side by side)
-    with ThreadPoolExecutor(3) as pool:
+    # (four programs: XLA compiles them side by side)
+    with ThreadPoolExecutor(4) as pool:
         want = {key: pool.submit(_jrun, jc, jb, dense, jtables, batches, dedup=True,
                                  flush=True) for key, (jc, jtables) in jcolls.items()}
         want["column"] = pool.submit(_jrun, jcol, jtt, tt_dense, jcol_tables,
                                      tt_batches, dedup=False)
+        want["column_cache"] = pool.submit(_jrun, jcol_cached, jcol_b, col_dense,
+                                           jcol_cached_tables, batches, dedup=False,
+                                           flush=True)
         want = {k: v.result() for k, v in want.items()}
     return {"results": ranks.wait(), "want": want, "batches": batches,
             "tt_batches": tt_batches, "cases": cases, "one": one,
@@ -435,6 +467,41 @@ def test_column_sharding_under_rowwise_adagrad():
         for name in got["slots"]:
             assert got["local_rows"][name][1] == TT_DIM // 2
         _assert_bitwise(got, one, f"rank {r} single device")
+
+
+def test_column_sharding_with_the_update_cache():
+    """Each rank caches its columns of every column-sharded table (the
+    directory and the whole-row accumulator replicated): the reference's
+    cached step at the rung, its live directories, frequencies, dirty bits
+    and overflow counts exactly, and bitwise the uncached column run."""
+    s = _runs()
+    _, jcaches, jovers, _ = s["want"]["column_cache"]
+    res = _result("column_cache_m2")
+    for r, got in enumerate(res):
+        _held_to_jax(got, s["want"]["column_cache"], f"rank {r}")
+        _assert_bitwise(got, _result("column_eager_m2")[r], f"rank {r} cached")
+        assert got["overflow"] == jovers
+        assert all(v == 0 for o in jovers for v in o.values()) and len(jovers) == 2
+        assert sorted(got["caches"]) == sorted(jcaches) and len(jcaches) == 2
+        for ckey, jc in jcaches.items():
+            live, want = _live(got["caches"][ckey]), _live(jc)
+            assert sorted(live) == sorted(want), ckey
+            for i, w in want.items():
+                for k in ("freq", "dirty"):
+                    np.testing.assert_array_equal(live[i][k], w[k], err_msg=f"{i} {k}")
+                for k in ("rows", "acc"):
+                    np.testing.assert_allclose(live[i][k], w[k], rtol=RTOL, atol=ATOL,
+                                               err_msg=f"{ckey} {i} {k}")
+        # gathered to the single-device layout (what a checkpoint holds,
+        # and a world-1 run restores) and taken back to this rank's columns
+        assert got["cache_roundtrip"]
+        # the cache's value rows are this rank's columns
+        for name in got["local_rows"]:
+            assert got["local_rows"][name][1] == DIM // 2
+    a, b = (x["caches"] for x in res)
+    for ckey in a:
+        for k in a[ckey]:
+            np.testing.assert_array_equal(a[ckey][k], b[ckey][k], err_msg=f"{ckey} {k}")
 
 
 def test_world_two_fit_with_dedup_cache_and_hot_restores_at_world_one():

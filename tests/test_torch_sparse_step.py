@@ -14,6 +14,8 @@ is near zero turns a summation-order difference (autograd vs XLA) into an
 update difference of up to ``lr``: at lr 3e-3 three of ~250k elements
 leave the 1e-4 band (``ROADMAP.md`` Queue C), at 3e-4 none do."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -157,7 +159,10 @@ def _dlrm_port(kind, jtables, dense, **step_kw):
     return tc, tstate, t_step(tc, t_fwd(tb), **step_kw)
 
 
+@functools.lru_cache(maxsize=None)
 def _dlrm_jax(kind):
+    """The reference's DLRM pieces for ``kind``, made once (its arrays are
+    immutable; the port copies them)."""
     jc = JColl(j_dlrm_specs(D_SIZES, D_CATS, D_DIM, "row", fused_threshold=100),
                stack_tables=True, fused_kind=kind)
     jtables = jax.jit(jc.init)(jax.random.key(0))

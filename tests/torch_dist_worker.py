@@ -433,15 +433,21 @@ def case_step(case):
         if fe and (i + 1) % fe == 0 and i + 1 < len(case["batches"]):
             state, over = flush(state)
             overs.append({k: int(v) for k, v in over.items()})
-    caches = {k: {c: to_numpy(x) for c, x in v.items()}
-              for k, v in state.slots.items() if k.startswith(CACHE_PREFIX)}
+    # each rank's caches, a column shard's columns gathered (the layout a
+    # checkpoint holds), and whether local_arrays takes them back exactly
+    live = {k: v for k, v in state.slots.items() if k.startswith(CACHE_PREFIX)}
+    whole = coll.global_arrays({}, live)[1]
+    back = coll.local_arrays({}, whole)[1]
+    roundtrip = all(torch.equal(back[k][c], x) for k, v in live.items()
+                    for c, x in v.items())
+    caches = {k: {c: to_numpy(x) for c, x in v.items()} for k, v in whole.items()}
     if caches:
         state, over = flush(state)
         overs.append({k: int(v) for k, v in over.items()})
     slots = {k: v for k, v in state.slots.items() if not k.startswith(CACHE_PREFIX)}
     t, s = gather_to_numpy(coll, state.tables, slots)
     return {"losses": losses, "tables": t, "slots": s, "caches": caches,
-            "overflow": overs,
+            "cache_roundtrip": roundtrip, "overflow": overs,
             "fat_runs": kl.fat_line_update.plain_runs - runs[0],
             "routed_runs": kr.fat_line_update_routed.plain_runs - runs[1],
             "local_rows": {k: tuple(v.shape) for k, v in state.tables.items()},
@@ -510,20 +516,48 @@ def case_grouped_steps(case):
     return out
 
 
+def _whole_params(model, plan, mesh):
+    """A dense model's parameters by name, each PS-split block all-gathered
+    over the model axis (numpy)."""
+    from tdfo_tpu_torch.core.mesh import MODEL_AXIS, axis_group
+    from tdfo_tpu_torch.interop import to_numpy
+    from tdfo_tpu_torch.parallel.collectives import all_gather_cat
+
+    out = {}
+    for name, p in model.named_parameters():
+        spec = (plan or {}).get(name, ())
+        if MODEL_AXIS in spec:
+            p = all_gather_cat(p.detach(), axis_group(mesh, MODEL_AXIS),
+                               dim=spec.index(MODEL_AXIS))
+        out[name] = to_numpy(p)
+    return out
+
+
 def case_dense_step(case):
     """K dense-regime steps (every parameter under AdamW) on the rank's
-    data slice; the global losses and the parameters."""
+    data slice, the model PS-partitioned when the case gives ``ps`` (the
+    ``ps_min_shard_bytes`` threshold): the global losses, the whole
+    parameters, the local shapes and the plan in flax paths."""
     import torch
 
     from tdfo_tpu_torch.core.mesh import data_slice
-    from tdfo_tpu_torch.interop import dense_params_from_flax, to_numpy
+    from tdfo_tpu_torch.interop import dense_params_from_flax
     from tdfo_tpu_torch.models.twotower import init_twotower
+    from tdfo_tpu_torch.parallel.sharding import (
+        min_size_partitioner_rule,
+        module_flax_paths,
+        ps_shard_module_,
+    )
     from tdfo_tpu_torch.train.state import TrainState
     from tdfo_tpu_torch.train.step import make_train_step
 
     mesh = _mesh(case)
     model = init_twotower(0, case["size_map"], case["d"], device="cpu")
     model.load_state_dict(dense_params_from_flax(case["dense"]))
+    plan, paths = None, module_flax_paths(model)
+    if case.get("ps"):
+        plan = ps_shard_module_(model, mesh,
+                                min_size_partitioner_rule(mesh, case["ps"]))
     state = TrainState.create(model=model, learning_rate=case["lr"],
                               weight_decay=case["wd"])
     step = make_train_step(mesh=mesh)
@@ -533,8 +567,11 @@ def case_dense_step(case):
                  for k, v in b.items()}
         state, loss = step(state, local)
         losses.append(float(loss))
-    return {"losses": losses,
-            "params": {k: to_numpy(v) for k, v in model.state_dict().items()}}
+    return {"losses": losses, "params": _whole_params(model, plan, mesh),
+            "local": {k: tuple(v.shape) for k, v in model.named_parameters()},
+            "moments": {k: tuple(state.optimizer.state[v]["exp_avg"].shape)
+                        for k, v in model.named_parameters()},
+            "split": sorted(paths[n][0] for n, sp in (plan or {}).items() if sp)}
 
 
 def case_ring(case):
@@ -731,9 +768,59 @@ def case_fit(case):
         out["eval"] = trainer.evaluate(epoch=99)
     if hasattr(trainer, "coll"):
         out["tables"] = gather_to_numpy(trainer.coll, trainer.state.tables)[0]
+    else:  # the dense regime: its whole parameters
+        out["params"] = _whole_params(trainer.state.model, trainer._ps_plan,
+                                      trainer.mesh)
     if getattr(trainer, "_seq", False):
         out["backbone"] = _full_backbone(trainer.backbone, trainer.mesh)
     return out
+
+
+def case_retrieval(case):
+    """The case's catalogue (global f32 ``rows`` and ``ids``) as this rank's
+    corpus shard at each dtype, retrieved with the same ``queries`` for
+    every ``(dtype, top_k, coarse_k)`` of ``configs``; each dtype's corpus
+    exported (gathered to rank 0) under ``export`` / dtype, and each
+    corpus under ``load`` / dtype loaded as this rank's shard."""
+    import torch
+
+    from tdfo_tpu_torch.interop import to_numpy
+    from tdfo_tpu_torch.serve.corpus import corpus_from_rows
+    from tdfo_tpu_torch.serve.export import export_corpus, load_corpus
+    from tdfo_tpu_torch.serve.retrieval import make_retrieval
+
+    mesh = _mesh(case)
+    rows, ids = torch.from_numpy(case["rows"]), torch.from_numpy(case["ids"])
+    q = torch.from_numpy(case["queries"])
+    corpora = {dt: corpus_from_rows(rows, ids, dt, mesh=mesh)
+               for dt in sorted({c[0] for c in case["configs"]})}
+    out = {"got": {}, "loaded": {}}
+    for dt, k, coarse in case["configs"]:
+        s, i = make_retrieval(corpora[dt], mesh=mesh, top_k=k, coarse_k=coarse)(q)
+        out["got"][dt, k, coarse] = (to_numpy(s), to_numpy(i))
+    for dt, c in corpora.items():
+        export_corpus(Path(case["export"]) / dt, c, mesh=mesh)
+        got = load_corpus(Path(case["load"]) / dt, mesh=mesh, device="cpu")
+        out["loaded"][dt] = {
+            "vectors": to_numpy(got.vectors.view(torch.int16)
+                                if got.vectors.dtype == torch.bfloat16 else got.vectors),
+            "ids": to_numpy(got.ids), "shard": (got.shard, got.n_shards),
+            "qscale": None if got.qscale is None else to_numpy(got.qscale)}
+    return out
+
+
+def case_serve(case):
+    """``serve_from_config`` of the case's config on this rank: its stats
+    and the written bundle's digest."""
+    import json
+
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.serve.frontend import serve_from_config
+
+    stats = serve_from_config(read_configs(None, **case["body"]),
+                              log_dir=case["log_dir"], device="cpu")
+    manifest = json.loads((Path(stats["bundle"]) / "bundle.json").read_text())
+    return {"stats": stats, "digest": manifest["digest"]}
 
 
 def case_restore(case):
@@ -745,6 +832,9 @@ def case_restore(case):
 
     trainer = Trainer(read_configs(None, **case["body"]), device="cpu")
     step, state = trainer.restore_latest()
+    if not hasattr(trainer, "coll"):  # the dense regime
+        return {"step": step, "params": _whole_params(
+            state.model, trainer._ps_plan, trainer.mesh)}
     return {"step": step, "tables": gather_to_numpy(trainer.coll, state.tables)[0]}
 
 

@@ -127,3 +127,19 @@ def assert_retrieval_matches(got, want, ref_sorted, rtol=RTOL):
                 checked += 1
     assert checked > 0.5 * ws.size, checked  # the rule must bite
     return checked
+
+
+class StubMesh:
+    """A mesh of ``data`` ranks seen from rank ``index`` along it, without a
+    process group: the serving paths that run no collective (loading a
+    corpus shard, building a replicated scorer) read only its sizes and
+    coordinates."""
+
+    def __init__(self, data: int, index: int = 0):
+        self.data, self.index = data, index
+
+    def size(self, dim: int) -> int:
+        return self.data if dim == 0 else 1
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.index if axis == "data" else 0
