@@ -345,12 +345,41 @@ Phases (each prints its lines; any failure raises, so the script never exits
    int8 two-stage retrieval: rank 0 alone prints its stats and writes
    ``metrics.jsonl``, and the stats that do not hang on the host's clock
    equal a one-rank serve of the same toml's.
+34. fleet — the serving tier at phase 26's widths (SIZE_MAP, d = 64,
+   buckets 256 / 1024 / 8192).  (a) a base bundle of 3 DMP steps (they
+   and the steps after launch ``fat_line_update`` and ``segment_sum``,
+   counted into the kernels line) ingested into a ``BundleStore``; 2 more
+   steps, ``export_delta`` with the steps' ids as the touched hint,
+   composed, published under CANARY and promoted: the composed bundle
+   equals a full export of the new state bitwise; delta against full
+   bytes and the export / apply / swap ms; a delta corrupted in memory at
+   its read (``corrupt_delta_nth``) is quarantined and the store stays on
+   its version.  (b) an in-process ``ServingFleet`` of 2 replicas: the
+   canary member follows CANARY while the other serves CURRENT, both the
+   promoted version after; ``probe_each`` bitwise across the replicas;
+   ``run`` (256 ragged requests) within rtol 1e-5 of one MicroBatcher.
+   (c) a ``ProcessFleet`` of 2 replica processes on the card: cold start
+   (spawn to the first answered score), 256 requests through the ingress
+   with replica 0 SIGKILLed halfway (``kill_replica_signal``), the
+   respawn re-following the version, every answer within rtol 1e-5 of
+   the in-process fleet's, shed and failed requests counted, the probe
+   bitwise across the processes; then the trace again on the healed
+   fleet (p50 / p99 / queries/s) and the card's used memory before and
+   after the kill and the respawn.  A replica that fails prints its log.
+   (d) on a machine with several cards, one replica per card
+   (``device = "cuda:k"``), its answers held the same way.
+35. serve_fleet_cli — ``launch serve-fleet`` on the quickstart toml with
+   ``[serving] replicas = 2`` (replica processes on the card): 64
+   requests, every one answered.
+36. loadgen_cli — ``launch loadgen --knee-steps 2`` on the same toml:
+   closed loop at concurrency 1 and 2, every request completed, a knee.
 
 Every phase prints ``phase <name>: start`` and ``phase <name>: ok in <s>
 s`` around itself, so a failing run names its phase.  The CLI journeys
-(``JOURNEYS``: phases 19, 25, 28 and 30) run side by side, each in a
-process of its own, beside phase 31 (after phase 27), and print their
-output when all have ended; then phases 29, 32 and 33.
+(``JOURNEYS``: phases 19, 25, 28, 30, the toml run of phase 31, 35 and
+36) run side by side, each in a process of its own, after phase 31 and
+beside phase 29, with phases 32 and 33 one after the other in a thread
+beside phase 29 too; they print their output when all have ended.
 
 ``--phases profile`` / ``profile_b4r`` / ``profile_dlrm`` /
 ``profile_bf16`` / ``profile_dlrm_bf16`` / ``profile_dense`` (not in the
@@ -460,7 +489,8 @@ DEFAULT_PHASES = ("build", "oracle", "timing", "segsum", "main", "cli", "flash_o
                   "resume", "quickstart_cli", "b4r_jagged", "int8_main",
                   "int8_fused", "dlrm_int8_cache", "dlrm_hot_cold",
                   "criteo_int8_cli", "serve_main", "serve_seq_main", "serve_cli",
-                  "dist_main", "dist_cli", "dist_seq", "dist_dense", "dist_serve")
+                  "dist_main", "dist_cli", "dist_seq", "seq_cli", "dist_dense",
+                  "dist_serve", "fleet", "serve_fleet_cli", "loadgen_cli")
 
 
 def say(*parts) -> None:
@@ -3034,7 +3064,7 @@ def phase_quickstart_cli(torch) -> dict:
 
 # ---------------------------------------------------------------- several ranks
 
-DIST_STEPS, DIST_TIMED = 3, 5      # compared steps, then timed steps
+DIST_STEPS, DIST_TIMED = 3, 3      # compared steps, then timed steps
 # the per-table lookup modes, then the grouped exchange (eager and
 # pipelined), then the int8 arm (every table plain int8: codes on the wire)
 DIST_MODES = ("gspmd", "psum", "alltoall", "grouped", "pipelined",
@@ -3667,7 +3697,7 @@ def _time_steps(torch, dist, run):
 
 def _ctr_arm(torch, dist, mesh, arm, backend) -> dict:
     """One CTR arm on this rank: the single-device step (3 steps), the mesh
-    step (3 compared + 5 timed, the kernels' launches counted over them),
+    step (3 compared + 3 timed, the kernels' launches counted over them),
     then the alternate path on the mesh (3 steps, bitwise the mesh step)."""
     import copy
 
@@ -4116,7 +4146,7 @@ def _b4r_rows_held(torch, what, got, want, steps) -> str:
 def _seq_arm(torch, dist, mesh, arm, backend, twins: dict) -> dict:
     """One Bert4Rec arm on this rank: on global rank 0 the single-device
     twin (3 steps on the global batches; ``twins`` keeps each twin's result
-    for the arms that share it); then the mesh run, 3 compared and 5 timed
+    for the arms that share it); then the mesh run, 3 compared and 3 timed
     steps on this rank's data slice, the kernels' launches counted over
     all 8."""
     from tdfo_tpu_torch.core.mesh import AXES, axis_size, data_slice
@@ -4291,7 +4321,8 @@ def phase_dist_seq(torch, card: str) -> dict:
     2 tensor parallel, seq 2 ring and ring_flash, seq 2 x model 2 ring_flash
     with tp_heads) and the long-context attention arm at seq 1 and 2; then
     a ring_flash, ``[mesh] seq = 2`` toml through ``torch.distributed.run``
-    (``--backend gloo``), killed and resumed bitwise (:func:`_seq_cli`).
+    (``--backend gloo``), killed and resumed bitwise (:func:`_seq_cli`),
+    runs as the journey ``seq_cli`` beside it.
     Where there are several cards, NCCL alone: world 1, then the ring,
     ring_flash, the long arm and (at four or more) seq x model 2 with
     tp_heads at world = the card count, one rank a card, the rotation
@@ -4329,10 +4360,18 @@ def phase_dist_seq(torch, card: str) -> dict:
                 f"calls a step {[x['collective_calls'] for x in a]}, launches a step "
                 f"per rank {out['launches'][f'{key}/{arm}']}, peak GB per rank "
                 f"{[round(x['peak_gb'], 2) for x in a]}")
-    if n == 1:  # the toml's two ranks share the card over gloo
-        out["cli"] = _seq_cli(torch)
     say(f"dist_seq: {time.perf_counter() - t0:.1f} s; on {card}")
     return out
+
+
+def phase_seq_cli(torch) -> dict | None:
+    """seq_cli: :func:`_seq_cli` on one card (the toml's two ranks share it
+    over gloo); on a machine with several cards dist_seq runs NCCL alone
+    and this journey has nothing to run."""
+    if torch.cuda.device_count() != 1:
+        say("seq_cli: several cards: the gloo toml run is a one-card check")
+        return None
+    return _seq_cli(torch)
 
 
 # the seq CLI's toml: configs/bert4rec.toml's model (d 64, 2 heads, 2
@@ -5774,6 +5813,503 @@ def phase_serve_cli(torch) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ fleet
+# ROADMAP item 15b at phase 26's widths (bench.py::bench_serving: d = 64,
+# buckets 256 / 1024 / 8192): the bundle store and its delta swaps, an
+# in-process ServingFleet of 2 replicas, and a ProcessFleet of 2 replica
+# processes on the card (one replica per card on a machine with several).
+FLEET_BASE_STEPS, FLEET_DELTA_STEPS = 3, 2  # the base bundle, then the delta
+FLEET_REPLICAS = 2
+FLEET_REQUESTS = 256           # the process fleet's trace
+FLEET_KILL_AT = 128            # the SIGKILL lands after this many submits
+FLEET_MAX_ROWS = 256           # largest request of the fleet traces
+FLEET_PROBE = 16               # requests of the bitwise probe
+# deadline 0: each request ships as its own padded batch on the next poll,
+# so a request meets the same bucket (the same GEMM shape) on every replica
+# whatever the host's timing; a deadline makes the batches' make-up, and so
+# the bucket, depend on the clock
+FLEET_SERVING = {"replicas": FLEET_REPLICAS, "buckets": list(SERVE_BUCKETS),
+                 "max_batch": 1024, "batch_deadline_ms": 0.0}
+FLEET_CATS = ("user_id", "item_id", "language", "is_ebook", "format",
+              "publisher", "pub_decade")
+FLEET_CONTS = ("avg_rating", "num_pages")
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _used_gb(torch, dev: str):
+    """The card's used memory (every process's), GB; None on the CPU."""
+    if not dev.startswith("cuda"):
+        return None
+    free, total = torch.cuda.mem_get_info(torch.device(dev))
+    return (total - free) / 2**30
+
+
+def _pid_gb(pids) -> dict:
+    """``nvidia-smi``'s used memory per replica pid, GB ("not visible" when
+    the tool lists no such process)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {k: "not visible" for k in pids}
+    used = {}
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            used[int(parts[0])] = int(parts[1]) / 1024
+    return {k: (round(used[p], 3) if p in used else "not visible")
+            for k, p in pids.items()}
+
+
+def _replica_logs(workdir: Path) -> None:
+    """Print the tail of every replica process's log under ``workdir``."""
+    for log in sorted(Path(workdir).rglob("replica-*.log")):
+        say(f"--- {log.name} (tail) ---\n{log.read_text()[-3000:]}")
+
+
+def _fleet_trace(rng, n, tag):
+    """``n`` ragged requests (1..FLEET_MAX_ROWS rows) of phase 3's columns."""
+    out = []
+    for i in range(n):
+        h = make_host_batch(rng, int(rng.integers(1, FLEET_MAX_ROWS + 1)))
+        h.pop("label")
+        out.append((f"{tag}{i}", h))
+    return out
+
+
+def _held_serving(what, got, want) -> float:
+    """The serving rule: every request answered in ``want`` has scores
+    within rtol 1e-5 of it; returns the max abs difference."""
+    err = 0.0
+    for rid, g in got.items():
+        w = want[rid]
+        if g is None or w is None:
+            raise AssertionError(f"{what}: request {rid} unanswered")
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{what}: {rid}")
+        err = max(err, float(np.abs(np.asarray(g) - np.asarray(w)).max()))
+    return err
+
+
+def phase_fleet(torch, card: str, dev: str = "cuda") -> dict:
+    """Phase 34: the serving tier (``serve/{swap,fleet,wire,ingress,
+    supervisor,replica_main}.py``) on the card.  (a) a base bundle of
+    ``FLEET_BASE_STEPS`` DMP steps ingested into a ``BundleStore``; a delta
+    of ``FLEET_DELTA_STEPS`` more (``export_delta`` with the steps' ids as
+    the touched hint), composed, published under CANARY and promoted; the
+    composed bundle equals a full export of the new state bitwise; one
+    delta corrupted in memory (``corrupt_delta_nth``) is quarantined and
+    the store stays on its version.  (b) an in-process ``ServingFleet`` of
+    2 replicas follows CURRENT and CANARY; ``probe_each`` is bitwise across
+    replicas; ``run`` equals one ``MicroBatcher`` by the serving rule.
+    (c) a ``ProcessFleet`` of 2 replica processes on the card takes
+    ``FLEET_REQUESTS`` requests through the ingress with one replica
+    SIGKILLed mid-trace (``kill_replica_signal``); the respawned replica
+    follows the same version; every answered score equals the in-process
+    fleet's, shed and failed requests counted.  (d) with several cards,
+    one replica per card."""
+    import shutil
+
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.models.twotower import TwoTowerBackbone, ctr_embedding_specs
+    from tdfo_tpu_torch.obs import trace as _trace
+    from tdfo_tpu_torch.obs.aggregate import percentile
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
+    from tdfo_tpu_torch.parallel.embedding import ShardedEmbeddingCollection
+    from tdfo_tpu_torch.serve import (
+        BundleStore,
+        MicroBatcher,
+        ServingFleet,
+        export_bundle,
+        export_delta,
+        load_bundle,
+        make_scorer,
+    )
+    from tdfo_tpu_torch.serve.export import read_raw_bundle, touched_rows
+    from tdfo_tpu_torch.serve.supervisor import ProcessFleet
+    from tdfo_tpu_torch.serve.swap import SwapController
+    from tdfo_tpu_torch.utils import faults
+
+    def sync():
+        if dev.startswith("cuda"):
+            torch.cuda.synchronize()
+
+    coll0 = ShardedEmbeddingCollection(ctr_embedding_specs(SIZE_MAP, DIM, "row"))
+    tables0 = coll0.init(0, device="cpu")
+    backbone0 = TwoTowerBackbone(DIM, generator=torch.Generator().manual_seed(1))
+    coll, state, step = build_main_path(torch, dev, tables0, backbone0)
+    del tables0
+    n_fat = sum(1 for v in state.tables.values() if v.dim() == 3)
+    rng = np.random.default_rng(31)
+    kl.fat_line_update.launches = 0
+    segment_sum.launches = 0
+    n_steps = 0
+
+    def train(n):
+        nonlocal state, n_steps
+        hosts = [make_host_batch(rng, BATCH) for _ in range(n)]
+        for h in hosts:
+            state, loss = step(state, to_device(torch, h, dev))
+            if not np.isfinite(float(loss)):
+                raise AssertionError(f"fleet: non-finite loss {float(loss)}")
+        sync()
+        n_steps += n
+        return hosts
+
+    exp = dict(model="twotower", embed_dim=DIM, cat_columns=FLEET_CATS,
+               cont_columns=FLEET_CONTS, size_map=SIZE_MAP)
+
+    def bundle_of(out, version, **kw):
+        return export_bundle(out, step=n_steps, version=version, coll=coll,
+                             tables=state.tables, dense_params=state.backbone,
+                             **exp, **kw)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        # ---- (a) the store and its deltas
+        train(FLEET_BASE_STEPS)
+        bundle_of(tmp / "base", 0)
+        store = BundleStore(tmp / "store")
+        if store.ingest_full(tmp / "base") != 0:
+            raise AssertionError("fleet: the base did not ingest as v0")
+        hosts = train(FLEET_DELTA_STEPS)
+        hint = touched_rows(coll, batches=[{c: h[c] for c in FLEET_CATS}
+                                           for h in hosts])
+        t0 = time.perf_counter()
+        d1 = export_delta(tmp / "chain" / "v000001", tmp / "base", step=n_steps,
+                          coll=coll, tables=state.tables,
+                          dense_params=state.backbone, touched=hint, **exp)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = bundle_of(tmp / "full1", 1)
+        full_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        composed = store.compose_delta(d1)
+        apply_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.publish_canary(d1, composed)
+        if store.promote_canary() != 1:
+            raise AssertionError("fleet: the canary did not promote to v1")
+        swap_s = time.perf_counter() - t0
+        fm, fa = read_raw_bundle(full)
+        cm, ca = read_raw_bundle(store.current_dir())
+        if cm["digest"] != fm["digest"] or sorted(ca) != sorted(fa) or any(
+                not np.array_equal(ca[k], fa[k]) for k in fa):
+            raise AssertionError(f"fleet: composed v1 {cm['digest']} != the "
+                                 f"full export {fm['digest']}")
+        dm = json.loads((d1 / "bundle.json").read_text())
+        d_bytes, f_bytes = _dir_bytes(d1), _dir_bytes(full)
+        say(f"fleet (a): delta v1 of {FLEET_DELTA_STEPS} steps over a base of "
+            f"{FLEET_BASE_STEPS}: rows {dm['tables_delta']}, dense arrays "
+            f"replaced {len(dm['replaced'])}; {d_bytes} bytes vs a full "
+            f"export's {f_bytes} ({d_bytes / f_bytes:.4f}); export_delta "
+            f"{export_s * 1e3:.1f} ms (host: tables to the host, byte diff, "
+            f"digests), full export {full_s * 1e3:.1f} ms, compose (apply) "
+            f"{apply_s * 1e3:.1f} ms, publish_canary + promote (swap) "
+            f"{swap_s * 1e3:.1f} ms; composed digest {cm['digest']} == the "
+            f"full export's, arrays bitwise")
+        # one delta corrupted in memory at its read: quarantined, v1 stays
+        train(1)
+        d2 = export_delta(tmp / "chain" / "v000002", store.current_dir(),
+                          step=n_steps, coll=coll, tables=state.tables,
+                          dense_params=state.backbone, **exp)
+        faults.configure(faults.FaultSpec(corrupt_delta_nth=1))
+        try:
+            ctl = SwapController(
+                store, lambda d: make_scorer(load_bundle(d, verify=True),
+                                             device=dev).score)
+            swapped = ctl.apply(d2)
+        finally:
+            faults.configure(None)
+        if swapped or store.current_version() != 1 or len(store.quarantined()) != 1:
+            raise AssertionError(
+                f"fleet: corrupt delta swapped={swapped}, version "
+                f"{store.current_version()}, quarantined {store.quarantined()}")
+        say(f"fleet (a): corrupt delta v2 (corrupt_delta_nth = 1) quarantined: "
+            f"{store.quarantined()[0]['error'][:90]}...; the store stays on v1")
+        fat_n, seg_n = kl.fat_line_update.launches, segment_sum.launches
+        if fat_n != n_fat * n_steps or seg_n <= 0:
+            raise AssertionError(f"fleet: fat_line_update {fat_n} launches in "
+                                 f"{n_steps} steps, segment_sum {seg_n}")
+        del state
+        if dev.startswith("cuda"):
+            torch.cuda.empty_cache()
+
+        # ---- (b) the in-process fleet: CURRENT and CANARY
+        cfg = read_configs(None, model="twotower", embed_dim=DIM,
+                           model_parallel=True, size_map=SIZE_MAP,
+                           serving=FLEET_SERVING)
+        store.publish_canary(d2)  # the same bytes, read clean: pending v2
+        flt = ServingFleet(store, cfg, device=dev)
+        follow = flt.sync()
+        if follow != {0: 2, 1: 1}:
+            raise AssertionError(f"fleet (b): canary member / stable {follow}")
+        store.promote_canary()
+        follow2 = flt.sync()
+        if follow2 != {0: 2, 1: 2}:
+            raise AssertionError(f"fleet (b): after promotion {follow2}")
+        probe = _fleet_trace(rng, FLEET_PROBE, "p")
+        each = flt.probe_each(probe)
+        for rid, v in each[0].items():
+            if not np.array_equal(v, each[1][rid]):
+                raise AssertionError(
+                    f"fleet (b): probe {rid} ({v.shape[0]} rows) differs across "
+                    f"replicas by {float(np.abs(v - each[1][rid]).max()):.3e}")
+        trace = _fleet_trace(rng, FLEET_REQUESTS, "q")
+        t0 = time.perf_counter()
+        res = flt.run(trace)  # the batchers' results hold the probe's too
+        in_s = time.perf_counter() - t0
+        in_proc = {rid: res[rid] for rid, _ in trace}
+        one = make_scorer(load_bundle(store.current_dir(), verify=True), device=dev)
+        mb = MicroBatcher(one.score, buckets=SERVE_BUCKETS,
+                          max_batch=FLEET_SERVING["max_batch"],
+                          batch_deadline_ms=FLEET_SERVING["batch_deadline_ms"])
+        single = mb.run(trace)
+        err_b = _held_serving("fleet (b) run vs one MicroBatcher", in_proc, single)
+        hb = flt.heartbeat({c: v[:256] for c, v in make_host_batch(rng, 256).items()
+                            if c != "label"},
+                           rng.integers(0, 2, 256).astype(np.float32))
+        say(f"fleet (b): {FLEET_REPLICAS} in-process replicas: canary member "
+            f"followed CANARY v2 while the other served v1 ({follow}), both v2 "
+            f"after promotion; probe_each bitwise across replicas "
+            f"({FLEET_PROBE} requests); run of {FLEET_REQUESTS} requests "
+            f"({in_s:.2f} s host) vs one MicroBatcher max_abs_err {err_b:.3e} "
+            f"(rtol 1e-5); heartbeat ms "
+            f"{[round(r['ms'], 3) for r in hb]}")
+        probe_in = each[0]
+        flt.close()
+        del flt, one, mb
+
+        # ---- (c) the process fleet on the card, one replica SIGKILLed
+        faults.configure(faults.FaultSpec(kill_replica_signal=1))
+        mem0 = _used_gb(torch, dev)
+        t0 = time.perf_counter()
+        pf = ProcessFleet(store, cfg, workdir=tmp / "pf", device=dev)
+        try:
+            pf.sync()
+            ing = pf.ingress
+            ing.submit("cold", trace[0][1])
+            while "cold" not in ing.completed:
+                ing.poll(0.5)
+            cold_s = time.perf_counter() - t0
+            pids0 = {k: pf.supervisor.pid(k) for k in range(FLEET_REPLICAS)}
+            mem_up, pid_gb = _used_gb(torch, dev), _pid_gb(pids0)
+            sent, routed = set(), {}
+            for rid, batch in trace[:FLEET_KILL_AT]:
+                routed[rid] = ing.submit(rid, batch)
+                sent.add(rid)
+                ing.poll(0.0)
+            pf.mark_canary_watch()  # SIGKILL replica 0 (kill_replica_signal)
+            mem_killed = _used_gb(torch, dev)
+            for rid, batch in trace[FLEET_KILL_AT:]:
+                routed[rid] = ing.submit(rid, batch)
+                sent.add(rid)
+                ing.poll(0.0)
+            t1 = time.perf_counter()
+            versions = pf.sync()  # respawns replica 0, which re-follows
+            respawn_s = time.perf_counter() - t1
+            for k in pf.alive_ids():
+                ing.rpc(k, {"type": "drain"})
+            while ing.inflight():
+                if ing.poll(1.0) == 0:
+                    break
+            mem_after = _used_gb(torch, dev)
+            pids1 = {k: pf.supervisor.pid(k) for k in range(FLEET_REPLICAS)}
+            pid_gb1 = _pid_gb(pids1)
+            if pf.supervisor.respawns[0] != 1 or versions != {0: 2, 1: 2}:
+                raise AssertionError(f"fleet (c): respawns "
+                                     f"{pf.supervisor.respawns}, versions {versions}")
+            got = {rid: ing.completed.get(rid) for rid in sent}
+            answered = {r: v for r, v in got.items() if v is not None}
+            lost = len(sent) - len(answered)
+            if lost != ing.sheds + ing.failures or not answered:
+                raise AssertionError(f"fleet (c): {lost} unanswered but sheds "
+                                     f"{ing.sheds} + failures {ing.failures}")
+            err_c = _held_serving("fleet (c) process vs in-process",
+                                  answered, in_proc)
+            probe_pf = pf.probe_each(probe)
+            bitwise_x = all(np.array_equal(probe_pf[k][r], probe_in[r])
+                            for k in probe_pf for r in probe_in)
+            for k in probe_pf:
+                _held_serving(f"fleet (c) probe replica {k}", probe_pf[k], probe_in)
+                if any(not np.array_equal(probe_pf[k][r], probe_pf[0][r])
+                       for r in probe_in):
+                    raise AssertionError(f"fleet (c): probe replica {k} differs "
+                                         "from replica 0")
+            lat_kill = list(ing.latencies_ms)
+            by_replica = [sum(1 for r in answered if routed[r] == k)
+                          for k in range(FLEET_REPLICAS)]
+            # the same trace again on the healed fleet: the timed pass
+            n_lat = len(ing.latencies_ms)
+            t0 = time.perf_counter()
+            res2 = pf.run([(f"c{rid}", b) for rid, b in trace])
+            wall = time.perf_counter() - t0
+            lat = ing.latencies_ms[n_lat:]
+            again = {rid: res2[f"c{rid}"] for rid, _ in trace}
+            if any(v is None for v in again.values()):
+                raise AssertionError("fleet (c): the healed fleet left requests "
+                                     "unanswered")
+            _held_serving("fleet (c) healed pass vs in-process", again, in_proc)
+        except BaseException:
+            _replica_logs(tmp / "pf")  # a replica that failed names itself
+            raise
+        finally:
+            pf.close()
+            faults.configure(None)
+        mem_closed = _used_gb(torch, dev)
+        p50, p99 = percentile(lat, 50), percentile(lat, 99)
+        qps = len(trace) / wall
+        fmt = (lambda x: "n/a" if x is None else f"{x:.3f}")  # noqa: E731
+        say(f"fleet (c): {FLEET_REPLICAS} replica processes on {dev}: cold start "
+            f"(spawn to the first answered score) {cold_s:.2f} s; respawn after "
+            f"the SIGKILL to synced {respawn_s:.2f} s, following v2 like the "
+            f"survivor; {len(answered)} of {len(sent)} requests answered, "
+            f"{ing.sheds} shed, {ing.failures} failed (in flight on the killed "
+            f"replica), every answer == the in-process fleet's (max_abs_err "
+            f"{err_c:.3e}, rtol 1e-5), probe bitwise across processes, "
+            f"bitwise the in-process probe: {bitwise_x}; over that trace (the "
+            f"respawn's wait included) p50 {percentile(lat_kill, 50):.3f} ms, p99 "
+            f"{percentile(lat_kill, 99):.3f} ms; the trace again on the healed "
+            f"fleet, every answer == the in-process fleet's: p50 {p50:.3f} ms, "
+            f"p99 {p99:.3f} ms, {qps:.1f} queries/s (host clock, submit to "
+            f"reply)")
+        per = (None if mem0 is None else
+               [(mem_up - mem0) / FLEET_REPLICAS, mem_up - mem_killed,
+                mem_after - mem_killed])
+        say(f"fleet (c): card used GB: before spawning {fmt(mem0)}, replicas "
+            f"up {fmt(mem_up)}, after the SIGKILL {fmt(mem_killed)}, after the "
+            f"respawn {fmt(mem_after)}, after close {fmt(mem_closed)}; per "
+            f"replica: the mean of the first spawn, the killed one's (freed by "
+            f"the kill), the respawned one's "
+            f"{'n/a' if per is None else [round(x, 3) for x in per]}; nvidia-smi "
+            f"used_memory by pid before {pid_gb}, after the respawn {pid_gb1}; "
+            f"answers by replica {by_replica} (the respawned replica 0 answered "
+            f"the probe)")
+        out = {"fat_launches": fat_n, "segment_sum_launches": seg_n,
+               "steps": n_steps, "delta_bytes": d_bytes, "full_bytes": f_bytes,
+               "export_ms": export_s * 1e3, "apply_ms": apply_s * 1e3,
+               "swap_ms": swap_s * 1e3, "cold_s": cold_s, "respawn_s": respawn_s,
+               "p50_ms": p50, "p99_ms": p99, "qps": qps,
+               "mem_gb": [mem0, mem_up, mem_killed, mem_after, mem_closed],
+               "replica_gb": per, "pid_gb": [pid_gb, pid_gb1]}
+
+        # ---- (d) one replica per card
+        n_cards = torch.cuda.device_count() if dev.startswith("cuda") else 1
+        if n_cards > 1:
+            import dataclasses
+
+            cfg4 = cfg.replace(serving=dataclasses.replace(cfg.serving,
+                                                           replicas=n_cards))
+            t0 = time.perf_counter()
+            pf = ProcessFleet(store, cfg4, workdir=tmp / "pf4",
+                              device=[f"cuda:{k}" for k in range(n_cards)])
+            try:
+                pf.sync()
+                up_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                res = pf.run(trace)
+                wall4 = time.perf_counter() - t0
+                lat4 = list(pf.ingress.latencies_ms)
+                err_d = _held_serving("fleet (d) one replica per card",
+                                      {r: v for r, v in res.items()}, in_proc)
+            except BaseException:
+                _replica_logs(tmp / "pf4")
+                raise
+            finally:
+                pf.close()
+            say(f"fleet (d): {n_cards} replicas, one per card: up in {up_s:.2f} s; "
+                f"{len(res)} requests answered == the in-process fleet (max_abs_err "
+                f"{err_d:.3e}); p50 {percentile(lat4, 50):.3f} ms, p99 "
+                f"{percentile(lat4, 99):.3f} ms, {len(res) / wall4:.1f} queries/s")
+            out["cards"] = n_cards
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fleet_toml(tmp: Path, name: str, extra: str = "") -> Path:
+    """The quickstart ``config.toml`` (TwoTower) on a synthetic catalogue,
+    with ``[serving] replicas = 2``."""
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+
+    write_synthetic_goodreads(tmp / "data", n_users=SERVE_CLI_USERS)
+    text = (ROOT / "config.toml").read_text()
+    if 'data_dir = "data/goodreads"' not in text:
+        raise AssertionError("config.toml no longer has its data_dir line")
+    lines = [f'data_dir = "{tmp / "data"}"' if x.startswith("data_dir =") else x
+             for x in text.splitlines()]
+    cfg = tmp / f"{name}.toml"
+    cfg.write_text("\n".join(lines) + "\n[serving]\nreplicas = 2\n" + extra)
+    if launch.main(["preprocess-ctr", "--config", str(cfg)]) != 0:
+        raise AssertionError("launch preprocess-ctr failed")
+    return cfg
+
+
+def _launch_out(argv, timeout=600) -> str:
+    res = subprocess.run([sys.executable, "-m", "tdfo_tpu_torch.launch", *argv],
+                         cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"launch {argv[0]} failed (rc {res.returncode}):\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def phase_serve_fleet_cli(torch) -> dict:
+    """Phase 35: ``python -m tdfo_tpu_torch.launch serve-fleet`` on the card
+    (its replica processes too): the quickstart toml with ``[serving]
+    replicas = 2``, a fresh init; 64 requests, every one answered."""
+    import ast
+    import math
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = _fleet_toml(tmp, "serve_fleet")
+        t0 = time.perf_counter()
+        out = _launch_out(["serve-fleet", "--config", str(cfg),
+                           "--log-dir", str(tmp / "logs")])
+        wall = time.perf_counter() - t0
+    stats = ast.literal_eval(out.strip().splitlines()[-1])
+    if not (stats["requests"] == stats["answered"] == 64 and stats["replicas"] == 2
+            and stats["failed"] == 0
+            and all(math.isfinite(stats[k]) for k in ("p50_ms", "p99_ms", "qps"))):
+        raise AssertionError(f"serve_fleet_cli: {stats}")
+    say(f"serve_fleet_cli: launch serve-fleet in {wall:.1f} s: {stats['answered']} "
+        f"of {stats['requests']} answered by {stats['replicas']} replica "
+        f"processes, shed {stats['shed']}, p50 {stats['p50_ms']:.3f} ms, p99 "
+        f"{stats['p99_ms']:.3f} ms, qps {stats['qps']:.1f}")
+    return stats
+
+
+def phase_loadgen_cli(torch) -> dict:
+    """Phase 36: ``python -m tdfo_tpu_torch.launch loadgen --knee-steps 2`` on
+    the card: closed loop, zipf ids, concurrency 1 then 2, every request
+    completed."""
+    import re
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = _fleet_toml(tmp, "loadgen", "[loadgen]\nrequests = 64\n"
+                          "p99_slo_ms = 1000.0\n")
+        t0 = time.perf_counter()
+        out = _launch_out(["loadgen", "--config", str(cfg), "--knee-steps", "2",
+                           "--log-dir", str(tmp / "logs")])
+        wall = time.perf_counter() - t0
+    steps = [x for x in out.splitlines() if x.startswith("loadgen closed")]
+    knee = [x for x in out.splitlines() if x.startswith("knee:")]
+    if (len(steps) != 2 or not knee or any("failed=0" not in x for x in steps)
+            or not all(re.search(r"conc=\d+", x) for x in steps)):
+        raise AssertionError(f"loadgen_cli:\n{out[-3000:]}")
+    say(f"loadgen_cli: launch loadgen in {wall:.1f} s: " + "; ".join(steps)
+        + f"; {knee[0]}")
+    return {"steps": steps, "knee": knee[0]}
+
 # ------------------------------------------------------------- dist_dense
 # ROADMAP item 12b's dense half: phase 17's dense TwoTower over ranks.
 # Each run: (backend, world, (data, model), arms).  "graph": eager steps
@@ -6255,12 +6791,15 @@ def phase_dist_serve(torch, card: str) -> dict:
 
 # ------------------------------------------------------------ the journeys
 # The CLI journeys drive ``launch`` subprocesses and time no kernel, so they
-# run side by side, each in a process of its own, beside dist_seq (rank
-# processes too), where serve_cli stood in the order; their host-clock
-# numbers (serve_cli's p50 / p99 / qps, dist_seq's step ms) are taken
-# under that load.
-JOURNEYS = ("quickstart_cli", "criteo_int8_cli", "serve_cli", "dist_cli")
+# run side by side, each in a process of its own, beside dist_main (rank
+# processes too, with dist_dense and dist_serve in a thread beside it);
+# their host-clock numbers (serve_cli's p50 / p99 / qps, the fleet CLIs')
+# and dist_main's, dist_dense's and dist_serve's ms are taken under that
+# load.
+JOURNEYS = ("quickstart_cli", "criteo_int8_cli", "serve_cli", "dist_cli",
+            "seq_cli", "serve_fleet_cli", "loadgen_cli")
 JOURNEY_TIMEOUT_S = 900
+JOURNEY_THREADS = 2
 
 
 def journey_main(name: str) -> int:
@@ -6273,7 +6812,9 @@ def journey_main(name: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     fn = {"quickstart_cli": phase_quickstart_cli, "criteo_int8_cli":
           phase_criteo_int8_cli, "serve_cli": phase_serve_cli,
-          "dist_cli": phase_dist_cli}[name]
+          "dist_cli": phase_dist_cli, "seq_cli": phase_seq_cli,
+          "serve_fleet_cli": phase_serve_fleet_cli,
+          "loadgen_cli": phase_loadgen_cli}[name]
     say(f"phase {name}: start")
     t0 = time.perf_counter()
     fn(torch)
@@ -6289,15 +6830,20 @@ def journeys_beside(names):
     fails the run by name; a body that fails kills them."""
     import shutil
 
+    import os
+
     t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_journeys_"))
     procs = {}
+    # JOURNEY_THREADS intra-op threads a process (its launch children
+    # inherit it): many processes share the host's cores side by side
+    env = dict(os.environ, OMP_NUM_THREADS=str(JOURNEY_THREADS))
     try:
         for n in names:
             with open(tmp / f"{n}.log", "w") as f:
                 procs[n] = subprocess.Popen(
                     [sys.executable, str(ROOT / "chip_smoke.py"), "--journey", n],
-                    cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+                    cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, env=env)
         yield
         deadline = time.monotonic() + JOURNEY_TIMEOUT_S
         for p in procs.values():
@@ -6319,6 +6865,37 @@ def journeys_beside(names):
     if names:
         say(f"journeys {', '.join(names)}: side by side in "
             f"{time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def phases_beside(run, named, *args):
+    """Run each ``(name, fn)`` of ``named`` through ``run(name, fn, *args)``
+    in a thread of its own (they spawn rank processes and wait on them)
+    beside the body, one after another in that thread; yields the dict the
+    results land in once the body and they have ended.  A phase that fails
+    fails the run by name, after the body."""
+    import threading
+
+    done: dict = {}
+    errors: dict = {}
+
+    def work():
+        for name, fn in named:
+            try:
+                done[name] = run(name, fn, *args)
+            except BaseException as e:  # noqa: BLE001 (re-raised by name below)
+                errors[name] = e
+                return
+
+    t = threading.Thread(target=work, name="phases_beside", daemon=True)
+    t.start()
+    try:
+        yield done
+    finally:
+        t.join()
+    if errors:
+        name, e = next(iter(errors.items()))
+        raise AssertionError(f"phase {name} (beside) failed: {e!r}") from e
 
 
 # ------------------------------------------------------------------- main
@@ -6482,28 +7059,33 @@ def main(argv=None) -> int:
         run("serve_main", phase_serve_main, torch, smi)
     if "serve_seq_main" in phases:
         run("serve_seq_main", phase_serve_seq_main, torch, smi)
+    if "fleet" in phases:
+        r = run("fleet", phase_fleet, torch, smi)
+        fat["launches_fleet"] = r["fat_launches"]
+        recs["segment_sum"]["launches_fleet"] = r["segment_sum_launches"]
+    if "dist_seq" in phases:
+        r = run("dist_seq", phase_dist_seq, torch, smi)
+        for rec, name in ((fat, "fat_line_update"),
+                          *((recs[k], k) for k in FLASH_KERNELS)):
+            rec["launches_seq_arms"] = {k: [x[name] for x in v]
+                                        for k, v in r["launches"].items()}
+    beside = [(n, f) for n, f in (("dist_dense", phase_dist_dense),
+                                  ("dist_serve", phase_dist_serve)) if n in phases]
     with journeys_beside([j for j in JOURNEYS if j in phases]):
-        if "dist_seq" in phases:
-            r = run("dist_seq", phase_dist_seq, torch, smi)
-            for rec, name in ((fat, "fat_line_update"),
-                              *((recs[k], k) for k in FLASH_KERNELS)):
-                rec["launches_seq_arms"] = {k: [x[name] for x in v]
-                                            for k, v in r["launches"].items()}
-    if "dist_main" in phases:
-        r = run("dist_main", phase_dist_main, torch, smi)
-        fat["launches_sharded"] = r["launches"]
-        recs["segment_sum"]["launches_sharded"] = r["segment_sum_launches"]
-        for rec, name in ((fat, "fat_line_update"), (routed, "fat_line_update_routed"),
-                          (recs["segment_sum"], "segment_sum")):
-            rec["launches_ctr_arms"] = {k: [x[name] for x in v]
-                                        for k, v in r["ctr_launches"].items()}
-    if "dist_dense" in phases:
-        r = run("dist_dense", phase_dist_dense, torch, smi)
+        with phases_beside(run, beside, torch, smi) as done:
+            if "dist_main" in phases:
+                r = run("dist_main", phase_dist_main, torch, smi)
+                fat["launches_sharded"] = r["launches"]
+                recs["segment_sum"]["launches_sharded"] = r["segment_sum_launches"]
+                for rec, name in ((fat, "fat_line_update"),
+                                  (routed, "fat_line_update_routed"),
+                                  (recs["segment_sum"], "segment_sum")):
+                    rec["launches_ctr_arms"] = {k: [x[name] for x in v]
+                                                for k, v in r["ctr_launches"].items()}
+    if "dist_dense" in done:
         recs["segment_sum"]["launches_dense_arms"] = {
-            k: [x["segment_sum_launches"] for x in v] for k, v in r.items()
-            if not k.endswith("/refuse")}
-    if "dist_serve" in phases:
-        run("dist_serve", phase_dist_serve, torch, smi)
+            k: [x["segment_sum_launches"] for x in v]
+            for k, v in done["dist_dense"].items() if not k.endswith("/refuse")}
     if "profile" in phases:
         run("profile", phase_profile, torch)
     if "profile_b4r" in phases:

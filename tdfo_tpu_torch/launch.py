@@ -1,6 +1,6 @@
 """Entry point: ``python -m tdfo_tpu_torch.launch
 {synth,synth-criteo,preprocess-ctr,preprocess-criteo,preprocess-seq,train,
-serve} --config config.toml [--device cuda|cpu]``.
+serve,serve-fleet,loadgen} --config config.toml [--device cuda|cpu]``.
 
 Port of ``tdfo_tpu/launch.py`` for the ported subcommands:
 
@@ -18,10 +18,19 @@ Port of ``tdfo_tpu/launch.py`` for the ported subcommands:
     (a fresh init without one), export the serving bundle, and run a
     synthetic ragged request trace through the micro-batcher plus one
     retrieval round (``serve/frontend.py``); prints the serving family and
-    the stats dict.
+    the stats dict.  ``[serving] replicas > 1`` serves the trace through an
+    in-process fleet following a bundle store.
+  * ``serve-fleet``    — export a bundle and stand up the out-of-process
+    fleet (``[serving] replicas`` ``serve/replica_main.py`` children behind
+    the power-of-two-choices ingress), then push the same synthetic trace
+    through it; prints the stats dict.
+  * ``loadgen``        — the same fleet, driven with zipf traffic
+    (``[loadgen]``: closed or open loop) over ``--knee-steps`` doublings of
+    the load, to the latency/throughput knee (``serve/loadgen.py``).
 
-``train`` and ``serve`` run on the card unless ``--device cpu`` is given,
-and refuse to start when CUDA is asked for and absent.
+``train``, ``serve``, ``serve-fleet`` and ``loadgen`` run on the card (the
+fleet's replica processes too) unless ``--device cpu`` is given, and
+refuse to start when CUDA is asked for and absent.
 
 Several ranks (the reference's ``--distributed``, ``tdfo_tpu/launch.py:80``):
 ``python -m torch.distributed.run --nproc-per-node N -m tdfo_tpu_torch.launch
@@ -36,8 +45,8 @@ metrics and checkpoints.  Under ``lookup_mode = "alltoall"``,
 pipeline_overlap = true`` the pipelined step on top of it; int8 storage
 runs under a mesh too.  ``serve`` under several ranks shards the retrieval
 corpus over the ``data`` axis (``serve/frontend.py``).  The other
-subcommands of the reference (serve-fleet, loadgen, online, plan, ...)
-arrive with their slices (``ROADMAP.md``).
+subcommands of the reference (online, plan, obs, ...) arrive with their
+slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -53,17 +62,22 @@ def main(argv: list[str] | None = None) -> int:
 
 def run(argv: list[str] | None = None):
     """``main`` without the exit code: returns the fitted ``Trainer`` (its
-    final state included) for ``train``, the stats dict for ``serve``,
-    ``None`` for the other subcommands."""
+    final state included) for ``train``, the stats dict for ``serve`` and
+    ``serve-fleet``, the knee report for ``loadgen``, ``None`` for the
+    other subcommands."""
     p = argparse.ArgumentParser(prog="tdfo_tpu_torch.launch", description=__doc__)
     p.add_argument("command", nargs="?", default="train",
                    choices=["train", "preprocess-ctr", "preprocess-criteo",
-                            "preprocess-seq", "synth", "synth-criteo", "serve"])
+                            "preprocess-seq", "synth", "synth-criteo", "serve",
+                            "serve-fleet", "loadgen"])
     p.add_argument("--config", default="config.toml", help="path to config.toml")
     p.add_argument("--data-dir", default=None, help="override config data_dir")
     p.add_argument("--log-dir", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="device for train and serve (default: the card)")
+                   help="device for train and the serving commands "
+                        "(default: the card)")
+    p.add_argument("--knee-steps", type=int, default=4,
+                   help="loadgen: load doublings of the knee sweep")
     p.add_argument("--distributed", default="auto",
                    choices=["auto", "always", "never"],
                    help="start torch.distributed from torchrun's environment: "
@@ -132,13 +146,46 @@ def run(argv: list[str] | None = None):
         if alt.exists():
             cfg = cfg.replace(size_map=json.loads(alt.read_text()))
 
-    if args.command == "serve":
+    if cfg.faults.any():
+        # a run that dies with exit 17 must show why
+        print(f"WARNING: fault injection armed: {cfg.faults}", flush=True)
+    if args.command in ("serve", "serve-fleet", "loadgen"):
         from tdfo_tpu_torch.core.config import serving_model_kind
 
         try:
             kind = serving_model_kind(cfg)
         except ValueError as e:
             raise SystemExit(str(e)) from None
+    if args.command == "serve-fleet":
+        from tdfo_tpu_torch.serve.loadgen import serve_fleet_from_config
+
+        print(f"serve-fleet: model {cfg.model!r} -> {kind} serving family",
+              flush=True)
+        out = serve_fleet_from_config(cfg, log_dir=args.log_dir,
+                                      device=args.device)
+        print({k: round(v, 5) if isinstance(v, float) else v
+               for k, v in out.items()})
+        return out
+    if args.command == "loadgen":
+        from tdfo_tpu_torch.serve.loadgen import loadgen_from_config
+
+        print(f"loadgen: model {cfg.model!r} -> {kind} serving family",
+              flush=True)
+        out = loadgen_from_config(cfg, log_dir=args.log_dir,
+                                  knee_steps=args.knee_steps, device=args.device)
+        for s in out["steps"]:
+            axis = (f"conc={s['concurrency']}" if s["mode"] == "closed"
+                    else f"rate={s['offered_qps']:.1f}qps")
+            p99 = "-" if s["p99_ms"] is None else f"{s['p99_ms']:.2f}ms"
+            print(f"loadgen {s['mode']} {axis}: "
+                  f"qps={s['achieved_qps']:.1f} p99={p99} "
+                  f"shed={s['shed']} failed={s['failed']} "
+                  f"slo_ok={s['slo_ok']}")
+        knee = out["knee"]
+        print("knee: none (no step met the p99 SLO)" if knee is None else
+              f"knee: qps={knee['achieved_qps']:.1f} at p99="
+              f"{knee['p99_ms']:.2f}ms (SLO {knee['p99_slo_ms']} ms)")
+        return out
 
     import os
 

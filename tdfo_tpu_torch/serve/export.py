@@ -1,8 +1,8 @@
 """Train state -> serving bundle — port of ``tdfo_tpu/serve/export.py``
 (``BUNDLE_VERSION``, ``merged_tables``, ``ServingBundle``,
 ``bundle_digest``, ``read_raw_bundle`` / ``write_raw_bundle``,
-``export_bundle``, ``load_bundle``, ``bundle_from_raw``,
-``export_corpus`` / ``load_corpus``).
+``export_bundle``, ``export_delta`` / ``apply_delta_arrays``,
+``load_bundle``, ``bundle_from_raw``, ``export_corpus`` / ``load_corpus``).
 
 A bundle is a directory holding ``bundle.json`` (the manifest) and
 ``arrays.npz``, byte-compatible with the reference's: the same manifest
@@ -32,10 +32,12 @@ other.  Dense parameters are stored under the reference's flax names and
   a ``"float16"`` manifest, as in the reference).
 
 Fused int8 tables (byte-container fat lines) are refused: the reference
-reads them through the f32 line geometry and fails.  Delta exports
-(``export_delta`` / ``apply_delta_arrays``) come with the swap slice
-(``ROADMAP.md`` Queue A item 15b).  Loaded bundles hold CPU tensors (bf16
-arrays as ``torch.bfloat16``).
+reads them through the f32 line geometry and fails.  A delta
+(``export_delta``) ships the rows whose stored bytes changed since its base
+bundle and promises the digest of the full export of the same state; a
+delta composed onto its base (``apply_delta_arrays``) therefore equals that
+full export bitwise.  Loaded bundles hold CPU tensors (bf16 arrays as
+``torch.bfloat16``).
 """
 
 from __future__ import annotations
@@ -60,14 +62,17 @@ __all__ = [
     "BUNDLE_VERSION",
     "QSCALE_LAYOUT",
     "ServingBundle",
+    "apply_delta_arrays",
     "bundle_digest",
     "bundle_from_raw",
     "export_bundle",
     "export_corpus",
+    "export_delta",
     "load_bundle",
     "load_corpus",
     "merged_tables",
     "read_raw_bundle",
+    "touched_rows",
     "write_raw_bundle",
 ]
 
@@ -307,7 +312,23 @@ def export_bundle(
         raise ValueError(
             "export_bundle takes either coll+tables+dense_params (sparse "
             "regime) or params (dense regime), not both/neither")
-    dtype_name = _dtype_name(compute_dtype(mixed_precision, platform))
+    manifest, arrays = _materialize(
+        model=model, embed_dim=embed_dim, cat_columns=cat_columns,
+        cont_columns=cont_columns, size_map=size_map, step=step, coll=coll,
+        tables=tables, dense_params=dense_params, params=params,
+        caches=caches,
+        dtype_name=_dtype_name(compute_dtype(mixed_precision, platform)),
+        version=version, seq=seq)
+    manifest["digest"] = bundle_digest(manifest, arrays)
+    return write_raw_bundle(out_dir, manifest, arrays)
+
+
+def _materialize(
+    *, model, embed_dim, cat_columns, cont_columns, size_map, step, coll,
+    tables, dense_params, params, caches, dtype_name, version, seq=None,
+) -> tuple[dict[str, Any], dict[str, np.ndarray]]:
+    """The bundle both a full export and a delta's ``result_digest`` come
+    from: (manifest without its digest, stored arrays)."""
     arrays: dict[str, np.ndarray] = {}
     manifest: dict[str, Any] = {
         "bundle_version": BUNDLE_VERSION,
@@ -336,8 +357,216 @@ def export_bundle(
     else:
         for k, v in _flatten(_flax_tree(params)).items():
             arrays[f"params:{k}"] = _store(v, dtype_name)
-    manifest["digest"] = bundle_digest(manifest, arrays)
-    return write_raw_bundle(out_dir, manifest, arrays)
+    return manifest, arrays
+
+
+def touched_rows(coll, *, caches: Mapping[str, Any] | None = None,
+                 batches=()) -> dict[str, np.ndarray]:
+    """The ``touched`` hint of :func:`export_delta`: per logical table, the
+    sorted row ids the steps since the base export may have changed.  Two
+    sources, united: the dirty sets of an update cache (``caches``: the
+    ``CACHE_PREFIX`` slots; valid while no flush ran since the base) and
+    the id columns of the batches trained since the base (``batches``:
+    feature -> ids, the stream's cursor form)."""
+    out: dict[str, list[np.ndarray]] = {t: [] for t in coll.specs}
+    for tname, spec in coll.specs.items():
+        aname, _, off = coll.resolve_table(tname)
+        cache = (caches or {}).get(CACHE_PREFIX + aname)
+        if cache is not None:
+            ids = _host(cache["ids"].cpu())
+            slot = _host(cache["slot"].cpu())
+            dirty = _host(cache["dirty"].cpu())[slot] & (ids < _OOB)
+            rows = ids[dirty].astype(np.int64) - off
+            out[tname].append(rows[(rows >= 0) & (rows < spec.num_embeddings)])
+    for batch in batches:
+        for f, ids in batch.items():
+            try:
+                tname = coll.resolve(f)[1].name
+            except KeyError:
+                continue
+            ids = ids.detach().cpu().numpy() if torch.is_tensor(ids) else np.asarray(ids)
+            ids = ids.reshape(-1).astype(np.int64)
+            out[tname].append(ids[ids >= 0])
+    return {t: np.unique(np.concatenate(v)) if v else np.zeros(0, np.int64)
+            for t, v in out.items()}
+
+
+def _row_diff(new: np.ndarray, base: np.ndarray) -> np.ndarray:
+    """Boolean [rows] mask of rows whose STORED bytes differ (byte compare,
+    so NaNs and negative zeros diff exactly like the digest sees them)."""
+    a = np.ascontiguousarray(new).view(np.uint8).reshape(new.shape[0], -1)
+    b = np.ascontiguousarray(base).view(np.uint8).reshape(base.shape[0], -1)
+    return np.any(a != b, axis=1)
+
+
+def export_delta(
+    out_dir: str | Path,
+    base_dir: str | Path,
+    *,
+    model: str,
+    embed_dim: int,
+    cat_columns: tuple[str, ...],
+    cont_columns: tuple[str, ...],
+    size_map: Mapping[str, int],
+    step: int,
+    coll,
+    tables: Mapping[str, torch.Tensor],
+    dense_params,
+    caches: Mapping[str, Any] | None = None,
+    mixed_precision: bool = False,
+    platform: str | None = None,
+    touched: Mapping[str, np.ndarray] | None = None,
+    seq: Mapping[str, int] | None = None,
+) -> Path:
+    """Export only the rows that changed since the ``base_dir`` bundle.
+
+    Per table, rows whose stored bytes differ from the base ship as
+    ``delta_ids:{name}`` + ``delta_rows:{name}``; dense arrays that changed
+    ship whole.  The manifest is a chain entry (``version = base + 1``,
+    ``parent_digest``, and the ``result_digest`` the composed bundle must
+    hash to after :func:`apply_delta_arrays`: the digest of the full export
+    of the same state, from the same :func:`_materialize`).  The tables
+    come to the host and are byte-diffed there.
+
+    ``touched``: an optional per-table row-id hint (:func:`touched_rows`).
+    The byte diff stays authoritative; a changed row outside the hint is a
+    loud error (a stale hint never ships a stale delta).
+    """
+    base_manifest, base_arrays = read_raw_bundle(base_dir)
+    want = base_manifest.get("digest")
+    got = bundle_digest(base_manifest, base_arrays)
+    if want != got:
+        raise ValueError(
+            f"delta base {base_dir}: digest {got} != manifest {want!r} — "
+            "refusing to chain onto a corrupt base")
+    if base_manifest["kind"] != "sparse":
+        raise ValueError(
+            f"delta export needs a sparse base bundle, got kind "
+            f"{base_manifest['kind']!r} (dense bundles re-export whole)")
+    new_manifest, new_arrays = _materialize(
+        model=model, embed_dim=embed_dim, cat_columns=cat_columns,
+        cont_columns=cont_columns, size_map=size_map, step=step, coll=coll,
+        tables=tables, dense_params=dense_params, params=None, caches=caches,
+        dtype_name=_dtype_name(compute_dtype(mixed_precision, platform)),
+        version=int(base_manifest["version"]) + 1, seq=seq)
+    # "seq" freezes the bert4rec backbone geometry; CTR bundles compare
+    # absent == absent
+    frozen = ("kind", "model", "embed_dim", "cat_columns", "cont_columns",
+              "size_map", "dtype", "tables", "seq")
+    for key in frozen:
+        if new_manifest.get(key) != base_manifest.get(key):
+            raise ValueError(
+                f"delta export schema drift on {key!r}: base "
+                f"{base_manifest.get(key)!r} != new {new_manifest.get(key)!r}"
+                " — a delta cannot change the bundle schema; re-export full")
+    result_digest = bundle_digest(new_manifest, new_arrays)
+
+    delta_arrays: dict[str, np.ndarray] = {}
+    tables_delta: dict[str, int] = {}
+    replaced: list[str] = []
+    for key in sorted(new_arrays):
+        if key.startswith("table:"):
+            name = key.removeprefix("table:")
+            mask = _row_diff(new_arrays[key], base_arrays[key])
+            ids = np.nonzero(mask)[0].astype(np.int64)
+            if touched is not None:
+                hint = np.asarray(touched.get(name, ()), dtype=np.int64)
+                stray = np.setdiff1d(ids, hint)
+                if stray.size:
+                    raise ValueError(
+                        f"delta export: table {name!r} rows {stray[:8].tolist()}"
+                        " changed outside the touched-row hint — the hint is "
+                        "stale; refusing to ship a delta that would miss them")
+            if ids.size:
+                delta_arrays[f"delta_ids:{name}"] = ids
+                delta_arrays[f"delta_rows:{name}"] = np.ascontiguousarray(
+                    new_arrays[key][ids])
+                tables_delta[name] = int(ids.size)
+        elif _row_diff(new_arrays[key].reshape(1, -1),
+                       base_arrays[key].reshape(1, -1))[0]:
+            delta_arrays[key] = new_arrays[key]
+            replaced.append(key)
+
+    delta_manifest: dict[str, Any] = {
+        "bundle_version": BUNDLE_VERSION,
+        "kind": "delta",
+        "base_kind": base_manifest["kind"],
+        "model": model,
+        "step": int(step),
+        "dtype": new_manifest["dtype"],
+        "version": int(base_manifest["version"]) + 1,
+        "parent_version": int(base_manifest["version"]),
+        "parent_digest": base_manifest["digest"],
+        "result_digest": result_digest,
+        "tables_delta": tables_delta,
+        "replaced": replaced,
+    }
+    delta_manifest["digest"] = bundle_digest(delta_manifest, delta_arrays)
+    return write_raw_bundle(out_dir, delta_manifest, delta_arrays)
+
+
+def apply_delta_arrays(
+    base_manifest: Mapping[str, Any],
+    base_arrays: Mapping[str, np.ndarray],
+    delta_manifest: Mapping[str, Any],
+    delta_arrays: Mapping[str, np.ndarray],
+) -> tuple[dict[str, Any], dict[str, np.ndarray]]:
+    """Compose a delta onto its parent: (result manifest, stored arrays).
+
+    Pure chain math (durability is ``serve/swap.py``'s).  Refuses, with a
+    ``ValueError`` naming the cause: a non-delta manifest, a
+    ``bundle_version`` this build does not serve, a version gap or re-order
+    (``parent_version``), a parent whose digest is not ``parent_digest``, a
+    payload that does not hash to the delta's digest, and a composition
+    that does not hash to ``result_digest``.
+    """
+    if delta_manifest.get("kind") != "delta":
+        raise ValueError(
+            f"not a delta manifest (kind={delta_manifest.get('kind')!r})")
+    if delta_manifest.get("bundle_version") != BUNDLE_VERSION:
+        raise ValueError(
+            f"delta has bundle_version {delta_manifest.get('bundle_version')!r},"
+            f" this build serves {BUNDLE_VERSION}")
+    base_v = int(base_manifest.get("version", 0))
+    parent_v = int(delta_manifest["parent_version"])
+    if parent_v != base_v:
+        raise ValueError(
+            f"delta chain out of order: delta v{delta_manifest['version']} "
+            f"expects parent v{parent_v}, current bundle is v{base_v} — "
+            "deltas apply strictly in version order, no gaps or re-orders")
+    if delta_manifest["parent_digest"] != base_manifest.get("digest"):
+        raise ValueError(
+            f"delta parent digest mismatch: delta expects parent "
+            f"{delta_manifest['parent_digest']}, current bundle digest is "
+            f"{base_manifest.get('digest')!r} — the parent is not the bundle "
+            "this delta was exported against")
+    own = bundle_digest(delta_manifest, delta_arrays)
+    if own != delta_manifest.get("digest"):
+        raise ValueError(
+            f"delta digest mismatch: payload hashes to {own}, manifest says "
+            f"{delta_manifest.get('digest')!r} — corrupt delta")
+
+    out_arrays = dict(base_arrays)
+    for key in delta_manifest.get("replaced", ()):
+        out_arrays[key] = delta_arrays[key]
+    for name in delta_manifest.get("tables_delta", {}):
+        ids = delta_arrays[f"delta_ids:{name}"]
+        rows = delta_arrays[f"delta_rows:{name}"]
+        arr = np.array(base_arrays[f"table:{name}"])
+        arr[ids] = rows
+        out_arrays[f"table:{name}"] = arr
+
+    out_manifest = {k: v for k, v in base_manifest.items() if k != "digest"}
+    out_manifest["step"] = int(delta_manifest["step"])
+    out_manifest["version"] = int(delta_manifest["version"])
+    digest = bundle_digest(out_manifest, out_arrays)
+    if digest != delta_manifest["result_digest"]:
+        raise ValueError(
+            f"delta result digest mismatch: composed bundle hashes to "
+            f"{digest}, delta promises {delta_manifest['result_digest']} — "
+            "refusing to serve an unverified composition")
+    out_manifest["digest"] = digest
+    return out_manifest, out_arrays
 
 
 def load_bundle(bundle_dir: str | Path, *, verify: bool = False) -> ServingBundle:

@@ -29,10 +29,13 @@ others wait and load it; each rank scores the same seeded request trace
 on its replicated parameters (only rank 0 logs), and the corpus shards
 over the mesh's ``data`` axis (``serve/corpus.py``, ``serve/retrieval.py``).
 
-Not ported yet, and refused by :func:`serve_from_config`:
-``[serving] replicas > 1`` (the fleet, ``ROADMAP.md`` Queue A item 15b),
-``log_features`` (the replayable request log, item 16) and the serving
-watchdog (``telemetry.stall_timeout_s``, item 16).
+The batcher also takes the replayable request log (``[serving]
+log_features``: ``data/replay.py::RequestLog``, a ``label`` column logged
+and stripped before scoring) and the serving watchdog
+(``telemetry.stall_timeout_s``: a beat per shipped batch), and sleeps
+``[faults] slow_score_ms`` per shipped batch.  ``[serving] replicas > 1``
+serves the trace through an in-process ``serve/fleet.py::ServingFleet``
+following a ``serve/swap.py::BundleStore``.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-__all__ = ["MicroBatcher", "refuse_unported_serving", "serve_from_config"]
+from tdfo_tpu_torch.obs import trace as _trace
+
+__all__ = ["MicroBatcher", "serve_from_config"]
 
 
 def _host_scores(scores) -> np.ndarray:
@@ -62,7 +67,12 @@ class MicroBatcher:
     ``score_fn(batch) -> [B, ...] scores`` must accept any batch size in
     ``buckets``.  Requests are dicts of aligned ``[n, ...]`` columns;
     results come back unpadded, ``n`` rows per request (``None`` for a
-    shed request)."""
+    shed request).  Scores come to the host before a request's latency is
+    taken, so latencies measure answers, not launches.  ``watchdog``: a
+    ``obs/watchdog.StallWatchdog`` beaten per shipped batch;
+    ``request_log``: a ``data/replay.RequestLog`` every served request's
+    features (and its ``label`` column, stripped before scoring) and every
+    shed are appended to."""
 
     def __init__(
         self,
@@ -76,6 +86,8 @@ class MicroBatcher:
         program_cache_size: Callable[[], int] | None = None,
         max_queue: int = 0,
         shed_policy: str = "oldest",
+        watchdog=None,
+        request_log=None,
     ):
         buckets = tuple(buckets)
         if not buckets or list(buckets) != sorted(set(buckets)):
@@ -100,6 +112,10 @@ class MicroBatcher:
         self._cache_size = program_cache_size
         self._max_queue = int(max_queue)  # pending REQUESTS cap, 0 = off
         self._shed_policy = shed_policy
+        self._watchdog = watchdog
+        self._request_log = request_log
+        self._labels: dict[Any, np.ndarray] = {}
+        self._ships = 0
         self._pending: list[tuple[Any, dict[str, np.ndarray], int, float]] = []
         self._pending_rows = 0
         self.results: dict[Any, np.ndarray | None] = {}
@@ -109,6 +125,13 @@ class MicroBatcher:
         self.shed: list[tuple[Any, str]] = []  # (request_id, reason)
         self.swaps: list[dict[str, Any]] = []
         self._version: Any = None  # bundle version being served
+        self._digest: Any = None  # and its digest (trace identity)
+        # the fleet replica this batcher serves for (0 alone)
+        self.replica = 0
+        # saturation of the last shipped batch: the fleet heartbeat and
+        # the process fleet's score replies carry them to the balancer
+        self.last_queue_depth = 0
+        self.last_batch_fill = 0.0
         self._swapping = False
         self._under_swap_ms: list[float] = []
 
@@ -121,6 +144,11 @@ class MicroBatcher:
         n = len(next(iter(cols.values())))
         if any(len(v) != n for v in cols.values()):
             raise ValueError(f"request {request_id!r}: ragged columns")
+        if self._request_log is not None:
+            # feedback column: logged for replay, stripped before scoring
+            label = cols.pop("label", None)
+            if label is not None:
+                self._labels[request_id] = label
         if n > self._max_batch:
             raise ValueError(
                 f"request {request_id!r} has {n} rows > max_batch "
@@ -150,6 +178,13 @@ class MicroBatcher:
     def _record_shed(self, rid: Any, n: int, t0: float, reason: str) -> None:
         self.results[rid] = None  # the caller sees the outcome, not a KeyError
         self.shed.append((rid, reason))
+        if self._request_log is not None:
+            self._labels.pop(rid, None)
+            # never scored: the record carries no feature payload
+            self._request_log.append({
+                "event": "serve_request", "request": str(rid), "rows": n,
+                "outcome": "shed", "shed_reason": reason,
+                "version": self._version})
         if self._logger is not None:
             self._logger.log(event="serve_request", request=str(rid), rows=n,
                              batch_rows=0, padded=0, queue_depth=len(self._pending),
@@ -194,8 +229,16 @@ class MicroBatcher:
         for k in take[0][1]:
             col = np.concatenate([cols[k] for _, cols, _, _ in take])
             batch[k] = np.pad(col, [(0, padded - rows)] + [(0, 0)] * (col.ndim - 1))
+        from tdfo_tpu_torch.utils import faults
+
+        inj = faults.active()
+        if inj is not None:
+            inj.maybe_slow_score()
         scores = _host_scores(self._score(batch))[:rows]
         self.shipped.append((rows, padded))
+        self._ships += 1
+        if self._watchdog is not None:
+            self._watchdog.beat(self._ships)
         if self._cache_size is not None:
             n_progs = self._cache_size()
             if n_progs > len(self._buckets):
@@ -204,15 +247,33 @@ class MicroBatcher:
                     f"{n_progs} batch shapes for {len(self._buckets)} "
                     f"buckets — a non-bucket batch shape reached score_fn")
         done = self._clock()
-        depth, fill = len(self._pending), rows / padded
+        depth = self.last_queue_depth = len(self._pending)
+        fill = self.last_batch_fill = rows / padded
         off = 0
-        for rid, _, n, t0 in take:
+        for rid, cols, n, t0 in take:
             self.results[rid] = scores[off:off + n]
             off += n
             latency_ms = (done - t0) * 1000.0
             self.latencies_ms.append(latency_ms)
             if self._swapping:
                 self._under_swap_ms.append(latency_ms)
+            if self._request_log is not None:
+                feats = {k: v.tolist() for k, v in cols.items()}
+                label = self._labels.pop(rid, None)
+                if label is not None:
+                    feats["label"] = label.tolist()
+                seq = self._request_log.append({
+                    "event": "serve_request", "request": str(rid),
+                    "rows": n, "outcome": "ok", "features": feats,
+                    "under_swap": self._swapping, "version": self._version,
+                    "latency_ms": latency_ms})
+                # (replica, seq) names the request; (version, digest) what
+                # served it
+                _trace.emit(
+                    "frontend", "serve_request", replica=self.replica,
+                    seq=seq, version=self._version, digest=self._digest,
+                    rows=n, latency_ms=round(latency_ms, 3),
+                    queue_depth=depth, batch_fill=round(fill, 4))
             if self._logger is not None:
                 self._logger.log(event="serve_request", request=str(rid),
                                  rows=n, batch_rows=rows, padded=padded,
@@ -223,6 +284,7 @@ class MicroBatcher:
     # ------------------------------------------------------------ hot swap
 
     def swap(self, score_fn: Callable, *, version: Any = None,
+             digest: Any = None,
              program_cache_size: Callable[[], int] | None = None) -> float:
         """Flip to a new scorer without dropping accepted traffic: pending
         requests drain on the OLD scorer (tagged ``under_swap``), then the
@@ -239,9 +301,20 @@ class MicroBatcher:
         # the old scorer's program-count probe is stale the moment we flip
         self._cache_size = program_cache_size
         old_version, self._version = self._version, version
+        self._digest = digest
         swap_ms = (self._clock() - t0) * 1000.0
         self.swaps.append({"version": version, "from_version": old_version,
                            "drained_rows": drained, "swap_ms": swap_ms})
+        _trace.emit("frontend", "swap", replica=self.replica,
+                    version=version, digest=digest,
+                    from_version=old_version, drained_rows=drained,
+                    swap_ms=round(swap_ms, 3))
+        if self._request_log is not None:
+            # replay skips non-request events; the swap marks which
+            # traffic each version served
+            self._request_log.append({
+                "event": "serve_swap", "version": version,
+                "from_version": old_version})
         if self._logger is not None:
             self._logger.log(event="serve_swap", version=version,
                              from_version=old_version, drained_rows=drained,
@@ -277,50 +350,25 @@ class MicroBatcher:
         return out
 
 
-def refuse_unported_serving(config) -> None:
-    """Raise ``NotImplementedError`` for every serving knob whose code path
-    the port does not have yet, naming the ``ROADMAP.md`` item."""
-    spec = config.serving
-    checks = [
-        (spec.replicas > 1, f"[serving] replicas = {spec.replicas} (the fleet)",
-         "15b"),
-        (spec.log_features, "[serving] log_features = true (the request log)",
-         "16"),
-        (config.telemetry.stall_timeout_s > 0,
-         "telemetry.stall_timeout_s > 0 (the serving watchdog)", "16"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to tdfo_tpu_torch yet (ROADMAP.md "
-                f"Queue A item {item})")
-
-
-def serve_from_config(config, *, log_dir: str | Path | None = None,
-                      n_requests: int = 64, device="cuda") -> dict[str, Any]:
-    """The ``python -m tdfo_tpu_torch.launch serve`` body: restore the
-    newest checkpoint (a fresh init when there is none), export the serving
-    bundle, build the scorer on ``device``, run a synthetic ragged request
-    trace through the micro-batcher, then build a corpus and run one
-    retrieval round (TwoTower: the item tower's corpus queried by the user
-    tower; Bert4Rec: the output head queried by ``[h, 1]``).  The seq family
-    ships ragged histories folded into eval windows
-    (:func:`~tdfo_tpu_torch.serve.seq_scoring.history_window`) with a
-    1 + 100 candidate panel.  Returns the stats dict."""
+def restore_and_export(config, *, log_dir=None, device="cuda"):
+    """The serving entry points' start: build the trainer (it refuses knobs
+    the port lacks), arm ``[faults]``, restore the newest checkpoint (a
+    fresh init without one) and export the serving bundle to
+    ``<log_dir or checkpoint_dir>/serving_bundle`` (under a mesh rank 0
+    writes the gathered single-device state, behind a barrier).  Returns
+    ``(trainer, step, bundle dir, categorical columns, continuous
+    columns)``."""
     import torch.distributed as dist
 
     from tdfo_tpu_torch.core.config import serving_model_kind
     from tdfo_tpu_torch.interop import flax_params_from_module
-    from tdfo_tpu_torch.serve.export import export_bundle, load_bundle
-    from tdfo_tpu_torch.serve.scoring import make_scorer
+    from tdfo_tpu_torch.serve.export import export_bundle
     from tdfo_tpu_torch.train.trainer import Trainer, _ctr_columns
+    from tdfo_tpu_torch.utils import faults as _faults
 
-    kind = serving_model_kind(config)  # refuses unknown models
-    refuse_unported_serving(config)
-    trainer = Trainer(config, log_dir=log_dir, device=device)
+    trainer = Trainer(config, log_dir=log_dir, device=device, serving=True)
+    _faults.configure(config.faults, config.checkpoint_dir or None)
     step, state = trainer.restore_latest()
-    mesh = trainer.mesh
-
     out_dir = Path(log_dir or config.checkpoint_dir or ".") / "serving_bundle"
     sd = trainer.single_device_state()  # None off rank 0 under a mesh
     if sd is None:
@@ -331,7 +379,7 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
                                                            sd["backbone"]))
     else:
         kwargs = dict(params=flax_params_from_module(state.model, sd["params"]))
-    if kind == "seq":
+    if serving_model_kind(config) == "seq":
         cat_cols: tuple[str, ...] = ()
         cont_cols: tuple[str, ...] = ()
         kwargs["seq"] = {"max_len": config.max_len, "n_heads": config.n_heads,
@@ -344,13 +392,50 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
                       size_map=config.size_map, step=step,
                       mixed_precision=config.mixed_precision,
                       platform=trainer.device.type, **kwargs)
-    if mesh is not None:
+    if trainer.mesh is not None:
         dist.barrier()  # the bundle is written
+    return trainer, step, out_dir, cat_cols, cont_cols
+
+
+def serve_from_config(config, *, log_dir: str | Path | None = None,
+                      n_requests: int = 64, device="cuda") -> dict[str, Any]:
+    """The ``python -m tdfo_tpu_torch.launch serve`` body: restore the
+    newest checkpoint (a fresh init when there is none), export the serving
+    bundle, build the scorer on ``device``, run a synthetic ragged request
+    trace through the micro-batcher, then build a corpus and run one
+    retrieval round (TwoTower: the item tower's corpus queried by the user
+    tower; Bert4Rec: the output head queried by ``[h, 1]``).  The seq family
+    ships ragged histories folded into eval windows
+    (:func:`~tdfo_tpu_torch.serve.seq_scoring.history_window`) with a
+    1 + 100 candidate panel.  With ``[serving] replicas > 1`` the trace is
+    served round-robin by an in-process fleet of that many replicas
+    following a bundle store (``<log_dir>/bundle_store``) into which the
+    bundle is ingested.  Returns the stats dict."""
+    import torch.distributed as dist
+
+    from tdfo_tpu_torch.core.config import serving_model_kind
+    from tdfo_tpu_torch.serve.export import load_bundle
+    from tdfo_tpu_torch.serve.scoring import make_scorer
+
+    kind = serving_model_kind(config)  # refuses unknown models
+    trainer, step, out_dir, cat_cols, cont_cols = restore_and_export(
+        config, log_dir=log_dir, device=device)
+    mesh = trainer.mesh
     bundle = load_bundle(out_dir)
     scorer = make_scorer(bundle, mesh=mesh, device=trainer.device)
 
     rng = np.random.default_rng(config.seed)
     spec = config.serving
+    base = Path(log_dir or config.checkpoint_dir or ".")
+    fleet_mode = spec.replicas > 1
+    # under a mesh only rank 0 writes (the store, the request logs)
+    writer = trainer.rank == 0
+    request_log = None
+    if spec.log_features and not fleet_mode and writer:
+        from tdfo_tpu_torch.data.replay import RequestLog
+
+        request_log = RequestLog(base / "request_log",
+                                 segment_bytes=spec.log_segment_bytes)
     buckets = ((spec.history_buckets or spec.buckets) if kind == "seq"
                else spec.buckets)
     hi = min(spec.max_batch, buckets[0])
@@ -372,6 +457,9 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
             requests.append((f"req{i}", {"seqs": seqs, "cands": cands}))
     else:
         vocab = _column_vocab(config, cat_cols)
+        # labels from their own rng: logging features never perturbs the
+        # request trace
+        label_rng = np.random.default_rng(config.seed + 1)
         for i in range(n_requests):
             n = int(rng.integers(1, hi + 1))
             batch: dict[str, np.ndarray] = {
@@ -379,18 +467,69 @@ def serve_from_config(config, *, log_dir: str | Path | None = None,
                 for c in cat_cols}
             for c in cont_cols:
                 batch[c] = rng.random(n, dtype=np.float32)
+            if spec.log_features:
+                batch["label"] = label_rng.integers(0, 2, size=n, dtype=np.int8)
             requests.append((f"req{i}", batch))
 
-    t0 = time.perf_counter()
-    mb = MicroBatcher(
-        scorer.score, buckets=buckets, max_batch=spec.max_batch,
-        batch_deadline_ms=spec.batch_deadline_ms, logger=trainer.logger,
-        program_cache_size=scorer.score_cache_size,
-        max_queue=spec.max_queue, shed_policy=spec.shed_policy)
-    mb.run(requests)
-    wall = time.perf_counter() - t0
-    stats: dict[str, Any] = mb.stats()
-    stats["programs"] = scorer.score_cache_size()
+    if fleet_mode:
+        from tdfo_tpu_torch.serve.fleet import ServingFleet
+        from tdfo_tpu_torch.serve.swap import BundleStore
+
+        store = BundleStore(base / "bundle_store")
+        if writer and store.recover() is None:
+            store.ingest_full(out_dir)
+        if mesh is not None:
+            dist.barrier()  # the store holds the bundle
+        flt = ServingFleet(
+            store, config, mesh=mesh, logger=trainer.logger,
+            request_log_root=(base / "request_log"
+                              if spec.log_features and writer else None),
+            device=trainer.device)
+        flt.sync()
+        t0 = _trace.clock()
+        flt.run(requests)
+        wall = _trace.elapsed_s(t0)
+        reps = [r for r in flt.alive() if r.batcher is not None]
+        lat = np.asarray([ms for r in reps for ms in r.batcher.latencies_ms],
+                         np.float64)
+        stats: dict[str, Any] = {
+            "requests": int(lat.size),
+            "batches": sum(len(r.batcher.shipped) for r in reps),
+            "p50_ms": float(np.percentile(lat, 50)) if lat.size else 0.0,
+            "p99_ms": float(np.percentile(lat, 99)) if lat.size else 0.0,
+            "shed": sum(len(r.batcher.shed) for r in reps),
+            "swaps": sum(len(r.batcher.swaps) for r in reps),
+            "replicas": len(reps),
+            "version": store.current_version(),
+        }
+        if spec.log_features and writer:
+            stats["request_log"] = str(base / "request_log")
+        flt.close()
+    else:
+        watchdog = None
+        if config.telemetry.stall_timeout_s > 0 and writer:
+            from tdfo_tpu_torch.obs.watchdog import StallWatchdog
+
+            watchdog = StallWatchdog(
+                base / "heartbeat_serve.jsonl",
+                config.telemetry.stall_timeout_s, label="serve",
+                rotate_bytes=config.telemetry.log_rotate_bytes).start()
+        t0 = _trace.clock()
+        mb = MicroBatcher(
+            scorer.score, buckets=buckets, max_batch=spec.max_batch,
+            batch_deadline_ms=spec.batch_deadline_ms, logger=trainer.logger,
+            program_cache_size=scorer.score_cache_size,
+            max_queue=spec.max_queue, shed_policy=spec.shed_policy,
+            watchdog=watchdog, request_log=request_log)
+        mb.run(requests)
+        wall = _trace.elapsed_s(t0)
+        if watchdog is not None:
+            watchdog.stop()
+        stats = mb.stats()
+        if request_log is not None:
+            request_log.close()
+            stats["request_log"] = str(request_log.root)
+        stats["programs"] = scorer.score_cache_size()
     stats["qps"] = stats["requests"] / wall if wall > 0 else float("inf")
     stats["bundle"] = str(out_dir)
     stats["step"] = int(step)

@@ -1,8 +1,11 @@
-"""Evaluation metrics — port of ``binary_auc``, ``AUC`` and
-``recalls_and_ndcgs_for_ks`` from ``tdfo_tpu/train/metrics.py``.
+"""Evaluation metrics — port of ``binary_auc``, ``ranking_auc``, ``AUC``
+and ``recalls_and_ndcgs_for_ks`` from ``tdfo_tpu/train/metrics.py``.
 
 * :func:`binary_auc` — exact ROC-AUC (Mann-Whitney U, tie-aware), host-side
   numpy; copied unchanged.
+* :func:`ranking_auc` — per-row AUC of ``[N, C]`` candidate panels
+  (column 0 the positive), the serving fleet's heartbeat for sequence
+  bundles; copied unchanged.
 * :class:`AUC` — streaming thresholded ROC-AUC (``tf.keras.metrics.AUC``
   parity, 200 bins): per-class histograms of sigmoid scores kept as tensors
   on the scores' device, so folding a batch never syncs to the host.
@@ -10,9 +13,6 @@
   (Bert4Rec eval); the top-k takes the lower candidate index first on tied
   scores, as ``jax.lax.top_k`` does (a stable descending sort: ``torch.topk``
   promises no order among ties).
-
-``ranking_auc`` belongs to the serving slice (``ROADMAP.md`` Queue A item
-15).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 
 from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
 
-__all__ = ["binary_auc", "AUC", "recalls_and_ndcgs_for_ks"]
+__all__ = ["binary_auc", "ranking_auc", "AUC", "recalls_and_ndcgs_for_ks"]
 
 
 def binary_auc(labels, scores, weights=None) -> float:
@@ -44,6 +44,20 @@ def binary_auc(labels, scores, weights=None) -> float:
     below_or_eq = np.searchsorted(neg_sorted, pos, side="right")
     u = below.sum() + 0.5 * (below_or_eq - below).sum()
     return float(u / (len(pos) * len(neg)))
+
+
+def ranking_auc(scores) -> float:
+    """AUC over sampled-candidate panels: ``scores`` is [N, C] with column 0
+    the positive and columns 1.. the negatives.  Per row, the positive is
+    ranked against its own negatives (win 1, tie 0.5) and rows average, so
+    per-user score-scale shifts cannot move it."""
+    s = np.asarray(scores, np.float64)
+    if s.ndim != 2 or s.shape[1] < 2:
+        raise ValueError(
+            f"ranking_auc needs [N, C>=2] candidate panels, got {s.shape}")
+    pos, neg = s[:, :1], s[:, 1:]
+    wins = (pos > neg).sum(axis=1) + 0.5 * (pos == neg).sum(axis=1)
+    return float(np.mean(wins / neg.shape[1]))
 
 
 @dataclass(frozen=True)

@@ -129,6 +129,7 @@ from tdfo_tpu_torch.ops.sparse import (
     dedupe_rows_and_lines,
 )
 from tdfo_tpu_torch.parallel.collectives import (
+    SeqGather,
     all_gather_cat,
     all_reduce_,
     all_reduce_tensors,
@@ -320,7 +321,8 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
                            forward: Callable, *, mode: str = "gspmd",
                            with_aux: bool = False,
                            dedup_lookup: bool = False,
-                           batch_transform: Callable | None = None):
+                           batch_transform: Callable | None = None,
+                           tensor_parallel: bool = False):
     """Build the step ``(state, batch, generator=None) -> (state, loss)``
     (``(state, (loss, aux))`` with ``with_aux``); ``forward(embs, batch)``
     returns the loss (or ``(loss, aux)``).  A forward that also takes a
@@ -333,9 +335,14 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
     serves (``[B]`` CTR ids, ``[B, T]`` item sequences), after
     ``batch_transform`` (run first, on the device: the jagged path's
     ``(values, lengths) -> [B, T]``).  Returned losses are detached device
-    tensors: reading one is the caller's (only) host sync."""
+    tensors: reading one is the caller's (only) host sync.
+    ``tensor_parallel``: the forward is a Megatron backbone whose model
+    ranks must see the same rows; under ``alltoall`` each rank's looked-up
+    share is gathered over the model axis before it (see
+    :func:`_build_step`)."""
     bg, train = _build_step(coll, forward, mode=mode, with_aux=with_aux,
-                            dedup_lookup=dedup_lookup)
+                            dedup_lookup=dedup_lookup,
+                            tensor_parallel=tensor_parallel)
 
     def step(state: SparseTrainState, batch, generator=None):
         if batch_transform is not None:
@@ -346,11 +353,22 @@ def make_sparse_train_step(coll: ShardedEmbeddingCollection,
 
 
 def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
-                mode: str, with_aux: bool, dedup_lookup: bool):
+                mode: str, with_aux: bool, dedup_lookup: bool,
+                tensor_parallel: bool = False):
     """``(batch group, train)``: ``train(state, share, generator=None,
     grouped_ctx=None)`` runs one step on this rank's share of a
     (transformed) batch; ``grouped_ctx`` is the grouped exchange's
-    input-dist of that share when the caller issued it already."""
+    input-dist of that share when the caller issued it already.
+
+    Tensor parallelism under ``alltoall``: the lookup and the sparse update
+    run on this rank's share (the batch group, data x model), but the
+    Megatron forward needs the data-local batch on every model rank.  So
+    the share's rows and looked-up vectors are gathered over the model axis
+    before the forward (``SeqGather``: its backward keeps this rank's block
+    of the gradient, which every model rank holds whole after the
+    backbone's own reductions), and the loss, the dense gradients, the
+    dropout share and the masked-LM count follow the data axis alone, as
+    under ``gspmd``."""
     if mode not in ("gspmd", "psum", "alltoall"):
         raise ValueError(f"unknown lookup mode {mode!r}")
     if dedup_lookup and mode != "gspmd":
@@ -360,6 +378,10 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
             "the update cache (cache_rows > 0) composes with lookup mode "
             "'gspmd' only")
     bg = BatchGroup(coll.mesh, mode)
+    # the forward's group: the data axis alone when a Megatron backbone
+    # must see every model rank's share
+    fg = (BatchGroup(coll.mesh, "gspmd") if tensor_parallel and bg.model_split
+          else bg)
     features = list(coll.features())
     takes_gen = "generator" in inspect.signature(forward).parameters
     takes_group = "batch_group" in inspect.signature(forward).parameters
@@ -563,18 +585,24 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                     coll.lookup(state.tables, ids, mode=mode), features)
                 ctx = {}
         embs = {f: v.requires_grad_(True) for f, v in gathered.items()}
-        kw = {"generator": bg.share(generator)} if takes_gen else {}
+        kw = {"generator": fg.share(generator)} if takes_gen else {}
         if takes_group:
-            kw["batch_group"] = bg
-        out = forward(embs, batch, **kw)
+            kw["batch_group"] = fg
+        if fg is bg:
+            out = forward(embs, batch, **kw)
+        else:  # the data-local batch on every model rank
+            mg = axis_group(coll.mesh, MODEL_AXIS)
+            out = forward({f: SeqGather.apply(v, mg, 0) for f, v in embs.items()},
+                          {k: all_gather_cat(v, mg) for k, v in batch.items()},
+                          **kw)
         loss, aux = out if with_aux else (out, None)
         params = list(state.backbone.parameters())
-        # the batch group's mean: each rank's share weighs 1 / G
-        loss_g = loss if bg.size == 1 else loss / bg.size
+        # the forward group's mean: each rank's share weighs 1 / G
+        loss_g = loss if fg.size == 1 else loss / fg.size
         grads = torch.autograd.grad(loss_g, params + [embs[f] for f in features])
         dense = list(grads[:len(params)])
-        if bg.size > 1:
-            dense = all_reduce_tensors(dense, bg.group)
+        if fg.size > 1:
+            dense = all_reduce_tensors(dense, fg.group)
         for p, g in zip(params, dense):
             p.grad = g
         state.optimizer.step()
@@ -680,8 +708,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                 opt.dense_update(state.tables[hname], state.slots[hname],
                                  hp_all, g_all, sr_key=_sr_key(hname))
         state.step += 1
-        loss = bg.mean(loss.detach())
-        return state, ((loss, bg.join(aux.detach())) if with_aux else loss)
+        loss = fg.mean(loss.detach())
+        return state, ((loss, fg.join(aux.detach())) if with_aux else loss)
 
     return bg, train
 
@@ -707,7 +735,8 @@ class PipelinedSparseStep(NamedTuple):
 def make_pipelined_sparse_train_step(coll: ShardedEmbeddingCollection,
                                      forward: Callable, *,
                                      with_aux: bool = False,
-                                     batch_transform: Callable | None = None):
+                                     batch_transform: Callable | None = None,
+                                     tensor_parallel: bool = False):
     """The cross-batch pipelined step over the grouped exchange (reference
     ``make_pipelined_sparse_train_step``, torchrec
     ``TrainPipelineSparseDist``): the grouped input-dist reads no table, so
@@ -734,7 +763,7 @@ def make_pipelined_sparse_train_step(coll: ShardedEmbeddingCollection,
             "the update cache (cache_rows > 0) does not compose with the "
             "pipelined sparse step (it requires lookup mode 'gspmd')")
     bg, train = _build_step(coll, forward, mode="alltoall", with_aux=with_aux,
-                            dedup_lookup=False)
+                            dedup_lookup=False, tensor_parallel=tensor_parallel)
     grouped_feats = tuple(coll.grouped_features(dict.fromkeys(coll.features())))
 
     def prime(batch):

@@ -80,8 +80,9 @@ is not checkpointed: a resume primes on the batch the carry held); the
 dense TwoTower regime is data-parallel.  Bert4Rec takes the same table
 layouts and lookups, ``[mesh] seq`` with ``attn = "ring" | "ring_flash"``
 (the seq ranks read the same rows) and ``tensor_parallel`` (the Megatron
-split over the model axis; its shards and their AdamW moments gathered
-into checkpoints), its masked-LM loss normalised by the global batch's
+split over the model axis, under every lookup mode: under ``alltoall`` the
+model ranks' shares are gathered before the backbone; its shards and their
+AdamW moments gathered into checkpoints), its masked-LM loss normalised by the global batch's
 label count and its eval sums taken over the ranks that split the batch.  Train losses,
 the train AUC and every eval metric are the global batch's on every rank
 (histograms, sums and counts summed over the data axis); eval tops each
@@ -206,15 +207,27 @@ def _check_cache_overflow(overflow: dict, mesh=None) -> None:
             "rows) or lower flush_every.")
 
 
+# [faults] triggers the trainer does not act on yet (the serving and
+# request-log triggers act in serve/ and data/replay.py)
+_TRAINING_FAULTS = ("kill_at_step", "nan_at_step", "fail_io_nth",
+                    "stall_at_step", "stall_seconds", "kill_during_replay",
+                    "kill_between_stages", "corrupt_candidate",
+                    "regress_auc_at_cycle", "kill_during_canary",
+                    "slow_canary_at_cycle")
+
+
 def refuse_unported(cfg: Config, world: int | None = None,
-                    device="cuda", backend: str | None = None) -> None:
+                    device="cuda", backend: str | None = None, *,
+                    serving: bool = False) -> None:
     """Raise ``NotImplementedError`` for every knob value whose code path the
     port does not have yet, naming the ``ROADMAP.md`` item that ports it.
     ``world``: the ranks of the process group (default: the running one's,
     1 without one).  ``device`` and ``backend`` (default: the running
     group's): the dense regime's multi-step runs as CUDA-graph replays on
     the card, which capture collectives only over NCCL, so several ranks
-    under gloo refuse it (a ``ValueError``)."""
+    under gloo refuse it (a ``ValueError``).  ``serving``: the trainer
+    only restores state for a serving entry point, whose watchdog honours
+    ``telemetry.stall_timeout_s``."""
     import torch.distributed as dist
 
     if world is None:
@@ -231,12 +244,14 @@ def refuse_unported(cfg: Config, world: int | None = None,
             "and cannot be captured (run one rank per card over NCCL, or "
             "steps_per_execution = 1)")
     tele = cfg.telemetry
+    armed = [f for f in _TRAINING_FAULTS if getattr(cfg.faults, f)]
     checks = [
         (bool(cfg.planner.plan), "planner.plan", 14),
         (cfg.write_format != "parquet", f"write_format = {cfg.write_format!r}", 16),
-        (cfg.faults.any(), "[faults] injection", 16),
+        (bool(armed), f"[faults] {', '.join(armed)}", 16),
         (cfg.tensorboard, "tensorboard = true", 16),
-        (tele.counters or tele.events or tele.trace or tele.stall_timeout_s > 0
+        (tele.counters or tele.events or tele.trace
+         or (tele.stall_timeout_s > 0 and not serving)
          or tele.log_rotate_bytes > 0, "[telemetry] knobs", 16),
     ]
     for bad, what, item in checks:
@@ -361,12 +376,12 @@ class Trainer:
     _METRIC_KS = (10, 20, 50)
 
     def __init__(self, config: Config, *, log_dir: str | Path | None = None,
-                 device="cuda"):
+                 device="cuda", serving: bool = False):
         import torch.distributed as dist
 
         from tdfo_tpu_torch.core.mesh import _resolve_sizes, make_mesh
 
-        refuse_unported(config, device=device)
+        refuse_unported(config, device=device, serving=serving)
         if config.tensor_parallel and config.model != "bert4rec":
             raise ValueError(
                 "tensor_parallel = true splits bert4rec's transformer; "
@@ -741,28 +756,23 @@ class Trainer:
                     "train.pipeline_overlap")
             self._pipe = make_pipelined_sparse_train_step(
                 self.coll, bert4rec_sparse_forward(self.backbone),
-                batch_transform=transform)
+                batch_transform=transform,
+                tensor_parallel=cfg.tensor_parallel)
         else:
             self.train_step = make_sparse_train_step(
                 self.coll, bert4rec_sparse_forward(self.backbone),
                 mode=cfg.lookup_mode, dedup_lookup=cfg.dedup_lookup,
-                batch_transform=transform)
+                batch_transform=transform,
+                tensor_parallel=cfg.tensor_parallel)
         self._set_patterns("parquet_bert4rec")
         self._eval_schema = {"seqs": np.int32, "cands": np.int32}
         self._eval_rename = lambda raw: {"seqs": raw["eval_seqs"],
                                          "cands": raw["candidate_items"]}
 
     def _refuse_bert4rec_knobs(self) -> None:
-        """Bert4Rec's knobs that do not compose, by name: hot/cold storage
-        (a CTR table form), and under a mesh tensor parallelism with the
-        alltoall lookup."""
+        """Bert4Rec's knob that does not compose, by name: hot/cold
+        storage (a CTR table form)."""
         cfg = self.config
-        if (self.mesh is not None and cfg.tensor_parallel
-                and cfg.lookup_mode == "alltoall"):
-            raise ValueError(
-                "tensor_parallel composes with lookup_mode \"gspmd\" or "
-                "\"psum\": alltoall splits each batch over the model ranks, "
-                "which tensor parallelism needs to hold the same rows")
         if cfg.embeddings.hot_vocab > 0:
             raise ValueError(
                 "embeddings.hot_vocab splits the CTR tables the CTR ETL lists "
@@ -1178,17 +1188,24 @@ class Trainer:
         from tdfo_tpu_torch.train.sparse_step import BatchGroup
 
         mode = self.config.lookup_mode
-        bg = BatchGroup(self.mesh, mode)  # the ranks whose rows differ
+        bg = BatchGroup(self.mesh, mode)  # the ranks whose lookups differ
+        # a Megatron backbone needs the data-local batch on every model
+        # rank: alltoall's shares are joined before it
+        join = self.config.tensor_parallel and bg.model_split
+        fg = BatchGroup(self.mesh, "gspmd") if join else bg
         acc = {"w_sum": torch.zeros((), device=self.device)}
         for k in self._METRIC_KS:
             acc[f"Recall@{k}"] = torch.zeros((), device=self.device)
             acc[f"NDCG@{k}"] = torch.zeros((), device=self.device)
         for batch in self._eval_batches(pattern):
             batch = bg.split(batch)
+            emb = self.coll.lookup(self.state.tables, {"item": batch["seqs"]},
+                                   mode=mode)["item"]
+            if join:
+                emb = bg.join(emb)
+                batch = {k: bg.join(batch[k]) for k in ("seqs", "cands", "_weight")}
             w = batch["_weight"]
-            embs = self.coll.lookup(self.state.tables, {"item": batch["seqs"]},
-                                    mode=mode)
-            logits = self.backbone(embs["item"], key_padding_mask(batch["seqs"]))
+            logits = self.backbone(emb, key_padding_mask(batch["seqs"]))
             scores = score_candidates(logits, batch["cands"],
                                       vocab_split=self.backbone.vocab_tp)
             labels = torch.zeros_like(scores)
@@ -1198,8 +1215,8 @@ class Trainer:
             acc["w_sum"] += w.sum()
             for k, v in m.items():
                 acc[k] += v * w.sum()
-        if bg.size > 1:  # the global batch's sums
-            acc = dict(zip(acc, all_reduce_tensors(list(acc.values()), bg.group)))
+        if fg.size > 1:  # the global batch's sums
+            acc = dict(zip(acc, all_reduce_tensors(list(acc.values()), fg.group)))
         w_sum = max(float(acc.pop("w_sum")), 1.0)
         metrics = {prefix + k: float(v) / w_sum for k, v in acc.items()}
         self.logger.log(epoch=epoch, **metrics)

@@ -1,9 +1,10 @@
 """Retryable I/O: exponential backoff + jitter, bounded attempts, JSONL log.
 
-Port of ``tdfo_tpu/utils/retry.py`` (the loader calls :func:`retry_call`).
-The port has no fault injector yet (``utils/faults.py``), so the
-``fail_io_nth`` hook is absent, and the failure log is not rotated.  The
-reference's docstring follows.
+Port of ``tdfo_tpu/utils/retry.py`` (the loader, the bundle store and the
+wire's connects call :func:`retry_call`).  An armed ``[faults]
+fail_io_nth`` makes the Nth protected call raise an injected ``OSError``
+once (``utils/faults.py``; the trainer still refuses the trigger).  The
+failure log is not rotated.  The reference's docstring follows.
 
 The reference stacks assume I/O never fails mid-run (orbax writes, parquet
 opens, TFRecord scans all raise straight through and kill the job).  On
@@ -106,8 +107,13 @@ def retry_call(
     retry_on = tuple(retry_on)
     rng = rng or random.Random()
 
+    from tdfo_tpu_torch.utils import faults
+
     for attempt in range(attempts):
         try:
+            inj = faults.active()
+            if inj is not None:
+                inj.io_op(description)  # may raise an injected OSError
             return fn(*args, **kwargs)
         except retry_on as e:
             final = attempt == attempts - 1

@@ -6,8 +6,9 @@ dense TwoTower (the quickstart regime) and DLRM-Criteo.  The stats dict
 carries the keys the reference's ``serve_from_config`` returns for the
 same toml (``requests``, ``batches``, ``p50_ms``, ``p99_ms``, ``shed``,
 ``swaps``, ``programs``, ``qps``, ``bundle``, ``step`` and ``retrieved``).
-Serving knobs whose paths are not ported refuse, naming their item, and
-the command defaults to the card."""
+The serving knobs that used to refuse (``[serving] replicas > 1``,
+``log_features``, ``telemetry.stall_timeout_s``) pass, and serve runs
+through them; the command defaults to the card."""
 
 import json
 import math
@@ -149,13 +150,20 @@ def test_serve_dlrm_criteo_fresh_init(tmp_path):
     (None, {"stall_timeout_s": 5.0}, "16"),
 ])
 def test_unported_serving_knobs_refuse(goodreads, serving, telemetry, item):
-    from tdfo_tpu_torch.serve.frontend import refuse_unported_serving
+    """The three serving knobs that refused (naming ``item``) are ported:
+    the fleet, the request log and the serving watchdog pass the serving
+    entry's check; training still refuses the watchdog knob by its item."""
+    from tdfo_tpu_torch.train.trainer import refuse_unported
 
     cfg = read_configs(_toml(goodreads, name="refuse.toml", serving=serving))
     if telemetry:
         cfg = cfg.replace(telemetry=cfg.telemetry.__class__(**telemetry))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        refuse_unported_serving(cfg)
+    refuse_unported(cfg, device="cpu", serving=True)
+    if telemetry:
+        with pytest.raises(NotImplementedError, match="item 16"):
+            refuse_unported(cfg, device="cpu")
+    else:
+        refuse_unported(cfg, device="cpu")
 
 
 def test_serve_defaults_to_the_card(goodreads):

@@ -697,7 +697,8 @@ def case_b4r_steps(case):
            if case["cfg"].get("dropout", 0.1) else None)
     losses = []
     if case.get("pipelined"):
-        pipe = make_pipelined_sparse_train_step(coll, fwd)
+        pipe = make_pipelined_sparse_train_step(coll, fwd,
+                                                tensor_parallel=case.get("tp", False))
         carry = pipe.prime(batches[0])
         for b in batches[1:]:
             state, loss, carry = pipe.step(state, b, carry, gen(state.step))
@@ -706,7 +707,8 @@ def case_b4r_steps(case):
         losses.append(float(loss))
     else:
         step = make_sparse_train_step(coll, fwd, mode=case.get("mode", "gspmd"),
-                                      dedup_lookup=case.get("dedup", False))
+                                      dedup_lookup=case.get("dedup", False),
+                                      tensor_parallel=case.get("tp", False))
         for b in batches:
             state, loss = step(state, b, gen(state.step))
             losses.append(float(loss))
