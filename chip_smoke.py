@@ -373,13 +373,43 @@ Phases (each prints its lines; any failure raises, so the script never exits
    requests, every one answered.
 36. loadgen_cli — ``launch loadgen --knee-steps 2`` on the same toml:
    closed loop at concurrency 1 and 2, every request completed, a knee.
+37. online — the online loop (``train/online.py``) at phase 3's width
+   (SIZE_MAP, d = 64, B = 8192, adam + AdamW lr 3e-4 wd 1e-4) over
+   request logs written by ``RequestLog`` with rotation on (ragged
+   labelled requests of 1-256 rows).  (a) plain, 3 cycles of 2 steps on
+   one MicroBatcher: cycle 1's first step through ``fat_line_update``
+   against the same step with the plain version in its place (touched
+   lines rtol 1e-6 / atol 1e-7, untouched bitwise); after each cycle the
+   card's tables against the port's CPU training of the same replayed
+   batches (rtol 1e-4, atol 1e-6) and the swapped MicroBatcher's probe
+   against a fresh scorer on the new bundle, bitwise; each stage's ms and
+   the delta's bytes.  (b) a child process killed by
+   ``kill_between_stages`` at cycle 2's export and restarted: bundle
+   digest, replay cursor and probe answers bitwise (a)'s.  (c) gated, 3
+   cycles over a 2-replica ServingFleet with ``regress_auc_at_cycle = 2``:
+   promote, rollback, promote; ``rejections.json``; both replicas bitwise
+   on the last good version after each verdict.  (d) Bert4Rec at phase
+   7's width with flash attention, 2 plain cycles.  (e) ``[telemetry]
+   counters``: a TwoTower step with counters off records as many
+   ``torch.profiler`` ops as one with every emit site stripped; the dense
+   step's counters as CUDA-graph outputs (``steps_per_execution = 2``)
+   equal an eager trainer's bitwise over 3 chunks.  Launches counted over
+   (a)'s cycles (``fat_line_update``, ``segment_sum``) and (d)'s (the
+   flash kernels) into the kernels line as ``launches_online``.
+38. online_cli — ``synth -> preprocess-ctr -> serve`` on ``config.toml``
+   (TwoTower d = 16 with ``model_parallel = true``, ``fused_table_threshold
+   = 0``: packed fat lines) with ``[serving] log_features``, then ``launch
+   online`` over the served requests' log with ``[telemetry] trace`` and
+   ``launch obs`` over its trace (launches as ``launches_online_cli``).
 
 Every phase prints ``phase <name>: start`` and ``phase <name>: ok in <s>
 s`` around itself, so a failing run names its phase.  The CLI journeys
-(``JOURNEYS``: phases 19, 25, 28, 30, the toml run of phase 31, 35 and
-36) run side by side, each in a process of its own, after phase 31 and
-beside phase 29, with phases 32 and 33 one after the other in a thread
-beside phase 29 too; they print their output when all have ended.
+and the online phase (``JOURNEYS``: phases 19, 25, 28, 30, the toml run
+of phase 31, 35-38) run side by side, each in a process of its own, after
+phase 31 and beside phase 29, with phases 32 and 33 one after the other
+in a thread beside phase 29 too; they print their output when all have
+ended, and the online phases hand their launch counts back through a
+JSON file each.
 
 ``--phases profile`` / ``profile_b4r`` / ``profile_dlrm`` /
 ``profile_bf16`` / ``profile_dlrm_bf16`` / ``profile_dense`` (not in the
@@ -490,7 +520,8 @@ DEFAULT_PHASES = ("build", "oracle", "timing", "segsum", "main", "cli", "flash_o
                   "int8_fused", "dlrm_int8_cache", "dlrm_hot_cold",
                   "criteo_int8_cli", "serve_main", "serve_seq_main", "serve_cli",
                   "dist_main", "dist_cli", "dist_seq", "seq_cli", "dist_dense",
-                  "dist_serve", "fleet", "serve_fleet_cli", "loadgen_cli")
+                  "dist_serve", "fleet", "serve_fleet_cli", "loadgen_cli",
+                  "online", "online_cli")
 
 
 def say(*parts) -> None:
@@ -6789,6 +6820,597 @@ def phase_dist_serve(torch, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- online
+# ROADMAP item 16 (the online loop, train/online.py) at the headline
+# TwoTower DMP width (SIZE_MAP, d = 64, B = 8192, adam + AdamW lr 3e-4,
+# wd 1e-4) and configs/bert4rec.toml's (phase 7's model): request logs
+# written by the real RequestLog with rotation on, replayed through the
+# loop's own ReplayConsumer, trained, checkpointed, exported, published
+# and swapped.
+ONLINE_CYCLES = 3              # plain (a) and gated (c) cycles
+ONLINE_STEPS = 2               # steps_per_cycle
+ONLINE_SEQ_CYCLES = 2          # the seq arm (d)
+ONLINE_SEGMENT_BYTES = 1 << 20  # request-log rotation
+ONLINE_MAX_ROWS = 256          # rows of the largest logged request
+ONLINE_PROBE = 8               # requests of the probe after each swap
+ONLINE_KILL_STAGE = 10         # stage call 10: cycle 2's export boundary
+# the second bucket: the gated heartbeats score the shadow slice (one
+# batch) directly on each replica's scorer, a program of its own
+ONLINE_SERVING = {"buckets": [ONLINE_MAX_ROWS, BATCH], "max_batch": ONLINE_MAX_ROWS,
+                  "batch_deadline_ms": 0.0,
+                  "history_buckets": [ONLINE_MAX_ROWS]}
+ONLINE_GATED = {"canary_cycles": 1, "canary_fraction": 0.5,
+                "max_auc_regression": 0.3, "shadow_eval_batches": 1}
+
+
+def _online_ctr_log(root: Path, n_batches: int, seed: int) -> Path:
+    """A request log of ``n_batches`` training batches plus a sub-batch
+    tail: ragged requests of 1-``ONLINE_MAX_ROWS`` rows over SIZE_MAP's
+    vocabularies, labels ``avg_rating > 0.5`` (so the canary skew fault,
+    which serves ``-avg_rating``, craters held-out AUC)."""
+    from tdfo_tpu_torch.data.replay import RequestLog
+
+    log = RequestLog(root, segment_bytes=ONLINE_SEGMENT_BYTES)
+    rng = np.random.default_rng(seed)
+    total = 0
+    while total < n_batches * BATCH + 7:
+        n = int(rng.integers(1, ONLINE_MAX_ROWS + 1))
+        h = make_host_batch(rng, n)
+        feats = {c: h[c].tolist() for c in FLEET_CATS}
+        for c in FLEET_CONTS:
+            feats[c] = [round(float(v), 6) for v in h[c]]
+        feats["label"] = [int(v > 0.5) for v in feats["avg_rating"]]
+        log.append({"event": "serve_request", "request": f"r{total}", "rows": n,
+                    "outcome": "ok", "features": feats})
+        total += n
+    log.close()
+    return root
+
+
+def _online_seq_log(root: Path, n_batches: int, seed: int) -> Path:
+    """Eval windows (``history_window``, MASK last) with 1 + 100 candidate
+    panels over phase 7's catalogue."""
+    from tdfo_tpu_torch.data.replay import RequestLog
+    from tdfo_tpu_torch.serve.seq_scoring import history_window
+
+    log = RequestLog(root, segment_bytes=ONLINE_SEGMENT_BYTES)
+    rng = np.random.default_rng(seed)
+    n_items, t_len = B4R["n_items"], B4R["max_len"]
+    total = 0
+    while total < n_batches * B4R_BATCH + 3:
+        n = int(rng.integers(1, 64))
+        seqs = [history_window(rng.integers(1, n_items + 1,
+                                            size=int(rng.integers(1, 2 * t_len))),
+                               n_items=n_items, max_len=t_len).tolist()
+                for _ in range(n)]
+        cands = rng.integers(1, n_items + 1, size=(n, 101)).tolist()
+        log.append({"event": "serve_request", "request": f"s{total}", "rows": n,
+                    "outcome": "ok", "features": {"seqs": seqs, "cands": cands}})
+        total += n
+    log.close()
+    return root
+
+
+def online_kwargs(ck: Path, log: Path, *, seq: bool = False, **extra) -> dict:
+    """``read_configs`` keywords of an online run (JSON-able: the kill
+    drill's child reads them back)."""
+    kw = dict(checkpoint_dir=str(ck), data_dir=str(ck.parent), n_epochs=1,
+              learning_rate=LR, weight_decay=WD, log_every_n_steps=1000,
+              serving=dict(ONLINE_SERVING),
+              online={"request_log": str(log), "steps_per_cycle": ONLINE_STEPS,
+                      "max_cycles": 0})
+    if seq:
+        kw.update(model="bert4rec", model_parallel=True, size_map={
+            "n_items": B4R["n_items"]}, max_len=B4R["max_len"],
+            embed_dim=B4R["embed_dim"], n_heads=B4R["n_heads"],
+            n_layers=B4R["n_layers"], dropout=B4R["dropout"], attn="flash",
+            per_device_train_batch_size=B4R_BATCH, seed=B4R_SEED)
+    else:
+        kw.update(model="twotower", model_parallel=True, size_map=dict(SIZE_MAP),
+                  embed_dim=DIM, sparse_optimizer="adam",
+                  per_device_train_batch_size=BATCH)
+    for k, v in extra.items():
+        kw[k] = {**kw[k], **v} if isinstance(kw.get(k), dict) else v
+    return kw
+
+
+def _seed_checkpoints(torch, kw: dict, dirs) -> object:
+    """The initial state (the config's seeded init, on the CPU) written as
+    the step-0 checkpoint under each of ``dirs``, so every lineage starts
+    from it; returns the CPU trainer holding it."""
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.train.checkpoint import CheckpointManager
+    from tdfo_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(read_configs(None, **dict(kw, checkpoint_dir="", online={})),
+                 device="cpu")
+    for d in dirs:
+        mgr = CheckpointManager(d)
+        mgr.save(0, tr.state, force=True, cursor=None, stamps=tr._ckpt_stamps)
+        mgr.close()
+    return tr
+
+
+def _ctr_probe(seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(ONLINE_PROBE):
+        h = make_host_batch(rng, int(rng.integers(1, ONLINE_MAX_ROWS + 1)))
+        out.append((f"probe{i}", {c: h[c] for c in (*FLEET_CATS, *FLEET_CONTS)}))
+    return out
+
+
+def _seq_probe(seed: int) -> list:
+    from tdfo_tpu_torch.serve.seq_scoring import history_window
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(ONLINE_PROBE):
+        n = int(rng.integers(1, 32))
+        seqs = np.stack([history_window(
+            rng.integers(1, B4R["n_items"] + 1, size=int(rng.integers(1, 40))),
+            n_items=B4R["n_items"], max_len=B4R["max_len"]) for _ in range(n)])
+        out.append((f"probe{i}", {"seqs": seqs, "cands": rng.integers(
+            1, B4R["n_items"] + 1, size=(n, 101)).astype(np.int32)}))
+    return out
+
+
+def _copy_trace(trace):
+    return [(rid, {k: np.array(v) for k, v in b.items()}) for rid, b in trace]
+
+
+def _probe_against_fresh(loop, trace, what: str) -> None:
+    """The live serving side's answers to ``trace`` against a fresh scorer
+    on the store's current bundle behind a fresh MicroBatcher: bitwise."""
+    from tdfo_tpu_torch.serve import MicroBatcher, load_bundle, make_scorer
+
+    spec = loop.config.serving
+    got = loop.probe(_copy_trace(trace))
+    sc = make_scorer(load_bundle(loop.store.current_dir()), device=loop.trainer.device)
+    buckets = (spec.history_buckets or spec.buckets) if loop.model_kind == "seq" \
+        else spec.buckets
+    want = MicroBatcher(sc.score, buckets=buckets, max_batch=spec.max_batch,
+                        batch_deadline_ms=spec.batch_deadline_ms).run(_copy_trace(trace))
+    for rid, _ in trace:
+        if not np.array_equal(np.asarray(got[rid]), np.asarray(want[rid])):
+            raise AssertionError(f"online {what}: probe {rid} differs from a fresh "
+                                 "scorer on the current bundle")
+
+
+def _fat_kernel_vs_plain(torch, tr, batch) -> tuple[float, int]:
+    """The loop's next step twice from one snapshot: through
+    ``fat_line_update`` and with the plain version in its place (the
+    sparse ops' call site patched).  Touched lines within rtol 1e-6 /
+    atol 1e-7, every untouched line bitwise unchanged in both.  The state
+    is put back; returns (max abs error, touched lines)."""
+    from tdfo_tpu_torch.ops import sparse as sp
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+
+    fats = [n for n, t in tr.state.tables.items() if t.dim() == 3]
+    snap = tr.state.snapshot()
+    before = {n: tr.state.tables[n].clone() for n in fats}
+
+    def one(fn):
+        old = sp.fat_line_update
+        sp.fat_line_update = fn
+        try:
+            tr.state, loss = tr._one_step(tr.state, batch)
+        finally:
+            sp.fat_line_update = old
+        out = {n: tr.state.tables[n].clone() for n in fats}
+        tr.state.restore(snap)
+        return out
+
+    def plain(fat, ulines, g, touched, corr, **kw):
+        return kl.fat_line_update_plain(fat, ulines, g, touched, corr, **kw)
+
+    kern, ref = one(kl.fat_line_update), one(plain)
+    worst, n_touched = 0.0, 0
+    for n in fats:
+        moved = (ref[n] != before[n]).flatten(1).any(1)
+        if not torch.equal(kern[n][~moved], before[n][~moved]):
+            raise AssertionError(f"online (a): the kernel changed untouched lines of {n}")
+        k, r = kern[n][moved].double(), ref[n][moved].double()
+        err = (k - r).abs()
+        if bool((err > 1e-7 + 1e-6 * r.abs()).any()):
+            raise AssertionError(f"online (a): {n} kernel vs plain max err "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        n_touched += int(moved.sum())
+    return worst, n_touched
+
+
+def _profiled_ops(torch, tr, batch, strip: bool) -> int:
+    """Operator calls ``torch.profiler`` records over one step of ``tr``
+    from a snapshot (the state is put back); ``strip``: every counter
+    emit site a no-op (a build with no telemetry code)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tdfo_tpu_torch.obs import counters as C
+
+    acts = [ProfilerActivity.CPU]
+    if tr.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    snap = tr.state.snapshot()
+    old = C.emit, C.enabled
+    if strip:
+        C.emit, C.enabled = (lambda name, value: None), (lambda: False)
+    try:
+        with profile(activities=acts) as prof:
+            tr.state, loss = tr._one_step(tr.state, batch)
+            float(loss)
+    finally:
+        C.emit, C.enabled = old
+        tr.state.restore(snap)
+    return sum(e.count for e in prof.key_averages())
+
+
+def _graph_counters(torch, dev: str) -> dict:
+    """``[telemetry] counters`` under ``CudaGraphStep``: the dense TwoTower
+    (phase 17's regime at SIZE_MAP, d = 64) with ``steps_per_execution =
+    2`` replays a graph whose outputs hold the counters; after each chunk
+    they equal an eager counters-on trainer's of the same steps, bitwise,
+    and move from chunk to chunk (rewritten by each replay)."""
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.train.step import CudaGraphStep
+    from tdfo_tpu_torch.train.trainer import Trainer
+
+    kw = dict(model="twotower", model_parallel=False, size_map=dict(SIZE_MAP),
+              embed_dim=DIM, learning_rate=LR, weight_decay=WD,
+              per_device_train_batch_size=BATCH, telemetry={"counters": True})
+    graph = Trainer(read_configs(None, steps_per_execution=2, **kw), device=dev)
+    eager = Trainer(read_configs(None, **kw), device=dev)
+    eager.state.load_state_dict(graph.state.state_dict())
+    if dev.startswith("cuda") and not isinstance(graph.train_step, CudaGraphStep):
+        raise AssertionError("online (e): the dense step is not a CUDA graph")
+    rng = np.random.default_rng(61)
+    seen = []
+    for chunk in range(3):
+        hosts = [make_host_batch(rng, BATCH) for _ in range(2)]
+        stack = {k: torch.from_numpy(np.stack([h[k] for h in hosts])).to(dev)
+                 for k in hosts[0]}
+        graph._train_auc = eager._train_auc = None
+        graph.state, _ = graph._multi_step(graph.state, stack)
+        for h in hosts:
+            eager.state, _ = eager._one_step(eager.state, to_device(torch, h, dev))
+        g = {k: float(v) for k, v in graph._step_ctrs.items()}
+        e = {k: float(v) for k, v in eager._step_ctrs.items()}
+        if g != e or not {"grad_norm", "param_norm", "nonfinite_logits"} <= set(g):
+            raise AssertionError(f"online (e): chunk {chunk} graph counters {g} "
+                                 f"!= eager {e}")
+        seen.append(g["grad_norm"])
+    if len(set(seen)) != len(seen):
+        raise AssertionError(f"online (e): the replayed counters did not move: {seen}")
+    return {"grad_norm": seen}
+
+
+def _stage_line(ms: dict) -> str:
+    return ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+
+
+def phase_online(torch, dev: str = "cuda") -> dict:
+    """The online phase (ROADMAP item 16): (a) the plain loop, 3 cycles of
+    2 steps on one MicroBatcher at the headline TwoTower width: after each
+    cycle the card's tables against the port's CPU training of the same
+    replayed batches (rtol 1e-4, atol 1e-6), the served probe against a
+    fresh scorer on the swapped bundle bitwise; before cycle 1 its first
+    step through ``fat_line_update`` against the same step with the plain
+    version in its place.  (b) the kill drill: a child process killed by
+    ``kill_between_stages`` at cycle 2's export boundary and restarted
+    with the same command ends on (a)'s bundle digest, replay cursor and
+    probe logits bitwise.  (c) the gated loop, 3 cycles over a 2-replica
+    ServingFleet with ``regress_auc_at_cycle = 2``: verdicts promote,
+    rollback, promote; ``rejections.json``; both replicas back bitwise on
+    the last good version.  (d) the seq family: Bert4Rec at phase 7's
+    width with flash attention, 2 plain cycles.  (e) counters off the
+    path (profiler op counts) and as CUDA-graph outputs.  Launches of
+    ``fat_line_update`` and ``segment_sum`` are counted over (a)'s
+    cycles and the flash kernels' over (d)'s."""
+    import os
+
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.data.loader import prefetch_to_device
+    from tdfo_tpu_torch.data.replay import ReplayConsumer
+    from tdfo_tpu_torch.interop import TOL
+    from tdfo_tpu_torch.ops.kernels import flash_attention as fa
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
+    from tdfo_tpu_torch.serve.export import read_raw_bundle
+    from tdfo_tpu_torch.train.online import OnlineLoop
+
+    def sync():
+        if dev.startswith("cuda"):
+            torch.cuda.synchronize()
+
+    out: dict = {"stage_ms": {}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_online_"))
+    child = None
+    try:
+        t0 = time.perf_counter()
+        log_a = _online_ctr_log(tmp / "log_a", ONLINE_CYCLES * ONLINE_STEPS, 41)
+        log_c = _online_ctr_log(tmp / "log_c", ONLINE_CYCLES * ONLINE_STEPS + 1, 43)
+        log_d = _online_seq_log(tmp / "log_d", ONLINE_SEQ_CYCLES * ONLINE_STEPS, 47)
+        say(f"online: request logs written in {time.perf_counter() - t0:.1f} s "
+            f"({sum(_dir_bytes(p) for p in (log_a, log_c, log_d))} bytes, "
+            f"{len(list(log_a.glob('*.seal.json')))} sealed segments in (a)'s)")
+        kw_a = online_kwargs(tmp / "ck_a", log_a)
+        cpu_tr = _seed_checkpoints(torch, kw_a, [tmp / "ck_a", tmp / "ck_kill",
+                                                 tmp / "ck_c"])
+
+        # ---- (a) the plain loop on one MicroBatcher
+        loop = OnlineLoop(read_configs(None, **kw_a), log_dir=str(tmp / "m_a"),
+                          device=dev)
+        tr = loop.trainer
+        if not any(t.dim() == 3 for t in tr.state.tables.values()):
+            raise AssertionError("online (a): no fat table in the TwoTower state")
+        cpu_tr._train_auc = None
+        cpu_reader = ReplayConsumer(log_a, schema=loop._replay_schema(),
+                                    batch_size=BATCH)
+        first = next(prefetch_to_device(iter(loop.consumer.peek_batches(1)), tr.device))
+        err, touched = _fat_kernel_vs_plain(torch, tr, first)
+        say(f"online (a): cycle 1's first step through fat_line_update vs the "
+            f"plain version: {touched} touched lines, max abs err {err:.3g}; "
+            "untouched lines bitwise")
+        out["max_abs_err"] = err
+        probe = _ctr_probe(53)
+        rtol, atol = TOL["trajectory"]
+        # the CPU trainer beside the loop runs the plain versions, which
+        # count no launch
+        kl.fat_line_update.launches = 0
+        segment_sum.launches = 0
+        for c in range(ONLINE_CYCLES):
+            rec = loop.run_cycle()
+            sync()
+            if rec is None or rec["version"] != c + 1:
+                raise AssertionError(f"online (a): cycle {c} gave {rec}")
+            for _ in range(ONLINE_STEPS):
+                b = next(prefetch_to_device(iter([cpu_reader.next_batch()[0]]), "cpu"))
+                cpu_tr.state, _ = cpu_tr._one_step(cpu_tr.state, b)
+            if cpu_reader.cursor() != loop.consumer.cursor():
+                raise AssertionError("online (a): the CPU replay's cursor differs")
+            worst = 0.0
+            for n, t in tr.state.tables.items():
+                got, want = t.cpu().double(), cpu_tr.state.tables[n].double()
+                d = (got - want).abs()
+                if bool((d > atol + rtol * want.abs()).any()):
+                    raise AssertionError(f"online (a): cycle {c} table {n} card vs "
+                                         f"CPU max err {float(d.max())}")
+                worst = max(worst, float(d.max()))
+            _probe_against_fresh(loop, probe, f"(a) cycle {c}")
+            out["stage_ms"][f"a{c}"] = loop.last_stage_ms
+            say(f"online (a) cycle {c}: v{rec['version']}, loss {rec['loss']:.5f}, "
+                f"records {rec['replay/records']:.0f}, delta {loop.last_delta_bytes} "
+                f"bytes; ms: {_stage_line(loop.last_stage_ms)}; tables vs CPU max "
+                f"err {worst:.3g}; probe bitwise a fresh scorer")
+        sync()
+        out["fat_launches"] = kl.fat_line_update.launches
+        out["segment_sum_launches"] = segment_sum.launches
+        n_fat = sum(1 for t in tr.state.tables.values() if t.dim() == 3)
+        if out["fat_launches"] != n_fat * ONLINE_CYCLES * ONLINE_STEPS \
+                or not out["segment_sum_launches"]:
+            raise AssertionError(f"online (a): launches {out}")
+        if loop.run_cycle() is not None:
+            raise AssertionError("online (a): the drained log gave another cycle")
+        # ---- (e) counters off the path, and as CUDA-graph outputs
+        ops = [_profiled_ops(torch, tr, first, strip) for strip in (False, True)]
+        if ops[0] != ops[1]:
+            raise AssertionError(f"online (e): counters off records {ops[0]} ops, "
+                                 f"a build without emit sites {ops[1]}")
+        g = _graph_counters(torch, dev)
+        say(f"online (e): a TwoTower step with counters off records {ops[0]} "
+            f"profiler ops, the same with every emit site stripped; the dense "
+            f"step's counters as CUDA-graph outputs equal eager's over 3 chunks "
+            f"(grad_norm {', '.join(f'{x:.6g}' for x in g['grad_norm'])})")
+        ref = dict(digest=read_raw_bundle(loop.store.current_dir())[0]["digest"],
+                   cursor=loop.consumer.cursor(), version=loop.store.current_version(),
+                   logits={rid: np.asarray(v).tolist()
+                           for rid, v in loop.probe(_copy_trace(probe)).items()})
+        loop.close()
+        del loop, tr, cpu_tr
+
+        # ---- (b) the kill drill, in a child process beside (c) and (d)
+        spec = dict(kw=online_kwargs(tmp / "ck_kill", log_a,
+                                     faults={"kill_between_stages": ONLINE_KILL_STAGE}),
+                    log_dir=str(tmp / "m_kill"), out_json=str(tmp / "kill.json"),
+                    device=dev, probe=[(r, {k: v.tolist() for k, v in b.items()})
+                                       for r, b in probe])
+        spec_path = tmp / "kill_spec.json"
+        spec_path.write_text(json.dumps(spec))
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--online-child",
+               str(spec_path)]
+        child_log = open(tmp / "kill.log", "w")
+        child = subprocess.Popen(cmd, cwd=ROOT, stdout=child_log,
+                                 stderr=subprocess.STDOUT, env=dict(os.environ))
+
+        # ---- (c) the gated loop over an in-process fleet of 2
+        kw_c = online_kwargs(tmp / "ck_c", log_c, online=ONLINE_GATED,
+                             serving={"replicas": 2},
+                             faults={"regress_auc_at_cycle": 2})
+        loop = OnlineLoop(read_configs(None, **kw_c), log_dir=str(tmp / "m_c"),
+                          device=dev)
+        verdicts = []
+        kl.fat_line_update.launches = 0
+        segment_sum.launches = 0
+        for c in range(ONLINE_CYCLES):
+            rec = loop._run_cycle_gated()
+            sync()
+            verdicts.append(rec["verdict"])
+            out["stage_ms"][f"c{c}"] = loop.last_stage_ms
+            say(f"online (c) cycle {rec['cycle']}: {rec['verdict']} v{rec['version']}"
+                f" (shadow AUC {rec['shadow_auc']:.4f} vs {rec['shadow_auc_base']:.4f}"
+                f", canary {rec['canary_auc']}, stable {rec['stable_auc']}); delta "
+                f"{loop.last_delta_bytes} bytes; ms: {_stage_line(loop.last_stage_ms)}")
+            head = loop.store.current_version()
+            if loop.fleet.versions() != {0: head, 1: head}:
+                raise AssertionError(f"online (c): replicas {loop.fleet.versions()} "
+                                     f"after the verdict, head v{head}")
+            each = loop.fleet.probe_each(_copy_trace(probe))
+            if any(not np.array_equal(each[0][r], each[1][r]) for r, _ in probe):
+                raise AssertionError(f"online (c) cycle {c}: replicas differ")
+            _probe_against_fresh(loop, probe, f"(c) cycle {c}")
+        rej = loop.store.rejections()
+        if (verdicts != ["promote", "rollback", "promote"] or len(rej) != 1
+                or rej[0]["version"] != 2 or "canary AUC" not in rej[0]["reason"]
+                or loop.store.current_version() != 2):
+            raise AssertionError(f"online (c): verdicts {verdicts}, rejections {rej}")
+        if loop._run_cycle_gated() is not None:
+            raise AssertionError("online (c): the drained log gave another cycle")
+        out["gated_launches"] = (kl.fat_line_update.launches, segment_sum.launches)
+        say(f"online (c): verdicts {verdicts}; rejections.json "
+            f"{[(r['version'], r['reason']) for r in rej]}; both replicas bitwise "
+            "on the last good version after the rollback; launches "
+            f"fat_line_update {out['gated_launches'][0]}, segment_sum "
+            f"{out['gated_launches'][1]}")
+        loop.close()
+        del loop
+
+        # ---- (d) the seq family: Bert4Rec, flash attention
+        kw_d = online_kwargs(tmp / "ck_d", log_d, seq=True)
+        loop = OnlineLoop(read_configs(None, **kw_d), log_dir=str(tmp / "m_d"),
+                          device=dev)
+        sprobe = _seq_probe(59)
+        seq_kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                       kl.fat_line_update)
+        for f in seq_kernels:
+            f.launches = 0
+        for c in range(ONLINE_SEQ_CYCLES):
+            rec = loop.run_cycle()
+            sync()
+            if rec is None or not np.isfinite(rec["loss"]):
+                raise AssertionError(f"online (d): cycle {c} gave {rec}")
+            _probe_against_fresh(loop, sprobe, f"(d) cycle {c}")
+            out["stage_ms"][f"d{c}"] = loop.last_stage_ms
+            say(f"online (d) cycle {c}: v{rec['version']}, loss {rec['loss']:.5f}, "
+                f"delta {loop.last_delta_bytes} bytes; ms: "
+                f"{_stage_line(loop.last_stage_ms)}; probe bitwise a fresh scorer")
+        counts = [f.launches for f in seq_kernels]
+        want = ONLINE_SEQ_CYCLES * ONLINE_STEPS * B4R["n_layers"]
+        if counts[:3] != [want] * 3 or not counts[3]:
+            raise AssertionError(f"online (d): launches {counts}, want {want} each")
+        out["flash_launches"] = dict(zip(FLASH_KERNELS, counts[:3]))
+        out["seq_fat_launches"] = counts[3]
+        loop.close()
+        del loop
+
+        # ---- (b)'s outcome: killed, then the same command again
+        rc = child.wait(timeout=600)
+        child_log.close()
+        from tdfo_tpu_torch.utils.faults import KILL_EXIT_CODE
+
+        if rc != KILL_EXIT_CODE or (tmp / "kill.json").exists():
+            raise AssertionError(f"online (b): the child exited {rc}:\n"
+                                 + (tmp / "kill.log").read_text()[-3000:])
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"online (b): the restart failed:\n{res.stdout[-3000:]}"
+                                 f"\n{res.stderr[-3000:]}")
+        got = json.loads((tmp / "kill.json").read_text())
+        for k in ("digest", "cursor", "version", "logits"):
+            if got[k] != ref[k]:
+                raise AssertionError(f"online (b): the restarted run's {k} differs "
+                                     "from the uninterrupted run's")
+        say(f"online (b): killed at stage call {ONLINE_KILL_STAGE} (cycle 2's "
+            f"export), restarted in {time.perf_counter() - t0:.1f} s: v{got['version']}"
+            f", digest {got['digest'][:12]}, cursor and {len(got['logits'])} probe "
+            "answers bitwise the uninterrupted run's")
+    finally:
+        if child is not None and child.poll() is None:
+            _kill_tree(child.pid)
+            child.wait()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"online: launches over (a)'s cycles: fat_line_update {out['fat_launches']}, "
+        f"segment_sum {out['segment_sum_launches']}; over (d)'s: "
+        f"{out['flash_launches']}, fat_line_update {out['seq_fat_launches']}")
+    return out
+
+
+def online_child(spec_path: str) -> int:
+    """``chip_smoke.py --online-child SPEC``: one online run (the kill
+    drill's lineage): the loop drains the log, then the probe; writes
+    ``out_json`` (an injected kill exits first and writes nothing)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.serve.export import read_raw_bundle
+    from tdfo_tpu_torch.train.online import OnlineLoop
+
+    spec = json.loads(Path(spec_path).read_text())
+    loop = OnlineLoop(read_configs(None, **spec["kw"]), log_dir=spec["log_dir"],
+                      device=spec["device"])
+    try:
+        loop.run()
+        schema = loop.trainer._eval_schema
+        probe = [(r, {k: np.asarray(v, dtype=schema[k]) for k, v in b.items()})
+                 for r, b in spec["probe"]]
+        logits = loop.probe(probe)
+        Path(spec["out_json"]).write_text(json.dumps({
+            "digest": read_raw_bundle(loop.store.current_dir())[0]["digest"],
+            "cursor": loop.consumer.cursor(),
+            "version": loop.store.current_version(),
+            "logits": {r: np.asarray(v).tolist() for r, v in logits.items()}}))
+    finally:
+        loop.close()
+    return 0
+
+
+def phase_online_cli(torch) -> dict:
+    """The ``launch online`` journey on ``config.toml`` (TwoTower, d = 16,
+    with ``model_parallel = true`` and ``fused_table_threshold = 0``: every
+    table a packed fat line, R = 2): ``synth -> preprocess-ctr -> serve``
+    with ``[serving] log_features`` (64 requests into the request log),
+    then ``launch online`` in this process (its kernel launches counted)
+    with ``[telemetry] trace``, and ``launch obs`` over the trace."""
+    from tdfo_tpu_torch import launch
+    from tdfo_tpu_torch.data.synthetic import write_synthetic_goodreads
+    from tdfo_tpu_torch.ops.kernels import fat_line_update as kl
+    from tdfo_tpu_torch.ops.kernels.segment_sum import segment_sum
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_synthetic_goodreads(tmp / "data", n_users=SERVE_CLI_USERS)
+        text = (ROOT / "config.toml").read_text()
+        if 'data_dir = "data/goodreads"' not in text:
+            raise AssertionError("config.toml no longer has its data_dir line")
+        lines = [f'data_dir = "{tmp / "data"}"' if x.startswith("data_dir =") else x
+                 for x in text.splitlines()]
+        ck = tmp / "ck"
+        cfg = tmp / "online.toml"
+        cfg.write_text(
+            "\n".join(lines) + "\nmodel_parallel = true\nfused_table_threshold = 0\n"
+            f'checkpoint_dir = "{ck}"\n[serving]\nlog_features = true\n'
+            f'[online]\nrequest_log = "{ck / "request_log"}"\n'
+            f"steps_per_cycle = {ONLINE_STEPS}\n[telemetry]\ntrace = true\n")
+        if launch.main(["preprocess-ctr", "--config", str(cfg)]) != 0:
+            raise AssertionError("launch preprocess-ctr failed")
+        t0 = time.perf_counter()
+        _serve_cmd(cfg)
+        serve_s = time.perf_counter() - t0
+        kl.fat_line_update.launches = 0
+        segment_sum.launches = 0
+        t0 = time.perf_counter()
+        stats = launch.run(["online", "--config", str(cfg)])
+        online_s = time.perf_counter() - t0
+        report = launch.run(["obs", "--config", str(cfg)])
+        chrome = ck / "trace" / "chrome_trace.json"
+        fat, seg = kl.fat_line_update.launches, segment_sum.launches
+        if not (stats["cycles"] >= 1 and stats["version"] == stats["cycles"]
+                and fat and fat % stats["global_step"] == 0 and seg
+                and chrome.exists()):
+            raise AssertionError(f"online_cli: {stats}, launches {fat}/{seg}")
+    say(f"online_cli: serve (64 requests logged) {serve_s:.1f} s; launch online "
+        f"{online_s:.1f} s: {stats['cycles']} cycles, {stats['global_step']} steps, "
+        f"v{stats['version']}, records {stats['replay/records']:.0f}; launches "
+        f"fat_line_update {fat}, segment_sum {seg}; launch obs: "
+        f"{len(report.get('cycles', []))} cycles assembled, chrome_trace.json written")
+    return {"stats": stats, "fat_launches": fat, "segment_sum_launches": seg}
+
+
 # ------------------------------------------------------------ the journeys
 # The CLI journeys drive ``launch`` subprocesses and time no kernel, so they
 # run side by side, each in a process of its own, beside dist_main (rank
@@ -6797,14 +7419,16 @@ def phase_dist_serve(torch, card: str) -> dict:
 # and dist_main's, dist_dense's and dist_serve's ms are taken under that
 # load.
 JOURNEYS = ("quickstart_cli", "criteo_int8_cli", "serve_cli", "dist_cli",
-            "seq_cli", "serve_fleet_cli", "loadgen_cli")
+            "seq_cli", "serve_fleet_cli", "loadgen_cli", "online", "online_cli")
 JOURNEY_TIMEOUT_S = 900
 JOURNEY_THREADS = 2
 
 
 def journey_main(name: str) -> int:
     """``chip_smoke.py --journey NAME``: one journey between its phase
-    markers."""
+    markers; its result goes to ``$CHIP_SMOKE_JOURNEY_DIR/NAME.json``."""
+    import os
+
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -6814,11 +7438,15 @@ def journey_main(name: str) -> int:
           phase_criteo_int8_cli, "serve_cli": phase_serve_cli,
           "dist_cli": phase_dist_cli, "seq_cli": phase_seq_cli,
           "serve_fleet_cli": phase_serve_fleet_cli,
-          "loadgen_cli": phase_loadgen_cli}[name]
+          "loadgen_cli": phase_loadgen_cli, "online": phase_online,
+          "online_cli": phase_online_cli}[name]
     say(f"phase {name}: start")
     t0 = time.perf_counter()
-    fn(torch)
+    out = fn(torch)
     say(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s")
+    where = os.environ.get("CHIP_SMOKE_JOURNEY_DIR")
+    if where:  # the result, for the kernels line
+        (Path(where) / f"{name}.json").write_text(json.dumps(out, default=str))
     return 0
 
 
@@ -6827,7 +7455,8 @@ def journeys_beside(names):
     """Start ``names``, one ``--journey`` process each (output to a file),
     run the body beside them, then wait for them and print their output
     in order.  A journey that fails or outlasts ``JOURNEY_TIMEOUT_S``
-    fails the run by name; a body that fails kills them."""
+    fails the run by name; a body that fails kills them.  Yields a dict
+    that holds each journey's result once they have ended."""
     import shutil
 
     import os
@@ -6837,14 +7466,16 @@ def journeys_beside(names):
     procs = {}
     # JOURNEY_THREADS intra-op threads a process (its launch children
     # inherit it): many processes share the host's cores side by side
-    env = dict(os.environ, OMP_NUM_THREADS=str(JOURNEY_THREADS))
+    env = dict(os.environ, OMP_NUM_THREADS=str(JOURNEY_THREADS),
+               CHIP_SMOKE_JOURNEY_DIR=str(tmp))
+    results: dict = {}
     try:
         for n in names:
             with open(tmp / f"{n}.log", "w") as f:
                 procs[n] = subprocess.Popen(
                     [sys.executable, str(ROOT / "chip_smoke.py"), "--journey", n],
                     cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, env=env)
-        yield
+        yield results
         deadline = time.monotonic() + JOURNEY_TIMEOUT_S
         for p in procs.values():
             try:
@@ -6858,6 +7489,8 @@ def journeys_beside(names):
                 p.wait()
         for n in procs:
             print((tmp / f"{n}.log").read_text().rstrip(), flush=True)
+            if (tmp / f"{n}.json").exists():
+                results[n] = json.loads((tmp / f"{n}.json").read_text())
         shutil.rmtree(tmp, ignore_errors=True)
     bad = {n: p.returncode for n, p in procs.items() if p.returncode != 0}
     if bad:
@@ -6905,6 +7538,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--journey"]:  # one CLI journey (its own process)
         return journey_main(argv[1])
+    if argv[:1] == ["--online-child"]:  # the online kill drill's lineage
+        return online_child(argv[1])
     if argv[:1] == ["--dist-rank"]:  # one rank of dist_main (its own process)
         spec = json.loads(argv[1])
         return (dist_rank_seq if "seq_arms" in spec else dist_rank_ctr
@@ -7071,7 +7706,7 @@ def main(argv=None) -> int:
                                         for k, v in r["launches"].items()}
     beside = [(n, f) for n, f in (("dist_dense", phase_dist_dense),
                                   ("dist_serve", phase_dist_serve)) if n in phases]
-    with journeys_beside([j for j in JOURNEYS if j in phases]):
+    with journeys_beside([j for j in JOURNEYS if j in phases]) as journeyed:
         with phases_beside(run, beside, torch, smi) as done:
             if "dist_main" in phases:
                 r = run("dist_main", phase_dist_main, torch, smi)
@@ -7082,6 +7717,18 @@ def main(argv=None) -> int:
                                   (recs["segment_sum"], "segment_sum")):
                     rec["launches_ctr_arms"] = {k: [x[name] for x in v]
                                                 for k, v in r["ctr_launches"].items()}
+    if "online" in journeyed:
+        r = journeyed["online"]
+        fat["launches_online"] = r["fat_launches"]
+        recs["segment_sum"]["launches_online"] = r["segment_sum_launches"]
+        for k in FLASH_KERNELS:
+            recs[k]["launches_online"] = r["flash_launches"][k]
+        if fat["max_abs_err"] is not None:
+            fat["max_abs_err"] = max(fat["max_abs_err"], r["max_abs_err"])
+    if "online_cli" in journeyed:
+        r = journeyed["online_cli"]
+        fat["launches_online_cli"] = r["fat_launches"]
+        recs["segment_sum"]["launches_online_cli"] = r["segment_sum_launches"]
     if "dist_dense" in done:
         recs["segment_sum"]["launches_dense_arms"] = {
             k: [x["segment_sum_launches"] for x in v]

@@ -5,7 +5,7 @@ byte-identical parquet shards, ``size_map.json`` and (``hot_vocab > 0``)
 ``hot_ids.json``.  Not ported yet: the planner's ``table_stats.json``
 artifact (``ROADMAP.md`` Queue A item 14; this ETL writes none) and
 ``write_format = "tfrecord"``, which raises ``NotImplementedError`` (item
-16).
+16b).
 The reference's docstring follows.
 
 Capability parity with ``jax-flax/preprocessing.py`` (and its twin
@@ -205,7 +205,7 @@ def run_ctr_preprocessing(data_dir: str | Path, *, file_num: int = FILE_NUM,
     if write_format == "tfrecord":
         raise NotImplementedError(
             "write_format = 'tfrecord' is not ported yet (ROADMAP.md Queue A "
-            "item 16)")
+            "item 16b)")
     data_dir = Path(data_dir)
     book_features, size_map = get_book_features(data_dir)
     with open(data_dir / "size_map.json", "w") as f:

@@ -20,7 +20,7 @@ Port of ``tdfo_tpu/data/loader.py``:
 The cursor is ``(seed, epoch, batches_emitted)``: an epoch's batch sequence
 is a pure function of ``(seed, epoch)``, so a resumed stream fast-forwards
 over the batches already consumed and yields the uninterrupted epoch's tail.
-Not ported yet: ``TFRecordStream`` (``ROADMAP.md`` Queue A item 16).
+Not ported yet: ``TFRecordStream`` (``ROADMAP.md`` Queue A item 16b).
 Fixed-width list columns are stacked into [B, T] arrays.
 """
 

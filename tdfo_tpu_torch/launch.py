@@ -1,6 +1,6 @@
 """Entry point: ``python -m tdfo_tpu_torch.launch
 {synth,synth-criteo,preprocess-ctr,preprocess-criteo,preprocess-seq,train,
-serve,serve-fleet,loadgen} --config config.toml [--device cuda|cpu]``.
+serve,serve-fleet,loadgen,online,obs} --config config.toml [--device cuda|cpu]``.
 
 Port of ``tdfo_tpu/launch.py`` for the ported subcommands:
 
@@ -27,10 +27,19 @@ Port of ``tdfo_tpu/launch.py`` for the ported subcommands:
   * ``loadgen``        — the same fleet, driven with zipf traffic
     (``[loadgen]``: closed or open loop) over ``--knee-steps`` doublings of
     the load, to the latency/throughput knee (``serve/loadgen.py``).
+  * ``online``         — the serve -> retrain -> delta -> swap supervisor
+    (``train/online.py``) over the request log ``[online] request_log``
+    names, plain or gated (``canary_cycles > 0``), until the log drains or
+    ``max_cycles``; prints the run stats.  Restarting a killed run with the
+    same command converges to the uninterrupted run's bundle.
+  * ``obs``            — fold the ``[telemetry] trace`` sinks of a finished
+    (or killed) run under ``<log_dir or checkpoint_dir>/trace`` into one
+    causal report and write ``chrome_trace.json`` beside them (host work
+    only, ``obs/aggregate.py``).
 
-``train``, ``serve``, ``serve-fleet`` and ``loadgen`` run on the card (the
-fleet's replica processes too) unless ``--device cpu`` is given, and
-refuse to start when CUDA is asked for and absent.
+``train``, ``serve``, ``serve-fleet``, ``loadgen`` and ``online`` run on the
+card (the fleet's replica processes too) unless ``--device cpu`` is given,
+and refuse to start when CUDA is asked for and absent.
 
 Several ranks (the reference's ``--distributed``, ``tdfo_tpu/launch.py:80``):
 ``python -m torch.distributed.run --nproc-per-node N -m tdfo_tpu_torch.launch
@@ -44,9 +53,8 @@ metrics and checkpoints.  Under ``lookup_mode = "alltoall"``,
 ``[embeddings] grouped_a2a = true`` runs the grouped exchange and ``[train]
 pipeline_overlap = true`` the pipelined step on top of it; int8 storage
 runs under a mesh too.  ``serve`` under several ranks shards the retrieval
-corpus over the ``data`` axis (``serve/frontend.py``).  The other
-subcommands of the reference (online, plan, obs, ...) arrive with their
-slices (``ROADMAP.md``).
+corpus over the ``data`` axis (``serve/frontend.py``).  The reference's
+``plan`` arrives with ``ROADMAP.md`` item 14.
 """
 
 from __future__ import annotations
@@ -62,14 +70,14 @@ def main(argv: list[str] | None = None) -> int:
 
 def run(argv: list[str] | None = None):
     """``main`` without the exit code: returns the fitted ``Trainer`` (its
-    final state included) for ``train``, the stats dict for ``serve`` and
-    ``serve-fleet``, the knee report for ``loadgen``, ``None`` for the
-    other subcommands."""
+    final state included) for ``train``, the stats dict for ``serve``,
+    ``serve-fleet`` and ``online``, the knee report for ``loadgen``, the
+    assembled report for ``obs``, ``None`` for the other subcommands."""
     p = argparse.ArgumentParser(prog="tdfo_tpu_torch.launch", description=__doc__)
     p.add_argument("command", nargs="?", default="train",
                    choices=["train", "preprocess-ctr", "preprocess-criteo",
                             "preprocess-seq", "synth", "synth-criteo", "serve",
-                            "serve-fleet", "loadgen"])
+                            "serve-fleet", "loadgen", "online", "obs"])
     p.add_argument("--config", default="config.toml", help="path to config.toml")
     p.add_argument("--data-dir", default=None, help="override config data_dir")
     p.add_argument("--log-dir", default=None)
@@ -127,6 +135,35 @@ def run(argv: list[str] | None = None):
         )
         print(f"size_map: {size_map}")
         return None
+    if args.command == "obs":
+        import json
+        from pathlib import Path
+
+        from tdfo_tpu_torch.obs.aggregate import (
+            assemble,
+            chrome_trace,
+            format_report,
+            load_spans,
+        )
+
+        out_dir = args.log_dir or cfg.checkpoint_dir
+        if not out_dir:
+            raise SystemExit(
+                "obs needs the traced run's output dir — set checkpoint_dir "
+                "in the config or pass --log-dir")
+        trace_dir = Path(out_dir) / "trace"
+        spans = load_spans(trace_dir)
+        if not spans:
+            raise SystemExit(
+                f"no trace-*.jsonl spans under {trace_dir} — run with "
+                "[telemetry] trace = true first")
+        report = assemble(spans)
+        print(format_report(report))
+        chrome_path = trace_dir / "chrome_trace.json"
+        chrome_path.write_text(json.dumps(chrome_trace(spans)))
+        print(f"chrome trace written to {chrome_path} "
+              "(load in chrome://tracing or ui.perfetto.dev)")
+        return report
     if args.command == "preprocess-seq":
         from tdfo_tpu_torch.data.seq_preprocessing import run_seq_preprocessing
 
@@ -149,13 +186,21 @@ def run(argv: list[str] | None = None):
     if cfg.faults.any():
         # a run that dies with exit 17 must show why
         print(f"WARNING: fault injection armed: {cfg.faults}", flush=True)
-    if args.command in ("serve", "serve-fleet", "loadgen"):
+    if args.command in ("serve", "serve-fleet", "loadgen", "online"):
         from tdfo_tpu_torch.core.config import serving_model_kind
 
         try:
             kind = serving_model_kind(cfg)
         except ValueError as e:
             raise SystemExit(str(e)) from None
+    if args.command == "online":
+        from tdfo_tpu_torch.train.online import online_from_config
+
+        print(f"online: model {cfg.model!r} -> {kind} serving family", flush=True)
+        out = online_from_config(cfg, log_dir=args.log_dir, device=args.device)
+        print({k: round(v, 5) if isinstance(v, float) else v
+               for k, v in out.items()})
+        return out
     if args.command == "serve-fleet":
         from tdfo_tpu_torch.serve.loadgen import serve_fleet_from_config
 

@@ -10,7 +10,8 @@
   generator and the fleet reports share;
 * ``format_report(report)`` renders a report as text.
 
-``launch obs`` is not ported yet (``ROADMAP.md`` item 16).
+``launch obs`` (``launch.py``) prints the report and writes the Chrome
+trace beside the sinks.
 """
 
 from __future__ import annotations

@@ -83,7 +83,10 @@ def _target(name: str) -> Path:
 def build_all(names=None) -> dict[str, BuildResult]:
     """Build (or reuse) every named kernel library; one ``nvcc`` process
     per source, started together.  Raises with the compiler's output when
-    a build fails."""
+    a build fails.  Each library compiled (not reused) is an
+    ``obs/events.py`` build event."""
+    from tdfo_tpu_torch.obs import events as _events
+
     names = list(KERNEL_SOURCES if names is None else names)
     jobs = {}
     results: dict[str, BuildResult] = {}
@@ -109,6 +112,7 @@ def build_all(names=None) -> dict[str, BuildResult]:
             continue
         os.replace(tmp, out)  # atomic: a half-written library never loads
         results[name] = BuildResult(name, out, secs, log)
+        _events.compiled(f"kernel_build:{name}", secs)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return results

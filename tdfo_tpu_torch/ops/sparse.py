@@ -56,9 +56,10 @@ device mesh every rank holds the same cache and runs its math on the same
 global ids and grads (the reference's replicated ``shard_map``): only the
 admission's gathers of a sharded table read across ranks (``gather``,
 each row from its owner) and only the flush's write-back is per rank
-(``owned``, each row into the shard that owns it).  The reference's
-``counters.emit`` diagnostics belong to the observability layer
-(``ROADMAP.md`` Queue A item 16) and are left out.
+(``owned``, each row into the shard that owns it).  With an
+``obs/counters.py`` collector open, the cache reports its hit, miss,
+unique, flushed and resident rows (the reference's ``counters.emit``
+sites).
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ from typing import Any
 
 import torch
 
+from tdfo_tpu_torch.obs import counters
 from tdfo_tpu_torch.ops import threefry
 from tdfo_tpu_torch.ops.fat_lines import fat_view, line_layout
 from tdfo_tpu_torch.ops.kernels.fat_line_update import (
@@ -930,6 +932,12 @@ class SparseOptimizer:
         the whole row, as :meth:`update_unique`'s).  Returns ``(cache,
         slots)``."""
         valid = valid.to(torch.bool)
+        if counters.enabled():
+            # pre-admission route: how many of the step's distinct rows
+            # the cache held already
+            _, hit = cache_route(cache, torch.where(valid, uids.to(torch.int64), -1))
+            counters.emit("cache_hit_rows", (hit & valid).sum())
+            counters.emit("cache_miss_rows", (valid & ~hit).sum())
         gid = torch.where(valid, uids.to(torch.int64), 0)
         take = gather or _clamped_rows
         urows = take(table, gid)
@@ -1022,6 +1030,7 @@ class SparseOptimizer:
             ids.reshape(-1), grads.reshape(-1, grads.shape[-1]),
             capacity=capacity, vocab=vocab_rows or table.shape[0],
             max_distinct=max_distinct)
+        counters.emit("unique_rows", lambda: valid.sum())
         return self.cache_update_unique(cache, table, slots, uids, g, valid,
                                         step=step, sr_key=sr_key,
                                         qscale=qscale, gather=gather,
@@ -1042,6 +1051,8 @@ class SparseOptimizer:
         cslot = cache["slot"].to(torch.int64)
         used = cids < _CACHE_OOB
         dirty_dir = cache["dirty"][cslot] & used
+        counters.emit("cache_flushed_rows", lambda: dirty_dir.sum())
+        counters.emit("cache_resident_rows", lambda: used.sum())
         if owned is not None:
             local, mine = owned(cids)
             dirty_dir = dirty_dir & mine

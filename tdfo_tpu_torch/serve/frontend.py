@@ -352,7 +352,7 @@ class MicroBatcher:
 
 def restore_and_export(config, *, log_dir=None, device="cuda"):
     """The serving entry points' start: build the trainer (it refuses knobs
-    the port lacks), arm ``[faults]``, restore the newest checkpoint (a
+    the port lacks and arms ``[faults]``), restore the newest checkpoint (a
     fresh init without one) and export the serving bundle to
     ``<log_dir or checkpoint_dir>/serving_bundle`` (under a mesh rank 0
     writes the gathered single-device state, behind a barrier).  Returns
@@ -364,10 +364,8 @@ def restore_and_export(config, *, log_dir=None, device="cuda"):
     from tdfo_tpu_torch.interop import flax_params_from_module
     from tdfo_tpu_torch.serve.export import export_bundle
     from tdfo_tpu_torch.train.trainer import Trainer, _ctr_columns
-    from tdfo_tpu_torch.utils import faults as _faults
 
-    trainer = Trainer(config, log_dir=log_dir, device=device, serving=True)
-    _faults.configure(config.faults, config.checkpoint_dir or None)
+    trainer = Trainer(config, log_dir=log_dir, device=device)
     step, state = trainer.restore_latest()
     out_dir = Path(log_dir or config.checkpoint_dir or ".") / "serving_bundle"
     sd = trainer.single_device_state()  # None off rank 0 under a mesh

@@ -12,7 +12,7 @@ its own ``[V, d]`` array under its own name) and the backbone
 ``score_cache_size`` counts the distinct batch signatures (column shapes
 and dtypes) the scoring function has run: the reference's jit-cache count,
 one program per padded batch shape, which the micro-batcher holds to at
-most ``len(buckets)``.
+most ``len(buckets)``; each new one is an ``obs/events.py`` build event.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ from tdfo_tpu_torch.models.twotower import (
     TWOTOWER_CONTINUOUS,
     TWOTOWER_ITEM_CATEGORICAL,
 )
+from tdfo_tpu_torch.obs import events as _events
+from tdfo_tpu_torch.obs import trace as _trace
 from tdfo_tpu_torch.serve.export import ServingBundle
 
 __all__ = ["CountedScore", "Scorer", "make_scorer", "to_device_batch"]
@@ -53,10 +55,17 @@ class CountedScore:
 
     def __call__(self, batch: Mapping) -> torch.Tensor:
         batch = to_device_batch(batch, self._device)
-        self.signatures.add(tuple(sorted(
-            (k, tuple(v.shape), str(v.dtype)) for k, v in batch.items())))
+        sig = tuple(sorted(
+            (k, tuple(v.shape), str(v.dtype)) for k, v in batch.items()))
+        new = sig not in self.signatures
+        self.signatures.add(sig)
+        t0 = _trace.clock() if new else None
         with torch.no_grad():
-            return self._fn(batch)
+            out = self._fn(batch)
+        if new:  # a new serving program (obs/events.py)
+            _events.compiled("serving_program:" + ",".join(
+                f"{k}{list(s)}" for k, s, _ in sig), _trace.elapsed_s(t0))
+        return out
 
 
 @dataclass

@@ -117,6 +117,7 @@ from tdfo_tpu_torch.core.mesh import (
     axis_size,
     plane_group,
 )
+from tdfo_tpu_torch.obs import counters as obs_counters
 from tdfo_tpu_torch.ops.kernels.fat_line_update import SENTINEL
 from tdfo_tpu_torch.ops.quant import bytes_to_f32, dequantize_rows
 from tdfo_tpu_torch.ops.quant import sr_key as _make_sr_key
@@ -147,6 +148,8 @@ from tdfo_tpu_torch.train.state import (
     make_adamw,
     optimizer_tensors,
 )
+from tdfo_tpu_torch.train.step import global_norm as _global_norm
+from tdfo_tpu_torch.train.step import model_group, model_split
 
 __all__ = ["BatchGroup", "PipelinedSparseStep", "SparseTrainState",
            "make_cache_flush_fn", "make_pipelined_sparse_train_step",
@@ -506,6 +509,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                 d = coll.array_embedding_dim(aname)
                 split = coll.split_rows(aname)
                 all_ids, sizes, bound = _concat_ids(feats, g_cold)
+                obs_counters.emit(f"emb/{aname}/touched_ids",
+                                  lambda a=all_ids: (a >= 0).sum())
                 total = all_ids.shape[0]
                 # +1: negative ids dedupe to ONE sentinel slot past the bound
                 cap = -(-(bound + 1) // 8) * 8 if bound + 1 < total else None
@@ -535,6 +540,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                                                bytes_to_f32(rows[:, d:span]))
                     ctx[aname] = ("routed", ulines, seg, plan, row_lidx,
                                   row_slot, lines)
+                    obs_counters.emit(f"emb/{aname}/unique_lines",
+                                      lambda u=ulines: (u < SENTINEL).sum())
                 else:
                     uids, seg, valid, plan = dedupe_ids(
                         all_ids, capacity=cap, max_distinct=cap, with_plan=True)
@@ -557,6 +564,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                     # a fat shard takes the default sharded update
                     ctx[aname] = (("sharded",) if table.dim() == 3
                                   else ("rows", uids, seg, plan, valid))
+                    obs_counters.emit(f"emb/{aname}/unique_rows",
+                                      lambda v=valid: v.sum())
                 rows = rows.to(torch.float32)
                 off = 0
                 for f, n_f in zip(feats, sizes):
@@ -603,6 +612,27 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
         dense = list(grads[:len(params)])
         if fg.size > 1:
             dense = all_reduce_tensors(dense, fg.group)
+        if obs_counters.enabled():
+            # the reference's global norms: the dense half's gradients (the
+            # global batch's, after the reduction) and the looked-up rows'
+            # (each rank holds its share of the batch's); param_norm reads
+            # the whole tables (one pass over them, paid only with counters
+            # on).  What a mesh splits over the model axis (tensor-parallel
+            # parameters, row and column shards) sums over it.
+            mg = model_group(coll.mesh)
+            split = model_split([n for n, _ in state.backbone.named_parameters()],
+                                getattr(state.backbone, "tp_plan", None))
+            tsplit = {a: coll.array_placement(a) != "replicated"
+                      for a in state.tables}
+            obs_counters.emit("grad_norm", _global_norm(
+                [g for g, sp in zip(dense, split) if not sp],
+                ([g for g, sp in zip(dense, split) if sp], mg),
+                (list(grads[len(params):]), bg.group)))
+            obs_counters.emit("param_norm", _global_norm(
+                [p for p, sp in zip(params, split) if not sp]
+                + [t for a, t in state.tables.items() if not tsplit[a]],
+                ([p for p, sp in zip(params, split) if sp]
+                 + [t for a, t in state.tables.items() if tsplit[a]], mg)))
         for p, g in zip(params, dense):
             p.grad = g
         state.optimizer.step()
@@ -668,17 +698,20 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                     if aname in cached:
                         # the cached tier: the table and its slots are
                         # read, never written, until the flush
-                        state.slots[ck], _ = opt.cache_update_unique(
-                            state.slots[ck], table, state.slots[aname], uids,
-                            g_u, valid, step=state.step,
-                            sr_key=_sr_key(aname), qscale=qscale_of(aname),
-                            gather=coll.owner_gather(aname))
+                        with obs_counters.scope(f"emb/{aname}/"):
+                            state.slots[ck], _ = opt.cache_update_unique(
+                                state.slots[ck], table, state.slots[aname],
+                                uids, g_u, valid, step=state.step,
+                                sr_key=_sr_key(aname), qscale=qscale_of(aname),
+                                gather=coll.owner_gather(aname))
                         continue
                     coll.update_unique(opt, aname, table, state.slots[aname],
                                        uids, g_u, valid, sr_key=_sr_key(aname),
                                        qscale=qscale_of(aname))
                     continue
                 all_ids, _, bound = _concat_ids(feats, g_cold)
+                obs_counters.emit(f"emb/{aname}/touched_ids",
+                                  lambda a=all_ids: (a >= 0).sum())
                 # dedupe capacity = the proven distinct bound when tighter
                 # than the id count (reference ``_concat_ids``)
                 md = -(-bound // 8) * 8 if bound < all_ids.shape[0] else None
@@ -687,12 +720,14 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                     if aname in col_split:
                         all_grads, key = coll.column_share(all_grads, key)
                         kw["row_sq_mean"] = coll._whole_row_sq_mean
-                    state.slots[ck], _ = opt.cache_update(
-                        state.slots[ck], table, state.slots[aname], all_ids,
-                        all_grads, step=state.step, capacity=md,
-                        max_distinct=md, sr_key=key, qscale=qscale_of(aname),
-                        gather=coll.owner_gather(aname),
-                        vocab_rows=coll.array_rows(aname), **kw)
+                    with obs_counters.scope(f"emb/{aname}/"):
+                        state.slots[ck], _ = opt.cache_update(
+                            state.slots[ck], table, state.slots[aname],
+                            all_ids, all_grads, step=state.step, capacity=md,
+                            max_distinct=md, sr_key=key,
+                            qscale=qscale_of(aname),
+                            gather=coll.owner_gather(aname),
+                            vocab_rows=coll.array_rows(aname), **kw)
                     continue
                 coll.sparse_update(
                     opt, aname, table, state.slots[aname], all_ids, all_grads,
@@ -703,6 +738,8 @@ def _build_step(coll: ShardedEmbeddingCollection, forward: Callable, *,
                 hname = coll.hot_array_name(tname)
                 feats = hot_by_table[tname]
                 hp_all = torch.cat([g_hot[f].reshape(-1) for f in feats])
+                obs_counters.emit(f"emb/{tname}/hot_ids",
+                                  lambda h=hp_all: (h >= 0).sum())
                 g_all = torch.cat([g_embs[f].reshape(-1, g_embs[f].shape[-1])
                                    for f in feats])
                 opt.dense_update(state.tables[hname], state.slots[hname],
@@ -806,10 +843,11 @@ def make_cache_flush_fn(coll: ShardedEmbeddingCollection | None = None):
                     continue
                 aname = key[len(CACHE_PREFIX):]
                 qs = state.tables.get(qscale_name(aname))
-                out = state.sparse_opt.cache_flush(
-                    state.slots[key], state.tables[aname], state.slots[aname],
-                    qscale=qs,
-                    owned=None if coll is None else coll.owned_rows(aname))
+                with obs_counters.scope(f"emb/{aname}/"):
+                    out = state.sparse_opt.cache_flush(
+                        state.slots[key], state.tables[aname],
+                        state.slots[aname], qscale=qs,
+                        owned=None if coll is None else coll.owned_rows(aname))
                 state.slots[key], overflow[aname] = out[0], out[-1]
         return state, overflow
 

@@ -32,8 +32,9 @@ from typing import Callable
 import torch
 from torch.nn import functional as F
 
-from tdfo_tpu_torch.core.mesh import DATA_AXIS, axis_group, axis_size
+from tdfo_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, axis_group, axis_size
 from tdfo_tpu_torch.core.precision import scale_loss, unscale_grads
+from tdfo_tpu_torch.obs import counters as obs_counters
 from tdfo_tpu_torch.parallel.collectives import all_reduce_, all_reduce_tensors
 
 __all__ = ["CudaGraphStep", "bce_with_logits_loss", "make_eval_step",
@@ -53,20 +54,54 @@ def bce_with_logits_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Te
     return (-labels * log_p - (1.0 - labels) * log_not_p).mean()
 
 
+def global_norm(tensors, *split) -> torch.Tensor:
+    """``optax.global_norm``: the 2-norm of all elements, in f32, of
+    ``tensors`` and of the tensors a mesh splits over ranks: each of
+    ``split`` is ``(blocks, group)``, this rank's blocks of tensors split
+    over ``group`` (None: one rank), whose squares sum over it.  Every rank
+    gets the norm of the whole state."""
+    def norms(ts):
+        return [torch.linalg.vector_norm(t.detach().to(torch.float32)) for t in ts]
+
+    parts = norms(tensors)
+    for blocks, group in split:
+        if blocks:
+            sq = torch.stack(norms(blocks)).square().sum()
+            if group is not None:
+                sq = all_reduce_(sq, group)
+            parts.append(sq.sqrt())
+    return torch.linalg.vector_norm(torch.stack(parts))
+
+
+def model_split(names, plan) -> list[bool]:
+    """Which of the parameters ``names`` ``plan`` (parameter -> placement,
+    as ``parallel.sharding.shard_module_`` returns it) splits over the
+    model axis."""
+    plan = plan or {}
+    return [MODEL_AXIS in plan.get(n, ()) for n in names]
+
+
+def model_group(mesh):
+    """The model axis's group of this rank (None at one model rank)."""
+    return axis_group(mesh, MODEL_AXIS) if axis_size(mesh, MODEL_AXIS) > 1 else None
+
+
 def _default_loss(model, batch):
     logits = model(batch)
     return bce_with_logits_loss(logits, batch["label"].to(torch.float32)), logits
 
 
 def make_train_step(loss_fn: Callable | None = None, *, with_aux: bool = False,
-                    mesh=None):
+                    mesh=None, plan=None):
     """``step(state, batch) -> (state, loss)`` (``(state, (loss, aux))``
     with ``with_aux``) for a :class:`~tdfo_tpu_torch.train.state.TrainState`.
     ``loss_fn(model, batch)`` returns ``(loss, aux)``; the default is the
     sigmoid BCE on ``batch["label"]`` with the logits as aux.  The state
     updates in place; returned tensors are detached device tensors.
     ``mesh``: data-parallel over its data axis (the module note); ``aux``
-    stays the rank's."""
+    stays the rank's.  ``plan``: the PS partition's (parameter ->
+    placement), whose split parameters the counters' norms sum over the
+    model axis."""
     loss_fn = loss_fn or _default_loss
     n_data = axis_size(mesh, DATA_AXIS)
     group = axis_group(mesh, DATA_AXIS) if n_data > 1 else None
@@ -80,6 +115,15 @@ def make_train_step(loss_fn: Callable | None = None, *, with_aux: bool = False,
         if group is not None:
             grads = all_reduce_tensors(grads, group)
         grads, finite = unscale_grads(grads, ls)
+        if obs_counters.enabled():
+            # the whole model's norms: the split parameters' blocks (and
+            # their gradients' slices) summed over the model axis
+            split = model_split([n for n, _ in state.model.named_parameters()], plan)
+            mg = model_group(mesh)
+            for name, ts in (("grad_norm", grads), ("param_norm", params)):
+                obs_counters.emit(name, global_norm(
+                    [t for t, s in zip(ts, split) if not s],
+                    ([t for t, s in zip(ts, split) if s], mg)))
         opt = state.optimizer
         kept = None
         if ls is not None:  # overflow: keep the old parameters and moments
@@ -164,8 +208,12 @@ class CudaGraphStep:
         self._static_out = None
 
     def _capture(self, state, batch) -> None:
+        from tdfo_tpu_torch.obs import events as _events
+        from tdfo_tpu_torch.obs import trace as _trace
+
         if any(v.device.type != "cuda" for v in batch.values()):
             raise ValueError("CudaGraphStep needs a batch on the card")
+        t0 = _trace.clock()
         snap = state.snapshot()
         self._static_in = {k: v.clone() for k, v in batch.items()}
         side = torch.cuda.Stream()
@@ -179,6 +227,7 @@ class CudaGraphStep:
             _, self._static_out = self.step_fn(state, self._static_in)
         state.restore(snap)  # undo the warm-up steps
         self.graph = graph
+        _events.compiled("cuda_graph:train_step", _trace.elapsed_s(t0))
 
     def __call__(self, state, batch):
         if self.graph is None:
@@ -187,7 +236,15 @@ class CudaGraphStep:
             self._static_in[k].copy_(v)
         self.graph.replay()
         state.step += 1
-        out = self._static_out
-        if isinstance(out, tuple):
-            return state, tuple(t.clone() for t in out)
-        return state, out.clone()
+        return state, _clone_out(self._static_out)
+
+
+def _clone_out(out):
+    """Fresh copies of a step's outputs (tensors in tuples and dicts: the
+    loss, its aux, and a counters dict) so a later replay cannot overwrite
+    what a caller holds."""
+    if isinstance(out, tuple):
+        return tuple(_clone_out(t) for t in out)
+    if isinstance(out, dict):
+        return {k: _clone_out(v) for k, v in out.items()}
+    return out.clone()

@@ -94,6 +94,22 @@ time, so no rank's device holds a whole sharded table), and restore takes
 each rank's shard
 of it, so a run saved at one world size resumes at another.
 
+``[faults]`` (armed at construction, ``utils/faults.py``): ``nan_at_step``
+poisons that run-global step's host batch (the non-finite guard then
+rolls back), ``stall_at_step`` sleeps and ``kill_at_step`` exits after the
+step's checkpoint save; ``fail_io_nth`` fails one ``retry_call``.
+``[telemetry]``: ``counters`` opens an ``obs/counters.py`` collector
+around each step, pipelined step and flush, and cache write-back, all
+wrapped one way (``_with_counters``: inside the CUDA graph when the step
+is captured), and the latest step's and write-back's counters are fetched
+with the loss at the log cadence into ``metrics.jsonl``; ``events``
+records builds, captures and card memory (``events.jsonl``, warm-up
+marked after the first epoch and eval);
+``trace`` attaches the span sinks; ``stall_timeout_s`` runs the watchdog
+while ``fit`` runs; ``log_rotate_bytes`` caps the JSONL sinks.  The
+online loop (``train/online.py``) drives ``_one_step`` and
+:meth:`Trainer.flush_cache` itself.
+
 Knobs whose code paths are not ported yet raise ``NotImplementedError``
 naming the ``ROADMAP.md`` item that ports them (see
 :func:`refuse_unported`); nothing is silently ignored.
@@ -117,6 +133,9 @@ from tdfo_tpu_torch.data.loader import (
     prefetch_to_device,
     resolve_files,
 )
+from tdfo_tpu_torch.obs import counters as obs_counters
+from tdfo_tpu_torch.obs import events as obs_events
+from tdfo_tpu_torch.obs import trace as obs_trace
 from tdfo_tpu_torch.train.checkpoint import CheckpointManager
 from tdfo_tpu_torch.train.metrics import AUC, recalls_and_ndcgs_for_ks
 from tdfo_tpu_torch.train.seq import dropout_generator
@@ -127,6 +146,7 @@ from tdfo_tpu_torch.train.step import (
     make_multi_step,
     make_train_step,
 )
+from tdfo_tpu_torch.utils import faults as _faults
 from tdfo_tpu_torch.utils import retry as _retry
 from tdfo_tpu_torch.utils.summary import MetricLogger, param_summary
 
@@ -207,27 +227,15 @@ def _check_cache_overflow(overflow: dict, mesh=None) -> None:
             "rows) or lower flush_every.")
 
 
-# [faults] triggers the trainer does not act on yet (the serving and
-# request-log triggers act in serve/ and data/replay.py)
-_TRAINING_FAULTS = ("kill_at_step", "nan_at_step", "fail_io_nth",
-                    "stall_at_step", "stall_seconds", "kill_during_replay",
-                    "kill_between_stages", "corrupt_candidate",
-                    "regress_auc_at_cycle", "kill_during_canary",
-                    "slow_canary_at_cycle")
-
-
 def refuse_unported(cfg: Config, world: int | None = None,
-                    device="cuda", backend: str | None = None, *,
-                    serving: bool = False) -> None:
+                    device="cuda", backend: str | None = None) -> None:
     """Raise ``NotImplementedError`` for every knob value whose code path the
     port does not have yet, naming the ``ROADMAP.md`` item that ports it.
     ``world``: the ranks of the process group (default: the running one's,
     1 without one).  ``device`` and ``backend`` (default: the running
     group's): the dense regime's multi-step runs as CUDA-graph replays on
     the card, which capture collectives only over NCCL, so several ranks
-    under gloo refuse it (a ``ValueError``).  ``serving``: the trainer
-    only restores state for a serving entry point, whose watchdog honours
-    ``telemetry.stall_timeout_s``."""
+    under gloo refuse it (a ``ValueError``)."""
     import torch.distributed as dist
 
     if world is None:
@@ -243,22 +251,35 @@ def refuse_unported(cfg: Config, world: int | None = None,
             f"{backend or 'non-NCCL'} backend's collectives run on the host "
             "and cannot be captured (run one rank per card over NCCL, or "
             "steps_per_execution = 1)")
-    tele = cfg.telemetry
-    armed = [f for f in _TRAINING_FAULTS if getattr(cfg.faults, f)]
     checks = [
-        (bool(cfg.planner.plan), "planner.plan", 14),
-        (cfg.write_format != "parquet", f"write_format = {cfg.write_format!r}", 16),
-        (bool(armed), f"[faults] {', '.join(armed)}", 16),
-        (cfg.tensorboard, "tensorboard = true", 16),
-        (tele.counters or tele.events or tele.trace
-         or (tele.stall_timeout_s > 0 and not serving)
-         or tele.log_rotate_bytes > 0, "[telemetry] knobs", 16),
+        (bool(cfg.planner.plan), "planner.plan", "14"),
+        (cfg.write_format != "parquet", f"write_format = {cfg.write_format!r}", "16b"),
+        (cfg.tensorboard, "tensorboard = true", "16b"),
     ]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to tdfo_tpu_torch yet (ROADMAP.md "
                 f"Queue A item {item})")
+
+
+def _with_counters(step_fn, nonfinite=None):
+    """``[telemetry] counters``: a step ``(state, out, *rest)`` (a train
+    step, the pipelined step or flush, the cache write-back) returns
+    ``(state, (out, counters), *rest)``, the collector open for its whole
+    body (inside a CUDA-graph capture when the step is captured, so the
+    counters are graph outputs).  ``nonfinite(logits)``: the CTR steps'
+    ``nonfinite_logits`` counter, emitted in the body from ``out``'s logits
+    (the reference emits it at its in-step AUC fold)."""
+
+    def counted(*args):
+        with obs_counters.collect() as c:
+            state, out, *rest = step_fn(*args)
+            if nonfinite is not None:
+                obs_counters.emit("nonfinite_logits", lambda: nonfinite(out[1]))
+        return (state, (out, dict(c)), *rest)
+
+    return counted
 
 
 class _Quiet:
@@ -376,12 +397,12 @@ class Trainer:
     _METRIC_KS = (10, 20, 50)
 
     def __init__(self, config: Config, *, log_dir: str | Path | None = None,
-                 device="cuda", serving: bool = False):
+                 device="cuda"):
         import torch.distributed as dist
 
         from tdfo_tpu_torch.core.mesh import _resolve_sizes, make_mesh
 
-        refuse_unported(config, device=device, serving=serving)
+        refuse_unported(config, device=device)
         if config.tensor_parallel and config.model != "bert4rec":
             raise ValueError(
                 "tensor_parallel = true splits bert4rec's transformer; "
@@ -401,7 +422,9 @@ class Trainer:
         self.rank = dist.get_rank() if dist.is_initialized() else 0
         self.last_metrics: dict[str, float] = {}
         out_dir = log_dir or config.checkpoint_dir
-        self.logger = MetricLogger(out_dir) if self.rank == 0 else _Quiet()
+        tele = config.telemetry
+        self.logger = (MetricLogger(out_dir, rotate_bytes=tele.log_rotate_bytes)
+                       if self.rank == 0 else _Quiet())
         self._logged_steps = 0  # run-global data-step counter
         self._map_streams: dict = {}
         self._seq = config.model == "bert4rec"
@@ -414,7 +437,37 @@ class Trainer:
         self._a2a_watch = None  # the alltoall capacity's overflow counter
         self._pipe = None  # train.pipeline_overlap's (prime, step, flush)
         if out_dir is not None and self.rank == 0:
-            _retry.set_failure_log(Path(out_dir) / "retries.jsonl")
+            _retry.set_failure_log(Path(out_dir) / "retries.jsonl",
+                                   rotate_bytes=tele.log_rotate_bytes)
+        # [faults], armed from this config; the kill markers live in
+        # checkpoint_dir, so restarting the same command converges
+        _faults.configure(config.faults, config.checkpoint_dir or None)
+        # [telemetry]: counters ride the step's outputs and are fetched with
+        # the losses at the log cadence; build/capture and memory events go
+        # to events.jsonl, spans to trace/, and the stall watchdog beats
+        # heartbeat.jsonl from a thread while fit runs
+        self._counters_on = tele.counters
+        self._step_ctrs: dict = {}  # the latest step's device counters
+        self._flush_ctrs: dict = {}  # the latest cache flush's
+        self._watchdog = None
+        if (tele.events or tele.stall_timeout_s > 0 or tele.trace) and not out_dir:
+            raise ValueError(
+                "telemetry.events / telemetry.stall_timeout_s / "
+                "telemetry.trace need a checkpoint_dir (or log_dir) to "
+                "write events.jsonl / heartbeat.jsonl / trace-*.jsonl")
+        if self.rank == 0:
+            if tele.events:
+                obs_events.configure(Path(out_dir) / "events.jsonl",
+                                     rotate_bytes=tele.log_rotate_bytes)
+            if tele.trace:
+                obs_trace.configure(Path(out_dir) / "trace",
+                                    rotate_bytes=tele.log_rotate_bytes)
+            if tele.stall_timeout_s > 0:
+                from tdfo_tpu_torch.obs.watchdog import StallWatchdog
+
+                self._watchdog = StallWatchdog(
+                    Path(out_dir) / "heartbeat.jsonl", tele.stall_timeout_s,
+                    rotate_bytes=tele.log_rotate_bytes)
         if config.checkpoint_dir:
             self._ckpt = CheckpointManager(config.checkpoint_dir)
         if self._seq:
@@ -516,7 +569,10 @@ class Trainer:
             model=model, learning_rate=cfg.learning_rate,
             weight_decay=cfg.weight_decay, loss_scale=loss_scale,
             capturable=on_card)
-        inner = make_train_step(with_aux=True, mesh=self.mesh)
+        inner = make_train_step(with_aux=True, mesh=self.mesh,
+                                plan=self._ps_plan)
+        if self._counters_on:
+            inner = _with_counters(inner, self._nonfinite)
         self.train_step = (CudaGraphStep(inner)
                            if on_card and cfg.steps_per_execution > 1 else inner)
         self.eval_step = make_eval_step()
@@ -658,6 +714,8 @@ class Trainer:
             if caches:
                 self.state.slots.update(caches)
                 self._cache_flush = make_cache_flush_fn(coll)
+                if self._counters_on:
+                    self._cache_flush = _with_counters(self._cache_flush)
                 self._flush_every = cfg.embeddings.flush_every
         if cfg.train.pipeline_overlap:
             # TrainPipelineSparseDist parity: batch N+1's input-dist is in
@@ -674,11 +732,17 @@ class Trainer:
             self._pipe = make_pipelined_sparse_train_step(
                 coll, ctr_sparse_forward(backbone, with_logits=True),
                 with_aux=True)
+            if self._counters_on:
+                self._pipe = self._pipe._replace(
+                    step=_with_counters(self._pipe.step, self._nonfinite),
+                    flush=_with_counters(self._pipe.flush, self._nonfinite))
         else:
             self.train_step = make_sparse_train_step(
                 coll, ctr_sparse_forward(backbone, with_logits=True),
                 mode=cfg.lookup_mode, with_aux=True,
                 dedup_lookup=cfg.dedup_lookup)
+            if self._counters_on:
+                self.train_step = _with_counters(self.train_step, self._nonfinite)
         if (self.mesh is not None and cfg.lookup_mode == "alltoall"
                 and coll.a2a_capacity_factor is not None):
             # ids a finite capacity dropped (they read zeros): logged at
@@ -758,12 +822,18 @@ class Trainer:
                 self.coll, bert4rec_sparse_forward(self.backbone),
                 batch_transform=transform,
                 tensor_parallel=cfg.tensor_parallel)
+            if self._counters_on:
+                self._pipe = self._pipe._replace(
+                    step=_with_counters(self._pipe.step),
+                    flush=_with_counters(self._pipe.flush))
         else:
             self.train_step = make_sparse_train_step(
                 self.coll, bert4rec_sparse_forward(self.backbone),
                 mode=cfg.lookup_mode, dedup_lookup=cfg.dedup_lookup,
                 batch_transform=transform,
                 tensor_parallel=cfg.tensor_parallel)
+            if self._counters_on:
+                self.train_step = _with_counters(self.train_step)
         self._set_patterns("parquet_bert4rec")
         self._eval_schema = {"seqs": np.int32, "cands": np.int32}
         self._eval_rename = lambda raw: {"seqs": raw["eval_seqs"],
@@ -841,6 +911,19 @@ class Trainer:
                     for b in stream)
         else:
             host = iter(stream)
+        inj = _faults.active()
+        if inj is not None and inj.spec.nan_at_step:
+            # keyed on the run-global data position (stable across resume
+            # and steps_per_execution regrouping); _logged_steps holds the
+            # epoch-start value until the epoch ends
+            base, poison = self._logged_steps, inj.poison_batch
+
+            def poisoned(gen, pos):
+                for b in gen:
+                    pos += 1
+                    yield poison(b, base + pos)
+
+            host = poisoned(host, skip)
         spe = cfg.steps_per_execution
         if spe <= 1:
             for batch in prefetch_to_device(host, self.device):
@@ -862,22 +945,43 @@ class Trainer:
 
     # ---------------------------------------------------------------- train
 
+    def dropout_generator(self, step: int):
+        """Bert4Rec's dropout generator of train step ``step`` (the
+        reference's ``_dropout_rng`` folded with ``state.step``)."""
+        return dropout_generator(self.config.seed + 1, step, self.device)
+
     def _one_step(self, state, batch):
         """One train step and the trainer's folds: Bert4Rec's per-step
-        dropout generator, the CTR train AUC.  ``(state, loss)``."""
+        dropout generator, the CTR train AUC, and with ``[telemetry]
+        counters`` the step's counters kept (on the device) for the log
+        boundary.  ``(state, loss)``."""
         if self._seq:
-            gen = dropout_generator(self.config.seed + 1, state.step, self.device)
-            return self.train_step(state, batch, gen)
-        state, (loss, logits) = self.train_step(state, batch)
-        self._fold_auc(batch["label"], logits)
-        return state, loss
+            state, out = self.train_step(state, batch,
+                                         self.dropout_generator(state.step))
+        else:
+            state, out = self.train_step(state, batch)
+        return state, self._fold(out, None if self._seq else batch["label"])
 
-    def _fold_auc(self, labels, logits) -> None:
-        logits = logits.float()  # a narrow compute dtype's logits
-        ok = torch.isfinite(logits)
-        self._train_auc = self._train_auc.update(
-            labels, torch.sigmoid(torch.where(ok, logits, 0.0)),
-            ok.to(torch.float32))
+    def _fold(self, out, labels):
+        """A step's output -> its loss: the counters kept and, for the CTR
+        family (``labels`` given), the logits folded into the train AUC."""
+        if self._counters_on:
+            out, self._step_ctrs = out
+        if labels is None:
+            return out
+        loss, logits = out
+        if self._train_auc is not None:  # the online loop trains without it
+            logits = logits.float()  # a narrow compute dtype's logits
+            ok = torch.isfinite(logits)
+            self._train_auc = self._train_auc.update(
+                labels, torch.sigmoid(torch.where(ok, logits, 0.0)),
+                ok.to(torch.float32))
+        return loss
+
+    def _nonfinite(self, logits):
+        """The global batch's non-finite logits (the ``nonfinite_logits``
+        counter, which the AUC fold weighs out)."""
+        return self._data_sum([(~torch.isfinite(logits)).sum().to(torch.float32)])[0]
 
     def _pipelined_step(self, state, batch, carry):
         """The pipelined step: trains the CARRIED batch, so the AUC folds the
@@ -885,21 +989,23 @@ class Trainer:
         the dropout generator of the step it trains.  ``(state, loss,
         carry)``."""
         if self._seq:
-            gen = dropout_generator(self.config.seed + 1, state.step, self.device)
-            return self._pipe.step(state, batch, carry, gen)
-        labels = carry[0]["label"]
-        state, (loss, logits), carry = self._pipe.step(state, batch, carry)
-        self._fold_auc(labels, logits)
-        return state, loss, carry
+            labels = None
+            state, out, carry = self._pipe.step(
+                state, batch, carry, self.dropout_generator(state.step))
+        else:
+            labels = carry[0]["label"]
+            state, out, carry = self._pipe.step(state, batch, carry)
+        return state, self._fold(out, labels), carry
 
     def _pipelined_flush(self, state, carry):
         if self._seq:
-            gen = dropout_generator(self.config.seed + 1, state.step, self.device)
-            return self._pipe.flush(state, carry, gen)
-        labels = carry[0]["label"]
-        state, (loss, logits) = self._pipe.flush(state, carry)
-        self._fold_auc(labels, logits)
-        return state, loss
+            labels = None
+            state, out = self._pipe.flush(
+                state, carry, self.dropout_generator(state.step))
+        else:
+            labels = carry[0]["label"]
+            state, out = self._pipe.flush(state, carry)
+        return state, self._fold(out, labels)
 
     def single_device_state(self) -> dict | None:
         """The state's tensor-dict form in the single-device layout (what a
@@ -932,6 +1038,7 @@ class Trainer:
         per window).  The train AUC is not in the cursor: after a
         mid-epoch resume it covers the steps run since."""
         cfg = self.config
+        inj = _faults.active()
         t0 = time.perf_counter()
         n_steps = start_step
         next_log = start_step + cfg.log_every_n_steps
@@ -1016,11 +1123,12 @@ class Trainer:
                     losses = loss.reshape(1)
                 n_steps += k
                 gstep = self._logged_steps + n_steps
+                if self._watchdog is not None:
+                    self._watchdog.beat(gstep)
                 pending.append((losses, k, gstep))
                 pending_steps += k
                 if next_flush is not None and n_steps >= next_flush:
-                    self.state, over = self._cache_flush(self.state)
-                    pending_over.append(over)
+                    pending_over.append(self._run_cache_flush())
                     next_flush = (n_steps // flush_n + 1) * flush_n
                 if pending_steps >= flush_every:
                     flush_checks()
@@ -1032,19 +1140,24 @@ class Trainer:
                     # state rolls back BEFORE the save; checkpoints hold
                     # flushed tables
                     flush_checks()
-                    self._flush_cache_sync()
+                    self.flush_cache()
                     self._save(gstep, {"epoch": epoch, "step": n_steps,
                                        "epoch_complete": False,
                                        "global_step": gstep,
                                        "loss_sum": loss_sum,
                                        "contributed": contributed})
                     next_ckpt = (n_steps // ckpt_n + 1) * ckpt_n
+                if inj is not None:
+                    inj.maybe_stall(gstep)  # a host-side sleep
+                    inj.maybe_kill(gstep)  # after the save: it is durable
                 if n_steps >= next_log:
                     extra = ({} if self._a2a_watch is None or k > 1 else
                              {"a2a_overflow": int(self._a2a_watch(batch))})
                     self.logger.log(epoch=epoch, step=n_steps,
-                                    train_loss=float(losses[-1]),
+                                    **self._log_values(losses[-1]),
                                     global_step=gstep, **extra)
+                    if obs_events.active():
+                        obs_events.memory_snapshot()
                     next_log = n_steps + cfg.log_every_n_steps
             if carry is not None:
                 # drain the pipeline: the last carried batch trains here
@@ -1057,7 +1170,7 @@ class Trainer:
             if prof is not None:  # the epoch ended (or raised) mid-window
                 self._stop_profile(prof, epoch)
         flush_checks()
-        self._flush_cache_sync()  # epoch boundary: leave the tables flushed
+        self.flush_cache()  # epoch boundary: leave the tables flushed
         dt = time.perf_counter() - t0
         ran = n_steps - start_step  # steps executed in this session
         self._logged_steps += n_steps
@@ -1070,13 +1183,37 @@ class Trainer:
                         / max(dt, 1e-9), **extra)
         return avg
 
-    def _flush_cache_sync(self) -> None:
+    def _log_values(self, loss) -> dict[str, float]:
+        """``train_loss`` and, with ``[telemetry] counters``, the latest
+        step's and cache flush's counters (and each cache's hit rate), in
+        ONE host fetch: the log boundary's sync, which the loss needed
+        anyway."""
+        ctrs = {**self._step_ctrs, **self._flush_ctrs} if self._counters_on else {}
+        vals = torch.stack([loss.reshape(()).to(torch.float32)]
+                           + [v.to(loss.device) for v in ctrs.values()]).tolist()
+        rec = {"train_loss": vals[0], **dict(zip(ctrs, vals[1:]))}
+        for ck in [c for c in rec if c.endswith("cache_hit_rows")]:
+            base = ck[: -len("hit_rows")]
+            tot = rec[ck] + rec.get(base + "miss_rows", 0.0)
+            if tot:
+                rec[base + "hit_rate"] = rec[ck] / tot
+        return rec
+
+    def _run_cache_flush(self) -> dict:
+        """One cache write-back (its counters kept with ``[telemetry]
+        counters``); returns the overflow counts."""
+        self.state, over = self._cache_flush(self.state)
+        if self._counters_on:
+            over, self._flush_ctrs = over
+        return over
+
+    def flush_cache(self) -> None:
         """Write the update cache back now and check that no admission
-        overflowed (no-op when the cache is off)."""
+        overflowed (no-op when the cache is off): before every checkpoint,
+        eval and serving export."""
         if self._cache_flush is None:
             return
-        self.state, over = self._cache_flush(self.state)
-        _check_cache_overflow(over, self.mesh)
+        _check_cache_overflow(self._run_cache_flush(), self.mesh)
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -1099,6 +1236,17 @@ class Trainer:
         path = out / f"trace_epoch{epoch}.json"
         prof.export_chrome_trace(str(path))
         self.logger.log(epoch=epoch, profile_trace=str(path))
+
+    def close_telemetry(self) -> None:
+        """Stop the watchdog and detach the event recorder (its last record
+        the run-peak memory watermark) and the trace sinks."""
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        if obs_events.active():
+            obs_events.record("run_summary", peak_bytes=obs_events.peak_memory())
+            obs_events.configure(None)
+        if obs_trace.active():
+            obs_trace.configure(None)
 
     # ----------------------------------------------------------------- eval
 
@@ -1123,6 +1271,8 @@ class Trainer:
             n = 0
             for raw in stream:
                 n += 1
+                if self._watchdog is not None:  # eval batches are liveness
+                    self._watchdog.beat(self._logged_steps)
                 if rename is not None:
                     try:
                         raw = rename(raw)
@@ -1150,7 +1300,7 @@ class Trainer:
         """Eval metrics over the eval split: loss and streaming AUC
         (TwoTower), Recall/NDCG@k (Bert4Rec); one host fetch at the end.
         The update cache is flushed first: eval reads the tables."""
-        self._flush_cache_sync()
+        self.flush_cache()
         if self._seq:
             return self._evaluate_bert4rec(epoch)
         loss_sum = torch.zeros((), device=self.device)
@@ -1252,6 +1402,8 @@ class Trainer:
         start_epoch = 0
         resume = {"step": 0, "loss_sum": 0.0, "contributed": 0}
         metrics: dict[str, float] = {}
+        if self._watchdog is not None:
+            self._watchdog.start()
         try:
             restored = (self._ckpt.restore(self._ckpt_view(),
                                            stamps=self._ckpt_stamps)
@@ -1283,6 +1435,10 @@ class Trainer:
                                  contributed=resume["contributed"])
                 resume = {"step": 0, "loss_sum": 0.0, "contributed": 0}
                 metrics = self.evaluate(epoch)
+                if epoch == start_epoch and obs_events.active():
+                    # every kernel, graph and program of the steady cadence
+                    # is built by the end of the first epoch and eval
+                    obs_events.mark_warmup()
                 if self._ckpt is not None and (
                         (epoch + 1) % cfg.checkpoint_every_n_epochs == 0
                         or epoch == cfg.n_epochs - 1):
@@ -1295,6 +1451,7 @@ class Trainer:
             metrics.update(self.evaluate_test())
             self.last_metrics = metrics
         finally:
+            self.close_telemetry()
             self.logger.close()
             if self._ckpt is not None:
                 self._ckpt.close()

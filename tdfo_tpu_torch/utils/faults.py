@@ -17,14 +17,14 @@ one ``is None`` check per site.  Where each trigger acts in the port:
   a real ``SIGKILL`` to the replica's pid);
 * the request log (``data/replay.py::RequestLog``):
   ``truncate_log_at_byte``, ``dup_record_nth``, ``corrupt_record_nth``;
-* ``fail_io_nth``: the Nth call protected by ``utils/retry.retry_call``.
-
-The trainer still refuses the training, replay and online-loop triggers
-(``kill_at_step``, ``nan_at_step``, ``fail_io_nth``, ``stall_*``,
-``kill_during_replay``, ``kill_between_stages``, ``corrupt_candidate``,
-``regress_auc_at_cycle``, ``kill_during_canary``,
-``slow_canary_at_cycle``): ``train/trainer.py::refuse_unported``,
-``ROADMAP.md`` item 16.
+* ``fail_io_nth``: the Nth call protected by ``utils/retry.retry_call``;
+* training (``train/trainer.py``): ``nan_at_step`` poisons the host batch
+  of that run-global step, ``stall_at_step`` / ``stall_seconds`` sleep and
+  ``kill_at_step`` exits after that step's checkpoint save;
+* the online loop (``train/online.py``, ``data/replay.py``):
+  ``kill_during_replay``, ``kill_between_stages``, ``corrupt_candidate``,
+  ``regress_auc_at_cycle``, ``kill_during_canary`` and
+  ``slow_canary_at_cycle``.
 """
 
 from __future__ import annotations

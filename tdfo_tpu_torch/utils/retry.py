@@ -1,10 +1,10 @@
 """Retryable I/O: exponential backoff + jitter, bounded attempts, JSONL log.
 
 Port of ``tdfo_tpu/utils/retry.py`` (the loader, the bundle store and the
-wire's connects call :func:`retry_call`).  An armed ``[faults]
-fail_io_nth`` makes the Nth protected call raise an injected ``OSError``
-once (``utils/faults.py``; the trainer still refuses the trigger).  The
-failure log is not rotated.  The reference's docstring follows.
+wire's connects and the checkpoint manager call :func:`retry_call`).  An
+armed ``[faults] fail_io_nth`` makes the Nth protected call raise an
+injected ``OSError`` once (``utils/faults.py``), which the retry absorbs
+and logs.  The reference's docstring follows.
 
 The reference stacks assume I/O never fails mid-run (orbax writes, parquet
 opens, TFRecord scans all raise straight through and kill the job).  On
@@ -33,13 +33,17 @@ __all__ = ["backoff_delay", "retry_call", "set_failure_log", "recent_failures"]
 # log file is configured
 _RECENT: collections.deque = collections.deque(maxlen=256)
 _LOG_PATH: Path | None = None
+_ROTATE_BYTES: int = 0
 
 
-def set_failure_log(path: str | Path | None) -> None:
+def set_failure_log(path: str | Path | None, *, rotate_bytes: int = 0) -> None:
     """Route failure records to a JSONL file (``None`` disables).  The
-    trainer points this at ``<log_dir>/retries.jsonl``."""
-    global _LOG_PATH
+    trainer points this at ``<log_dir>/retries.jsonl``.  ``rotate_bytes``
+    > 0 retires the file to ``retries.jsonl.1`` once it reaches that size
+    (``[telemetry] log_rotate_bytes``)."""
+    global _LOG_PATH, _ROTATE_BYTES
     _LOG_PATH = Path(path) if path is not None else None
+    _ROTATE_BYTES = int(rotate_bytes)
 
 
 def recent_failures() -> list[dict[str, Any]]:
@@ -54,6 +58,9 @@ def _record(rec: dict[str, Any]) -> None:
             _LOG_PATH.parent.mkdir(parents=True, exist_ok=True)
             with open(_LOG_PATH, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+            from tdfo_tpu_torch.utils.logrotate import maybe_rotate_path
+
+            maybe_rotate_path(_LOG_PATH, _ROTATE_BYTES)
         except OSError:
             pass  # the failure log must never turn a retry into a crash
 

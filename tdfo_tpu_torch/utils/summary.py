@@ -5,8 +5,9 @@ Ports ``MetricLogger`` (``tdfo_tpu/train/trainer.py``) and ``param_summary``
 JSON object per ``log`` call with the caller's keys plus ``time``; training
 writes ``{epoch, step, train_loss, global_step}`` at the log cadence,
 ``{epoch, train_loss_epoch, steps, examples_per_sec, train_auc}`` per epoch
-and ``{epoch, eval_loss, auc}`` per eval.  TensorBoard mirroring and size
-rotation are not ported yet (``ROADMAP.md`` Queue A item 16).
+and ``{epoch, eval_loss, auc}`` per eval.  ``rotate_bytes > 0`` (``[telemetry]
+log_rotate_bytes``) retires a full ``metrics.jsonl`` to ``metrics.jsonl.1``.
+TensorBoard mirroring is not ported yet (``ROADMAP.md`` Queue A item 16b).
 """
 
 from __future__ import annotations
@@ -25,11 +26,14 @@ __all__ = ["MetricLogger", "param_summary"]
 class MetricLogger:
     """stdout + ``<log_dir>/metrics.jsonl``."""
 
-    def __init__(self, log_dir: str | Path | None = None):
+    def __init__(self, log_dir: str | Path | None = None, rotate_bytes: int = 0):
         self._f = None
+        self._rotate_bytes = int(rotate_bytes)
+        self._path: Path | None = None
         if log_dir is not None:
             Path(log_dir).mkdir(parents=True, exist_ok=True)
-            self._f = open(Path(log_dir) / "metrics.jsonl", "a")
+            self._path = Path(log_dir) / "metrics.jsonl"
+            self._f = open(self._path, "a")
 
     def log(self, **record: Any) -> None:
         record = {
@@ -44,6 +48,10 @@ class MetricLogger:
         if self._f is not None:
             self._f.write(json.dumps(record) + "\n")
             self._f.flush()
+            if self._rotate_bytes:
+                from tdfo_tpu_torch.utils.logrotate import maybe_rotate_file
+
+                self._f = maybe_rotate_file(self._f, self._path, self._rotate_bytes)
 
     def close(self) -> None:
         """Idempotent; later ``log`` calls fall back to stdout only."""

@@ -31,6 +31,7 @@
 import functools
 import json
 import math
+import shutil
 import tempfile
 from pathlib import Path
 
@@ -90,6 +91,10 @@ def _body(root, size_map, name, **kw):
 def _runs():
     ranks = Ranks(2, Path(tempfile.mkdtemp(prefix="mp_fit_ranks_")))
     root, size_map = _data()
+    # a run after a failed one starts its fits over, not from the
+    # checkpoints the failed set left
+    for name in ("w2_psum", "w1_dense", "w2_dense", "w2_a2a", "w2_kill", "w2_one"):
+        shutil.rmtree(root / name, ignore_errors=True)
     mesh = {"data": 1, "model": 2}
     cfg = root / "psum.toml"
     cfg.write_text(_toml(_body(root, size_map, "w2_psum", lookup_mode="psum",

@@ -151,19 +151,14 @@ def test_serve_dlrm_criteo_fresh_init(tmp_path):
 ])
 def test_unported_serving_knobs_refuse(goodreads, serving, telemetry, item):
     """The three serving knobs that refused (naming ``item``) are ported:
-    the fleet, the request log and the serving watchdog pass the serving
-    entry's check; training still refuses the watchdog knob by its item."""
+    the fleet, the request log and the stall watchdog pass the port's
+    check, for serving and for training alike."""
     from tdfo_tpu_torch.train.trainer import refuse_unported
 
     cfg = read_configs(_toml(goodreads, name="refuse.toml", serving=serving))
     if telemetry:
         cfg = cfg.replace(telemetry=cfg.telemetry.__class__(**telemetry))
-    refuse_unported(cfg, device="cpu", serving=True)
-    if telemetry:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            refuse_unported(cfg, device="cpu")
-    else:
-        refuse_unported(cfg, device="cpu")
+    refuse_unported(cfg, device="cpu")
 
 
 def test_serve_defaults_to_the_card(goodreads):

@@ -38,6 +38,7 @@ held to its bound (3 lr), not the ladder, as in
 
 import functools
 import json
+import shutil
 import tempfile
 from pathlib import Path
 
@@ -170,6 +171,16 @@ def _runs():
     ranks = {w: Ranks(2 if w == "fits" else w,
                       Path(tempfile.mkdtemp(prefix=f"b4r_{w}_")))
              for w in (2, 4, "fits")}
+    try:
+        return _run_sets(ranks)
+    except BaseException:
+        # no set of a failed run goes on writing beside the next one
+        for r in ranks.values():
+            r.kill()
+        raise
+
+
+def _run_sets(ranks):
     cases: dict = {2: {}, 4: {}, "fits": {}}
     for name, (world, mesh, opts) in LAYOUTS.items():
         cases[world][name] = _case(opts, 0.1, mesh)
@@ -182,6 +193,10 @@ def _runs():
     cases["fits"]["tp_alltoall"] = dict(fn="fit", body=_fit_body(
         "tp_alltoall", True, mesh={"data": 1, "model": 2}, tensor_parallel=True,
         lookup_mode="alltoall"))
+    # a run after a failed one starts its fits over, not from the
+    # checkpoints the failed set left
+    for case in cases["fits"].values():
+        shutil.rmtree(case["body"]["checkpoint_dir"], ignore_errors=True)
     ranks["fits"].send(cases["fits"])
     # the one-device side and the reference while the ranks run
     refs = {"port": {}, "jax": _jax_run()}

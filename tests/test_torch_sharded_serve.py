@@ -33,7 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_dist_worker import REPO, Ranks, _free_port
+from torch_dist_worker import REPO, Ranks
 from torch_serve_helpers import assert_retrieval_matches
 
 from tdfo_tpu.core.config import MeshSpec as JMeshSpec
@@ -113,7 +113,7 @@ def _runs():
                PYTHONPATH=f"{REPO}{os.pathsep}" + os.environ.get("PYTHONPATH", ""))
     torchrun = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-         "--master-port", str(_free_port()), "-m", "tdfo_tpu_torch.launch", "serve",
+         "--standalone", "-m", "tdfo_tpu_torch.launch", "serve",
          "--config", str(cli), "--device", "cpu", "--log-dir", str(tmp / "cli")],
         cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     # the one-device and JAX sides while the ranks run

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
 import subprocess
 import sys
 import time
@@ -35,12 +34,6 @@ if __name__ != "__main__":
     torch.set_num_threads(1)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 class Ranks:
     """``world`` gloo rank processes, started before their cases exist: they
     import torch and the port and join their process group while the test
@@ -51,8 +44,13 @@ class Ranks:
         self.world, self.tmp, self.timeout = world, Path(tmp), timeout
         self.tmp.mkdir(parents=True, exist_ok=True)
         self.inp = self.tmp / f"cases_{world}.pkl"
-        env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1")
+        # a file rendezvous in the set's own folder: no port is probed and
+        # released before the ranks bind it, so no other process can take
+        # it in between
+        store = self.tmp / f"rendezvous_{world}"
+        store.unlink(missing_ok=True)
+        env = dict(os.environ, WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+                   TDFO_TEST_RENDEZVOUS=f"file://{store}")
         env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
         self.procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), str(self.inp),
@@ -73,8 +71,7 @@ class Ranks:
             try:
                 out, _ = p.communicate(timeout=self.timeout)
             except subprocess.TimeoutExpired:
-                for q in self.procs:
-                    q.kill()
+                self.kill()
                 raise
             logs.append(out)
         for r, p in enumerate(self.procs):
@@ -82,6 +79,15 @@ class Ranks:
                 raise RuntimeError(f"rank {r} exited {p.returncode}:\n{logs[r][-4000:]}")
         return [pickle.loads((self.tmp / f"rank{r}_{self.world}.pkl").read_bytes())
                 for r in range(self.world)]
+
+
+    def kill(self) -> None:
+        """Stop every rank (a failed set leaves nothing running that could
+        still write into its folders)."""
+        for p in self.procs:
+            p.kill()
+        for p in self.procs:
+            p.wait()
 
 
 def run_ranks(world: int, cases: dict, tmp: Path, timeout: float = 240.0) -> list[dict]:
@@ -778,6 +784,38 @@ def case_fit(case):
     return out
 
 
+def counter_steps(body: dict, steps: int, batches=None) -> tuple[list, list]:
+    """``steps`` train steps of a ``[telemetry] counters`` trainer of
+    ``body`` (train AUC off) on its own stream, or on ``batches`` (numpy
+    dicts); each step's counters as floats (the last with the cache
+    write-back's after it), and the batches trained, as numpy."""
+    import torch
+
+    from tdfo_tpu_torch.core.config import read_configs
+    from tdfo_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(read_configs(None, **dict(body, telemetry={"counters": True})),
+                 device="cpu")
+    tr._train_auc = None
+    if batches is None:
+        batches = [{k: v.numpy() for k, v in b.items()}
+                   for _, (b, _) in zip(range(steps), tr._train_batches(0))]
+    out = []
+    for b in batches:
+        tr.state, _ = tr._one_step(tr.state, {k: torch.from_numpy(v)
+                                              for k, v in b.items()})
+        out.append({k: float(v) for k, v in tr._step_ctrs.items()})
+    if tr._cache_flush is not None:
+        tr._run_cache_flush()
+        out[-1].update({k: float(v) for k, v in tr._flush_ctrs.items()})
+    return out, batches
+
+
+def case_counters(case):
+    """:func:`counter_steps` of the case's config under its mesh."""
+    return counter_steps(case["body"], case["steps"])
+
+
 def case_retrieval(case):
     """The case's catalogue (global f32 ``rows`` and ``ids``) as this rank's
     corpus shard at each dtype, retrieved with the same ``queries`` for
@@ -843,12 +881,12 @@ def case_restore(case):
 def main() -> None:
     import torch
 
-    from tdfo_tpu_torch.core.mesh import initialize_distributed
-
     torch.set_num_threads(1)
     inp, out_dir, timeout = Path(sys.argv[1]), Path(sys.argv[2]), float(sys.argv[3])
-    initialize_distributed("cpu")
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.distributed.init_process_group(
+        "gloo", init_method=os.environ["TDFO_TEST_RENDEZVOUS"], rank=rank,
+        world_size=world)
     deadline = time.monotonic() + timeout
     while not inp.exists():  # the test is still building the cases
         if time.monotonic() > deadline:
